@@ -1,0 +1,116 @@
+"""Shared building blocks for the named-model zoo, on NCHW tensors.
+
+Every weight-bearing layer is named by construction order (``conv000``,
+``bn000``, ``dense000``, ...) via :class:`Namer`, the same names and order
+as the Flax zoo of ``sparkdl_tpu``, so weights convert key by key
+(``models/convert.py``). Public model functions take NHWC like the JAX
+package; inside, tensors are NCHW in ``channels_last`` memory format.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BN_EPS = 1e-3  # Keras' BatchNormalization default, as the zoo uses
+
+
+class Namer:
+    """Construction-order names for weight-bearing layers."""
+
+    def __init__(self) -> None:
+        self._counts: dict[str, int] = {}
+
+    def next(self, kind: str) -> str:
+        i = self._counts.get(kind, 0)
+        self._counts[kind] = i + 1
+        return f"{kind}{i:03d}"
+
+    def conv(self) -> str:
+        return self.next("conv")
+
+    def bn(self) -> str:
+        return self.next("bn")
+
+    def dense(self) -> str:
+        return self.next("dense")
+
+
+def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
+    """TF "SAME" padding (before, after) along one axis. At stride 2 it is
+    asymmetric (the extra pixel goes after), where torch's ``padding=``
+    is always symmetric."""
+    out = math.ceil(size / stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d_tf(x: torch.Tensor, weight: torch.Tensor, bias=None,
+              stride: int = 1, padding: str = "SAME") -> torch.Tensor:
+    """``F.conv2d`` with TF padding semantics ("SAME" or "VALID")."""
+    if padding == "VALID":
+        return F.conv2d(x, weight, bias, stride)
+    if padding != "SAME":
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+    kh, kw = weight.shape[-2:]
+    top, bottom = same_padding(x.shape[-2], kh, stride)
+    left, right = same_padding(x.shape[-1], kw, stride)
+    if top == bottom and left == right:
+        return F.conv2d(x, weight, bias, stride, padding=(top, left))
+    return F.conv2d(F.pad(x, (left, right, top, bottom)), weight, bias, stride)
+
+
+def make_conv_bn(c_in: int, c_out: int, kernel: tuple[int, int]):
+    """A bias-free conv and a BatchNorm(eps 1e-3) without a learned scale:
+    the BN weight is fixed at 1, as Keras' ``scale=False`` has it."""
+    conv = nn.Conv2d(c_in, c_out, kernel, bias=False)
+    bn = nn.BatchNorm2d(c_out, eps=BN_EPS, momentum=0.01)
+    bn.weight.requires_grad_(False)
+    return conv, bn
+
+
+def conv_bn_relu(x, conv: nn.Conv2d, bn: nn.BatchNorm2d, stride: int = 1,
+                 padding: str = "SAME"):
+    """Eval conv -> BatchNorm on its running statistics -> ReLU."""
+    x = conv2d_tf(x, conv.weight, None, stride, padding)
+    x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                     False, 0.0, bn.eps)
+    return torch.relu(x)
+
+
+def max_pool(x, window: int = 3, strides: int = 2, padding: str = "VALID"):
+    if padding != "VALID":
+        raise ValueError("only VALID max-pooling is used by the zoo")
+    return F.max_pool2d(x, window, strides)
+
+
+def avg_pool_keras(x, window: int = 3, strides: int = 1, padding: str = "SAME"):
+    """Average pool with Keras semantics: padded cells are excluded from
+    the divisor (count_include_pad=False)."""
+    if padding != "SAME" or strides != 1 or window % 2 == 0:
+        raise ValueError("only stride-1 odd-window SAME average pooling is used")
+    return F.avg_pool2d(x, window, strides, padding=window // 2,
+                        count_include_pad=False)
+
+
+def global_avg_pool(x):
+    return x.mean(dim=(2, 3))
+
+
+def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
+    """NHWC tensor -> NCHW view in channels_last memory (no copy when x
+    is contiguous NHWC)."""
+    return x.permute(0, 3, 1, 2)
+
+
+def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Flax's default kernel init (variance_scaling(1, fan_in, truncated
+    normal)): N(0, 1/fan_in) truncated at 2 std, std corrected for the cut."""
+    fan_in = w[0].numel()  # torch weights are [out, in, kh, kw] or [out, in]
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                     generator=generator)
