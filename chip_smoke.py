@@ -5,12 +5,17 @@
 
 Builds every CUDA kernel of the port from ``sparkdl_torch/csrc/`` (into
 ``sparkdl_torch/_build/``), holds each kernel against its plain PyTorch
-version at the shapes of the main path, then drives the main path —
-``DeepImageFeaturizer(modelName="InceptionV3")`` over a LocalDataFrame
-of 256 random 299x299 images, on random weights from a fixed seed — and
-checks that it went through the kernels and agrees with the plain
-forward. Each phase prints one line; any failure raises and exits
-non-zero. The last two lines are a JSON object of per-kernel numbers and
+version at the shapes of the paths that run it, then drives the port's
+two paths, each on random weights from a fixed seed, and checks that
+each went through its kernels and agrees with a kernel-free run:
+
+- ``DeepImageFeaturizer(modelName="InceptionV3")`` over a LocalDataFrame
+  of 256 random 299x299 images (the stem kernel);
+- ``DeepTextGenerator`` at GPT-2-small width over 64 random prompts
+  (the flash attention and flash decode kernels).
+
+Each phase prints one line; any failure raises and exits non-zero. The
+last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``. Needs CUDA; imports nothing of JAX.
 """
 
@@ -33,6 +38,24 @@ N_ROWS, N_PARTS = 256, 4
 STEM_TOL = 1e-5   # f32 kernel vs f32 plain: only the summation order differs
 NET_TOL = 1e-4    # after ~90 more f32 cuDNN convs on both sides
 
+HEADS, HEAD_DIM = 12, 64            # GPT-2 small (and BERT/ViT base)
+GEN_BATCH, GEN_LEN, GEN_NEW = 16, 128, 32
+GEN_ROWS = 64
+BERT_BATCH, BERT_LEN = 32, 197      # BERT/ViT base: ViT-B/16 has 197 tokens
+ATTN_TOL = 1e-5        # f32 kernel vs f32 plain: only the summation order differs
+BF16_TOL = 2.0 ** -6   # two bf16 steps: each side rounds P and the output itself
+LOGIT_TOL = 1e-4       # 12 layers of f32 on both sides, attention sums reordered
+
+
+def _zero_counts():
+    """Set every kernel wrapper's launch count to 0."""
+    from sparkdl_torch.ops.flash_attention import flash_attention
+    from sparkdl_torch.ops.flash_decode import flash_decode
+    from sparkdl_torch.ops.stem_fused import inception_stem_fused
+
+    for fn in (inception_stem_fused, flash_attention, flash_decode):
+        fn.launches = 0
+
 
 def _time_ms(fn, warmup: int = 3, reps: int = 25) -> float:
     """Median of per-call CUDA-event times."""
@@ -49,6 +72,38 @@ def _time_ms(fn, warmup: int = 3, reps: int = 25) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def _device_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device ms per call: ``calls`` calls captured in one CUDA graph and
+    replayed ``reps`` times between CUDA events (median), so the host's
+    per-call cost (Python, argument checks, launch) is not in the number.
+    Inputs stay where the caller left them (hot in L2 when they fit)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    torch.cuda.empty_cache()
     return sorted(times)[len(times) // 2]
 
 
@@ -221,7 +276,7 @@ def phase_main_path(stem_entry: dict):
 
     featurizer.transform(df).collect()  # warm-up: model, runner, cuDNN plans
     torch.cuda.synchronize()
-    inception_stem_fused.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     out = featurizer.transform(df).collect()
     torch.cuda.synchronize()
@@ -271,6 +326,361 @@ def phase_main_path(stem_entry: dict):
     return N_ROWS / secs
 
 
+def _left_padded_mask(rng, b: int, length: int):
+    """bool [B, L] on the card: each row's real keys are a suffix of
+    random length 8..L (the generator's left-padded prompts)."""
+    import torch
+
+    lens = torch.from_numpy(rng.integers(8, length + 1, b))
+    return (torch.arange(length)[None, :] >= (length - lens)[:, None]).cuda()
+
+
+def _bound(flops: float, nbytes: float) -> tuple[float, str]:
+    ops_ms = flops / H100_F32_FLOPS * 1e3
+    bytes_ms = nbytes / H100_BYTES_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def phase_flash_attention(card: str) -> dict:
+    """The kernel against flash_attention_reference on the card, f32 and
+    bf16 (output and lse), at the GPT-2 prefill, the cached prefill and
+    the BERT/ViT shapes; timed in f32 against its bound and against
+    scaled_dot_product_attention on the same inputs."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from sparkdl_torch.ops.flash_attention import (
+        _keep_mask,
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    rng = np.random.default_rng(4)
+    cases = (  # name, B, Lq, Lk, causal, q_offset
+        ("gpt2_prefill", GEN_BATCH, GEN_LEN, GEN_LEN, True, 0),
+        ("cached_prefill", GEN_BATCH, GEN_LEN // 2, GEN_LEN, True, GEN_LEN // 2),
+        ("bert_vit", BERT_BATCH, BERT_LEN, BERT_LEN, False, 0),
+    )
+    entry, report = None, []
+    for name, b, lq, lk, causal, q_offset in cases:
+        q = torch.from_numpy(rng.standard_normal(
+            (b, lq, HEADS, HEAD_DIM), dtype=np.float32)).cuda()
+        k, v = (torch.from_numpy(rng.standard_normal(
+            (b, lk, HEADS, HEAD_DIM), dtype=np.float32)).cuda() for _ in "kv")
+        mask = _left_padded_mask(rng, b, lk)
+        kw = dict(causal=causal, q_offset=q_offset)
+        errs = {}
+        for dtype, tol in ((torch.float32, ATTN_TOL), (torch.bfloat16, BF16_TOL)):
+            qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+            got, lse = flash_attention(qd, kd, vd, mask, return_lse=True, **kw)
+            torch.cuda.synchronize()
+            ref, rlse = flash_attention_reference(qd, kd, vd, mask,
+                                                  return_lse=True, **kw)
+            if got.shape != ref.shape or not torch.isfinite(got.float()).all():
+                raise AssertionError(f"flash_attention {name} {dtype}: bad output")
+            live = rlse > -1e29  # rows with at least one valid key
+            if not torch.equal(lse > -1e29, live):
+                raise AssertionError(f"flash_attention {name} {dtype}: lse rows")
+            abs_err, rel = _rel_err(got, ref)
+            _, lse_rel = _rel_err(lse[live], rlse[live])
+            if rel > tol or lse_rel > ATTN_TOL:
+                raise AssertionError(
+                    f"flash_attention {name} {dtype}: rel err {rel:.3e} "
+                    f"(tol {tol}), lse {lse_rel:.3e} (tol {ATTN_TOL})")
+            errs[dtype] = (abs_err, rel, lse_rel)
+
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        keep = _keep_mask(b, lq, lk, mask, causal, q_offset, q.device)
+        ms = _device_ms(lambda: flash_attention(q, k, v, mask, **kw))
+        host_ms = _time_ms(lambda: flash_attention(q, k, v, mask, **kw))
+        plain_ms = _device_ms(lambda: flash_attention_reference(q, k, v, mask, **kw))
+        library_ms = _device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=keep))
+        n_keys = (sum(min(q_offset + i + 1, lk) for i in range(lq)) if causal
+                  else lq * lk)
+        flops = 4.0 * b * HEADS * HEAD_DIM * n_keys  # QK and PV, 2 per MAC
+        nbytes = 4.0 * HEADS * HEAD_DIM * b * (2 * lq + 2 * lk) + b * lk
+        bound_ms, bound_by = _bound(flops, nbytes)
+        report.append(
+            f"{name} B={b} Lq={lq} Lk={lk}{' causal' if causal else ''}"
+            f"{f' q_offset={q_offset}' if q_offset else ''}: rel err f32 "
+            f"{errs[torch.float32][1]:.2e} (lse {errs[torch.float32][2]:.2e}), "
+            f"bf16 {errs[torch.bfloat16][1]:.2e}; kernel {ms:.4f} ms ({host_ms:.4f} "
+            f"per call from the host), plain {plain_ms:.4f}, sdpa "
+            f"{library_ms:.4f}, bound {bound_ms:.4f} "
+            f"({bound_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        if entry is None:  # the main path's shape: the GPT-2 prefill
+            entry = {
+                "name": "flash_attention", "route": "cuda",
+                "source": "sparkdl_torch/csrc/flash_attention.cu",
+                "replaces": "sparkdl_tpu/ops/flash_attention.py:80",
+                "launches": None, "max_abs_err": errs[torch.float32][0],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms,
+            }
+    print(f"[flash_attention] H={HEADS} D={HEAD_DIM}, tol f32 {ATTN_TOL} "
+          f"bf16 {BF16_TOL} x max|ref|; device ms per call from CUDA-graph "
+          f"replays; {card}: " + "; ".join(report))
+    return entry
+
+
+def phase_flash_decode(card: str) -> dict:
+    """The kernel against reference_decode on the card at the decode
+    shape of the generate path (cache of 160 columns), ragged start,
+    idx in {0, 63, 159}, f32 and bf16; timed at idx 159 in f32 against
+    its byte bound and against scaled_dot_product_attention."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from sparkdl_torch.ops.flash_decode import flash_decode, reference_decode
+
+    rng = np.random.default_rng(5)
+    b, length = GEN_BATCH, GEN_LEN + GEN_NEW
+    q = torch.from_numpy(rng.standard_normal(
+        (b, 1, HEADS, HEAD_DIM), dtype=np.float32)).cuda()
+    ck, cv = (torch.from_numpy(rng.standard_normal(
+        (b, length, HEADS, HEAD_DIM), dtype=np.float32)).cuda() for _ in "kv")
+    start = torch.from_numpy(
+        rng.integers(0, GEN_LEN - 8, b).astype(np.int32)).cuda()
+    errs = {}
+    for idx in (0, GEN_LEN // 2 - 1, length - 1):
+        for dtype, tol in ((torch.float32, ATTN_TOL), (torch.bfloat16, BF16_TOL)):
+            qd, kd, vd = (t.to(dtype) for t in (q, ck, cv))
+            got = flash_decode(qd, kd, vd, idx, start=start)
+            torch.cuda.synchronize()
+            ref = reference_decode(qd, kd, vd, idx, start)
+            if got.shape != ref.shape or not torch.isfinite(got.float()).all():
+                raise AssertionError(f"flash_decode idx={idx} {dtype}: bad output")
+            errs[idx, dtype] = _rel_err(got, ref)
+            if errs[idx, dtype][1] > tol:
+                raise AssertionError(
+                    f"flash_decode idx={idx} {dtype}: rel err "
+                    f"{errs[idx, dtype][1]:.3e} > {tol}")
+
+    idx = length - 1
+    cols = torch.arange(length, device=q.device)
+    keep = ((cols[None, :] >= start[:, None]) & (cols[None, :] <= idx))[:, None, None]
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, ck, cv))
+    ms = _device_ms(lambda: flash_decode(q, ck, cv, idx, start=start))
+    host_ms = _time_ms(lambda: flash_decode(q, ck, cv, idx, start=start))
+    plain_ms = _device_ms(lambda: reference_decode(q, ck, cv, idx, start))
+    library_ms = _device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=keep))
+    live = int((idx + 1 - start.clamp(max=idx + 1)).sum())
+    nbytes = 4.0 * HEADS * HEAD_DIM * (2 * live + 2 * b) + 4 * b
+    bound_ms, bound_by = _bound(4.0 * HEADS * HEAD_DIM * live, nbytes)
+    print(f"[flash_decode] B={b} L={length} H={HEADS} D={HEAD_DIM}, ragged "
+          f"start: rel err " + ", ".join(
+              f"idx {i} {'f32' if d == torch.float32 else 'bf16'} {e[1]:.2e}"
+              for (i, d), e in errs.items())
+          + f" (tol f32 {ATTN_TOL}, bf16 {BF16_TOL}); at idx {idx} f32: kernel "
+          f"{ms:.4f} ms ({host_ms:.4f} per call from the host), plain "
+          f"{plain_ms:.4f}, sdpa {library_ms:.4f}, bound "
+          f"{bound_ms:.4f} ({bound_by}: {nbytes / 1e6:.2f} MB of live cache "
+          f"at 3.35 TB/s); {card}")
+    return {
+        "name": "flash_decode", "route": "cuda",
+        "source": "sparkdl_torch/csrc/flash_decode.cu",
+        "replaces": "sparkdl_tpu/ops/flash_decode.py:37",
+        "launches": None, "max_abs_err": errs[idx, torch.float32][0], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
+
+
+def _generate_ms(module, ids, mask, new_tokens: int) -> float:
+    """Median ms of one ``generate`` call, prefill included."""
+    from sparkdl_torch.models.gpt import generate
+
+    return _time_ms(lambda: generate(module, ids, new_tokens, attention_mask=mask),
+                    warmup=1, reps=5)
+
+
+def _device_split(module, ids, profile_steps: int = 0):
+    """Device ms of one cached prefill forward over ``ids`` [B, L] and of
+    one decode forward after it (CUDA-graph replays, so without the
+    host's per-op cost; each replayed call writes the same cache
+    columns), and with ``profile_steps`` a torch.profiler breakdown by
+    kernel of that many decode forwards driven from the host, as
+    generate drives them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparkdl_torch.models.gpt import first_valid_column, init_cache
+
+    b, lp = ids.shape
+    dev = ids.device
+    cache = init_cache(module.config, b, lp + GEN_NEW, device=dev)
+    key_valid = torch.ones((b, lp + GEN_NEW), dtype=torch.bool, device=dev)
+    cache["start"] = first_valid_column(key_valid)
+    positions = torch.arange(lp, device=dev).expand(b, lp)
+    tok, step_pos = ids[:, -1:], torch.full((b, 1), lp, device=dev)
+
+    def prefill():
+        return module(ids, cache={**cache, "idx": 0}, positions=positions,
+                      attention_mask=key_valid)
+
+    def decode():
+        return module(tok, cache={**cache, "idx": lp}, positions=step_pos,
+                      attention_mask=key_valid)
+
+    with torch.inference_mode():
+        prefill_ms, decode_ms = _device_ms(prefill, calls=4), _device_ms(decode)
+        if not profile_steps:
+            return prefill_ms, decode_ms, ""
+        prefill()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(profile_steps):
+                decode()
+            torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        by_name[e.key] = by_name.get(e.key, 0.0) + us
+    total = sum(by_name.values())
+    if not total:
+        return prefill_ms, decode_ms, "the profiler recorded no device time"
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return prefill_ms, decode_ms, (
+        f"device {total / profile_steps / 1e3:.3f} ms/step in {len(by_name)} "
+        "kernels; " + "; ".join(f"{name[:60]} {us / total:.0%}" for name, us in top))
+
+
+def phase_generate(card: str, attn_entry: dict, decode_entry: dict) -> float:
+    """DeepTextGenerator at GPT-2-small width through both attention
+    kernels, against the same transformer and weights with
+    attn_impl="full" (no kernel) on the card."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sparkdl_torch import DeepTextGenerator, LocalDataFrame
+    from sparkdl_torch.models.gpt import (
+        GPTConfig,
+        GPTLMHeadModel,
+        init_cache,
+        init_gpt_,
+    )
+    from sparkdl_torch.ops.flash_attention import flash_attention
+    from sparkdl_torch.ops.flash_decode import flash_decode
+    from sparkdl_torch.transformers.text_generator import _model
+
+    # GPT-2 small: GPTConfig's own widths with the learned position table
+    cfg = GPTConfig(positions="learned", attn_impl="flash", flash_decode=True)
+    full = dataclasses.replace(cfg, attn_impl="full", flash_decode=False)
+    t0 = time.perf_counter()
+    state = init_gpt_(GPTLMHeadModel(cfg, device="cpu"), seed=0).state_dict()
+    init_s = time.perf_counter() - t0
+
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in rng.integers(8, GEN_LEN + 1, GEN_ROWS)]
+    rows = [{"id": i, "prompt": p} for i, p in enumerate(prompts)]
+    rows.insert(GEN_ROWS // 3, {"id": -1, "prompt": []})  # bad row -> None
+    df = LocalDataFrame.from_rows(rows, N_PARTS)
+    groups = sum(r["n"] for r in df.mapPartitions(
+        lambda part: [{"n": math.ceil(sum(r["id"] >= 0 for r in part) / GEN_BATCH)}]
+    ).collect())
+
+    def transformer(c):
+        return DeepTextGenerator(inputCol="prompt", outputCol="gen", model=(c, state),
+                                 batchSize=GEN_BATCH, maxLength=GEN_LEN,
+                                 maxNewTokens=GEN_NEW)
+
+    gen = transformer(cfg)
+    gen.transform(df).collect()  # warm-up: module to the card, cuBLAS
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = gen.transform(df).collect()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n_attn, n_decode = flash_attention.launches, flash_decode.launches
+    layers = cfg.num_layers
+    if n_attn != layers * groups or n_decode != layers * (GEN_NEW - 1) * groups:
+        raise AssertionError(
+            f"launches: flash_attention {n_attn} (want {layers * groups}), "
+            f"flash_decode {n_decode} (want {layers * (GEN_NEW - 1) * groups}) "
+            f"for {groups} groups")
+
+    by_id = {r["id"]: r["gen"] for r in out}
+    if len(out) != GEN_ROWS + 1 or by_id[-1] is not None:
+        raise AssertionError("bad row did not come out None")
+    toks = np.array([by_id[i] for i in range(GEN_ROWS)])
+    if toks.shape != (GEN_ROWS, GEN_NEW) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"generated ids: bad shape or range {toks.shape}")
+
+    gen_full = transformer(full)
+    t0 = time.perf_counter()
+    out_full = gen_full.transform(df).collect()
+    torch.cuda.synchronize()
+    secs_full = time.perf_counter() - t0
+    want = {r["id"]: r["gen"] for r in out_full}
+    same = sum(by_id[i] == want[i] for i in range(GEN_ROWS))
+    if same != GEN_ROWS or want[-1] is not None:
+        raise AssertionError(
+            f"greedy tokens differ from attn_impl='full' in {GEN_ROWS - same} rows")
+
+    # first-step logits of 4 left-padded rows, kernels vs dense, on the card
+    mod, mod_full = _model(cfg, state, "cuda"), _model(full, state, "cuda")
+    pick = [prompts[i] for i in (0, 1, 2, 3)]
+    lp = max(map(len, pick))
+    ids = torch.zeros((4, lp), dtype=torch.long)
+    mask = torch.zeros((4, lp), dtype=torch.bool)
+    for i, p in enumerate(pick):
+        ids[i, lp - len(p):] = torch.tensor(p)
+        mask[i, lp - len(p):] = True
+    ids, mask = ids.cuda(), mask.cuda()
+    positions = (mask.cumsum(1) - 1).clamp_min(0)
+    logits = {}
+    with torch.inference_mode():
+        for name, m in (("flash", mod), ("full", mod_full)):
+            cache = init_cache(m.config, 4, lp, device="cuda")
+            logits[name] = m(ids, cache=cache, positions=positions,
+                             attention_mask=mask)[0][:, -1]
+    _, logit_rel = _rel_err(logits["flash"], logits["full"])
+    if not torch.isfinite(logits["flash"]).all() or logit_rel > LOGIT_TOL:
+        raise AssertionError(f"first-step logits vs full: rel err {logit_rel:.3e}")
+
+    # where a group's time goes: one full group of the longest bucket
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (GEN_BATCH, GEN_LEN))).cuda()
+    mask = torch.ones_like(ids, dtype=torch.bool)
+    times = {}
+    for name, m in (("flash", mod), ("full", mod_full)):
+        prefill = _generate_ms(m, ids, mask, 1)
+        whole = _generate_ms(m, ids, mask, GEN_NEW)
+        times[name] = (prefill, (whole - prefill) / (GEN_NEW - 1),
+                       *_device_split(m, ids, profile_steps=5 * (m is mod)))
+    tokens_s = GEN_ROWS * GEN_NEW / secs
+    print(f"[generate] DeepTextGenerator GPT-2 small ({layers}x{cfg.hidden_size}, "
+          f"vocab {cfg.vocab_size}, learned positions, float32, random init seed 0 "
+          f"in {init_s:.1f} s) over "
+          f"{GEN_ROWS}+1 prompts of 8..{GEN_LEN} tokens in {N_PARTS} partitions, "
+          f"batchSize {GEN_BATCH}, {GEN_NEW} new tokens greedy; {card}: "
+          f"{tokens_s:.1f} tokens/s with the kernels, "
+          f"{GEN_ROWS * GEN_NEW / secs_full:.1f} with attn_impl='full' (steady "
+          f"state, host included); one group B={GEN_BATCH} L={GEN_LEN}, as "
+          f"generate runs it (device alone, CUDA-graph replay): prefill "
+          f"{times['flash'][0]:.2f} ms ({times['flash'][2]:.2f}), decode "
+          f"{times['flash'][1]:.3f} ms/step ({times['flash'][3]:.3f}); full: "
+          f"{times['full'][0]:.2f} ms ({times['full'][2]:.2f}), "
+          f"{times['full'][1]:.3f} ms/step ({times['full'][3]:.3f}); "
+          f"launches flash_attention {n_attn} = {layers} x {groups} groups, "
+          f"flash_decode {n_decode} = {layers} x {GEN_NEW - 1} x {groups}; tokens "
+          f"equal to 'full' in "
+          f"{same}/{GEN_ROWS} rows; first-step logits rel err {logit_rel:.2e} "
+          f"(tol {LOGIT_TOL}); bad row None")
+    print(f"[generate] profile of a decode forward with the kernels, B={GEN_BATCH} "
+          f"at position {GEN_LEN}: {times['flash'][4]}")
+    attn_entry["launches"] = n_attn
+    decode_entry["launches"] = n_decode
+    return tokens_s
+
+
 def main() -> int:
     import torch
 
@@ -279,10 +689,15 @@ def main() -> int:
 
     phase_build()
     stem = phase_stem()
+    attn = phase_flash_attention(card)
+    decode = phase_flash_decode(card)
     images_s = phase_main_path(stem)
-    print(f"[summary] {card}: featurizer {images_s:.1f} images/s; stem kernel "
-          f"{stem['ms']:.3f} ms vs bound {stem['bound_ms']:.3f} ms at B={BATCH}")
-    print(json.dumps({"kernels": [stem]}))
+    tokens_s = phase_generate(card, attn, decode)
+    print(f"[summary] {card}: featurizer {images_s:.1f} images/s; generator "
+          f"{tokens_s:.1f} tokens/s; kernel ms vs bound ms: " + ", ".join(
+              f"{k['name']} {k['ms']:.4f} vs {k['bound_ms']:.4f}"
+              for k in (stem, attn, decode)))
+    print(json.dumps({"kernels": [stem, attn, decode]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

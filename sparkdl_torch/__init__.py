@@ -13,6 +13,7 @@ _LAZY = {
     # name -> module path
     "DeepImageFeaturizer": "sparkdl_torch.transformers.named_image",
     "DeepImagePredictor": "sparkdl_torch.transformers.named_image",
+    "DeepTextGenerator": "sparkdl_torch.transformers.text_generator",
     "LocalDataFrame": "sparkdl_torch.dataframe.local",
     "readImages": "sparkdl_torch.image.imageIO",
     "readImagesWithCustomFn": "sparkdl_torch.image.imageIO",

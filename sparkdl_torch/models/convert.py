@@ -110,3 +110,98 @@ def torch_to_flax(state_dict: dict) -> dict:
         else:
             params.setdefault(name, {})[field] = a
     return {"params": params, "batch_stats": stats}
+
+
+# ---------------------------------------------------------------------------
+# GPT (models/gpt.py): Flax GPTLMHeadModel variables <-> torch state_dict
+# ---------------------------------------------------------------------------
+#
+# Flax path (params/...)              torch key
+#   wte|wpe / embedding                 wte|wpe.weight
+#   ln_f / scale|bias                   ln_f.weight|bias
+#   h_{i} / ln_1|ln_2 / scale|bias      h.{i}.ln_1|ln_2.weight|bias
+#   h_{i} / attn / {q,k,v,out}_proj     h.{i}.attn.{q,k,v,out}_proj
+#   h_{i} / up|down                     h.{i}.up|down
+#     kernel [in, out] | bias             .weight [out, in] | .bias
+
+_GPT_MODULE = re.compile(
+    r"^(wte|wpe|ln_f|h_(\d+)/(ln_1|ln_2|attn/(q|k|v|out)_proj|up|down))$")
+_GPT_FIELDS = {"embedding": ("weight",), "scale": ("weight", "bias"),
+               "kernel": ("weight", "bias")}
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        out.update(_flatten(v, path) if isinstance(v, dict) else {path: v})
+    return out
+
+
+def gpt_flax_to_torch(variables: dict,
+                      module: "torch.nn.Module | None" = None) -> dict:
+    """``{'params': ...}`` numpy tree of the JAX ``GPTLMHeadModel`` -> a
+    state_dict for ``sparkdl_torch.models.gpt.GPTLMHeadModel``.
+
+    Raises on any leaf it does not consume, on a layer whose fields are
+    incomplete, and, with ``module`` given, on any key of
+    ``module.state_dict()`` the variables do not provide (or the reverse).
+    """
+    extra = set(variables) - {"params"}
+    if extra:
+        raise ValueError(f"unexpected variable collections {sorted(extra)}")
+    by_module: dict[str, dict] = {}
+    for path, leaf in _flatten(dict(variables.get("params", {}))).items():
+        mod, _, field = path.rpartition("/")
+        if not _GPT_MODULE.match(mod):
+            raise ValueError(f"unknown GPT parameter {path!r}")
+        by_module.setdefault(mod, {})[field] = leaf
+    out: dict[str, torch.Tensor] = {}
+    for mod, fields in sorted(by_module.items()):
+        kind = next((f for f in _GPT_FIELDS if f in fields), None)
+        want = {"embedding"} if kind == "embedding" else {kind, "bias"}
+        if kind is None or set(fields) != want:
+            raise ValueError(
+                f"{mod}: fields {sorted(fields)} are not one of "
+                "{embedding}, {scale, bias}, {kernel, bias}")
+        key = re.sub(r"^h_(\d+)", r"h.\1", mod).replace("/", ".")
+        w = np.asarray(fields[kind], dtype=np.float32)
+        out[f"{key}.weight"] = torch.from_numpy(
+            np.array(w.T if kind == "kernel" else w, order="C"))
+        if "bias" in fields:
+            out[f"{key}.bias"] = torch.from_numpy(
+                np.array(fields["bias"], dtype=np.float32))
+    if module is not None:
+        want = set(module.state_dict())
+        missing, unexpected = sorted(want - set(out)), sorted(set(out) - want)
+        if missing or unexpected:
+            raise ValueError(
+                f"variables do not match {type(module).__name__}: missing "
+                f"{missing[:8]}, unexpected {unexpected[:8]}"
+            )
+    return out
+
+
+def gpt_torch_to_flax(state_dict: dict) -> dict:
+    """The inverse of :func:`gpt_flax_to_torch`: a GPT state_dict -> the
+    numpy ``{'params': ...}`` tree of the JAX ``GPTLMHeadModel``."""
+    params: dict = {}
+    for key, v in state_dict.items():
+        mod, _, field = key.rpartition(".")
+        path = re.sub(r"^h\.(\d+)", r"h_\1", mod).replace(".", "/")
+        if not _GPT_MODULE.match(path) or field not in ("weight", "bias"):
+            raise ValueError(f"unknown GPT parameter {key!r}")
+        a = v.detach().cpu().float().numpy()
+        if field == "bias":
+            name = "bias"
+        elif path in ("wte", "wpe"):
+            name = "embedding"
+        elif "ln_" in path:
+            name = "scale"
+        else:
+            name, a = "kernel", a.T
+        node = params
+        for part in path.split("/"):
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(a)
+    return {"params": params}

@@ -57,13 +57,14 @@ def resolve_device(device) -> torch.device:
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors (launch the kernel), False for CPU tensors
-    (run the plain version); raises for anything else or a mix."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return False
-    if kinds == {"cuda"}:
-        return True
+    """True for tensors all on one CUDA device (launch the kernel), False
+    for CPU tensors (run the plain version); raises for anything else or
+    a mix."""
+    devices = {t.device for t in tensors}
+    if len(devices) == 1:
+        kind = next(iter(devices)).type
+        if kind in ("cpu", "cuda"):
+            return kind == "cuda"
     raise ValueError(
         f"expected all tensors on the CPU or all on one CUDA device, got "
         f"{sorted(str(t.device) for t in tensors)}"

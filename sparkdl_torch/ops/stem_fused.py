@@ -108,8 +108,6 @@ def inception_stem_fused(x: torch.Tensor, folded: dict, *,
     params = [folded[k] for k in _PARAM_ORDER]
     if not on_cuda(x, *params):
         return stem_reference(x, folded, dtype)
-    if any(p.device != x.device for p in params):
-        raise ValueError("stem pixels and folded params must be on one device")
     for t in (x, *params):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("stem kernel needs contiguous, 16-byte aligned tensors")

@@ -29,3 +29,19 @@ class SparkDLTypeConverters:
         if isinstance(value, bool):
             return value
         raise TypeError(f"expected bool, got {value!r}")
+
+    @staticmethod
+    def toFloat(value: Any) -> float:
+        if isinstance(value, bool):
+            raise TypeError("expected float, got bool")
+        if isinstance(value, (int, float)):
+            return float(value)
+        raise TypeError(f"expected float, got {value!r}")
+
+    @staticmethod
+    def toDevice(value: Any) -> str:
+        """'cuda' or 'cpu': where a transformer runs its model."""
+        name = SparkDLTypeConverters.toString(value)
+        if name not in ("cuda", "cpu"):
+            raise ValueError(f"device must be 'cuda' or 'cpu', got {name!r}")
+        return name

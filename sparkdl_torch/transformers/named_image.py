@@ -119,13 +119,6 @@ def _model_name(value: Any) -> str:
     return name
 
 
-def _device_name(value: Any) -> str:
-    name = SparkDLTypeConverters.toString(value)
-    if name not in ("cuda", "cpu"):
-        raise ValueError(f"device must be 'cuda' or 'cpu', got {name!r}")
-    return name
-
-
 class _NamedImageTransformer(Transformer, HasInputCol, HasOutputCol, HasBatchSize):
     """Shared engine for the named-model transformers."""
 
@@ -136,7 +129,8 @@ class _NamedImageTransformer(Transformer, HasInputCol, HasOutputCol, HasBatchSiz
         "'random' for random init ('imagenet' and weight files are not "
         "ported yet; None in the constructor means unset -> default)",
     )
-    device = Param(None, "device", "'cuda' (default) or 'cpu'", _device_name)
+    device = Param(None, "device", "'cuda' (default) or 'cpu'",
+                   SparkDLTypeConverters.toDevice)
 
     _include_top: bool = True
 

@@ -26,6 +26,14 @@ out = DeepImageFeaturizer(inputCol="image", outputCol="f", modelName="InceptionV
                           weights="random", batchSize=1, device="cpu").transform(df)
 f = out.first()["f"]
 assert f.shape == (2048,) and np.isfinite(f).all()
+from sparkdl_torch import DeepTextGenerator
+from sparkdl_torch.models.gpt import GPTConfig, GPTLMHeadModel, init_gpt_
+cfg = GPTConfig.tiny(attn_impl="flash", flash_decode=True)
+sd = init_gpt_(GPTLMHeadModel(cfg, device="cpu"), seed=0).state_dict()
+df = LocalDataFrame.from_rows([{"p": [5, 3, 9]}, {"p": [1]}, {"p": []}])
+rows = DeepTextGenerator(inputCol="p", outputCol="g", model=(cfg, sd), maxNewTokens=3,
+                         device="cpu").transform(df).collect()
+assert [len(r["g"]) for r in rows[:2]] == [3, 3] and rows[2]["g"] is None
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in FORBIDDEN)
 print("LOADED", loaded)
@@ -33,6 +41,8 @@ print("LOADED", loaded)
 
 
 def test_featurize_in_fresh_interpreter_loads_no_jax():
+    """One featurize and one text-generation transform in a fresh
+    interpreter load no module of JAX, Flax or sparkdl_tpu."""
     env = dict(os.environ)
     env.pop("PYTHONSTARTUP", None)
     proc = subprocess.run(

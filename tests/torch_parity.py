@@ -69,3 +69,41 @@ def torch_inception(variables, include_top):
         variables if include_top else without_top(variables), module=module)
     module.load_state_dict(sd)
     return module.eval()
+
+
+def gpt_variables(cfg, seed=0):
+    """The JAX GPTLMHeadModel's init variables for ``cfg``, as a numpy tree
+    (partitioning metadata unboxed)."""
+    import flax
+
+    from sparkdl_tpu.models.gpt import GPTLMHeadModel
+
+    variables = GPTLMHeadModel(cfg).init(
+        jax.random.PRNGKey(seed), jnp.zeros((1, 8), jnp.int32))
+    return jax.device_get(flax.core.meta.unbox(variables))
+
+
+def gpt_pair(seed=0, **kw):
+    """``GPTConfig.tiny(**kw)`` in both packages: (JAX model, its numpy
+    variables, the port's module on the CPU loaded with the same weights
+    through the weight bridge)."""
+    from sparkdl_tpu.models import gpt as jgpt
+    from sparkdl_torch.models import gpt as tgpt
+    from sparkdl_torch.models.convert import gpt_flax_to_torch
+
+    jcfg = jgpt.GPTConfig.tiny(**kw)
+    variables = gpt_variables(jcfg, seed)
+    module = tgpt.GPTLMHeadModel(tgpt.GPTConfig.tiny(**kw), device="cpu")
+    module.load_state_dict(gpt_flax_to_torch(variables, module=module))
+    return jgpt.GPTLMHeadModel(jcfg), variables, module.eval()
+
+
+def left_pad(prompts):
+    """Left-padded (ids, mask) numpy int32 arrays for ragged prompts."""
+    lp = max(len(p) for p in prompts)
+    ids = np.zeros((len(prompts), lp), np.int32)
+    mask = np.zeros((len(prompts), lp), np.int32)
+    for i, p in enumerate(prompts):
+        ids[i, lp - len(p):] = p
+        mask[i, lp - len(p):] = 1
+    return ids, mask
