@@ -114,3 +114,63 @@ def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     with torch.no_grad():
         return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
                                      generator=generator)
+
+
+# ---------------------------------------------------------------------------
+# train-mode BatchNorm with Flax's semantics
+# ---------------------------------------------------------------------------
+#
+# Flax's nn.BatchNorm(momentum=0.99) normalizes with the BIASED batch
+# variance, E[x^2] - E[x]^2 clamped at 0, and moves its running variance
+# toward that same biased value. F.batch_norm(training=True) writes the
+# unbiased variance into running_var instead, so the zoo computes the
+# moments itself and updates the running statistics explicitly.
+
+BN_MOMENTUM = 0.99  # Flax's: running = 0.99 * running + 0.01 * batch
+
+
+def bn_moments(x: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 batch mean and biased variance over ``dims``."""
+    xf = x.float()
+    mean = xf.mean(dim=dims)
+    var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+    return mean, var
+
+
+def moved_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor,
+                        var: torch.Tensor) -> dict:
+    """The running statistics after one training step, as Flax moves
+    them: ``{"mean": ..., "var": ...}`` (detached)."""
+    m = BN_MOMENTUM
+    return {"mean": m * bn.running_mean + (1 - m) * mean.detach(),
+            "var": m * bn.running_var + (1 - m) * var.detach()}
+
+
+def set_running_stats(bn: nn.BatchNorm2d, stats: dict) -> None:
+    with torch.no_grad():
+        bn.running_mean.copy_(stats["mean"])
+        bn.running_var.copy_(stats["var"])
+
+
+def bn_scale_shift(bn: nn.BatchNorm2d, mean, var):
+    """The BN as one affine: (gamma·rsqrt(var+eps), beta - mean·scale)."""
+    scale = bn.weight * torch.rsqrt(var + bn.eps)
+    return scale, bn.bias - mean * scale
+
+
+def init_zoo_(module: nn.Module, seed: int = 0) -> nn.Module:
+    """Flax's default initialisation of a conv zoo model, from a seeded
+    CPU generator (so the weights do not depend on the device):
+    lecun-normal conv and dense kernels with zero biases, BatchNorm scale
+    1 and bias 0, running mean 0 and variance 1."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                w = torch.empty(m.weight.shape, dtype=torch.float32)
+                m.weight.copy_(lecun_normal_(w, g))
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+    return module

@@ -205,3 +205,94 @@ def gpt_torch_to_flax(state_dict: dict) -> dict:
             node = node.setdefault(part, {})
         node[name] = np.ascontiguousarray(a)
     return {"params": params}
+
+
+# ---------------------------------------------------------------------------
+# BERT (models/bert.py): Flax Bert* variables <-> torch state_dict
+# ---------------------------------------------------------------------------
+#
+# Flax path (params/[bert/]...)                  torch key ([bert.]...)
+#   embeddings / {word,position,token_type}_embeddings / embedding
+#                                                  embeddings.*_embeddings.weight
+#   embeddings / LayerNorm / scale|bias            embeddings.LayerNorm.weight|bias
+#   layer_{i} / attention / {query,key,value,output_dense}
+#   layer_{i} / intermediate|output                layer.{i}.<same>
+#     kernel [in, out] | bias                        .weight [out, in] | .bias
+#   layer_{i} / attention_LayerNorm|output_LayerNorm / scale|bias
+#   pooler, classifier / kernel|bias               pooler|classifier.weight|bias
+
+_BERT_MODULE = re.compile(
+    r"^((bert/)?(embeddings/(word_embeddings|position_embeddings|"
+    r"token_type_embeddings|LayerNorm)|layer_\d+/(attention/(query|key|value|"
+    r"output_dense)|attention_LayerNorm|intermediate|output|output_LayerNorm)"
+    r"|pooler)|classifier)$")
+
+
+def bert_flax_to_torch(variables: dict,
+                       module: "torch.nn.Module | None" = None) -> dict:
+    """``{'params': ...}`` numpy tree of the JAX ``BertModel`` or
+    ``BertForSequenceClassification`` -> a state_dict for the module of the
+    same name in ``sparkdl_torch.models.bert``.
+
+    Raises on any leaf it does not consume, on a layer whose fields are
+    incomplete, and, with ``module`` given, on any key of
+    ``module.state_dict()`` the variables do not provide (or the reverse).
+    """
+    extra = set(variables) - {"params"}
+    if extra:
+        raise ValueError(f"unexpected variable collections {sorted(extra)}")
+    by_module: dict[str, dict] = {}
+    for path, leaf in _flatten(dict(variables.get("params", {}))).items():
+        mod, _, field = path.rpartition("/")
+        if not _BERT_MODULE.match(mod):
+            raise ValueError(f"unknown BERT parameter {path!r}")
+        by_module.setdefault(mod, {})[field] = leaf
+    out: dict[str, torch.Tensor] = {}
+    for mod, fields in sorted(by_module.items()):
+        kind = next((f for f in _GPT_FIELDS if f in fields), None)
+        want = {"embedding"} if kind == "embedding" else {kind, "bias"}
+        if kind is None or set(fields) != want:
+            raise ValueError(
+                f"{mod}: fields {sorted(fields)} are not one of "
+                "{embedding}, {scale, bias}, {kernel, bias}")
+        key = re.sub(r"layer_(\d+)", r"layer.\1", mod).replace("/", ".")
+        w = np.asarray(fields[kind], dtype=np.float32)
+        out[f"{key}.weight"] = torch.from_numpy(
+            np.array(w.T if kind == "kernel" else w, order="C"))
+        if "bias" in fields:
+            out[f"{key}.bias"] = torch.from_numpy(
+                np.array(fields["bias"], dtype=np.float32))
+    if module is not None:
+        want = set(module.state_dict())
+        missing, unexpected = sorted(want - set(out)), sorted(set(out) - want)
+        if missing or unexpected:
+            raise ValueError(
+                f"variables do not match {type(module).__name__}: missing "
+                f"{missing[:8]}, unexpected {unexpected[:8]}"
+            )
+    return out
+
+
+def bert_torch_to_flax(state_dict: dict) -> dict:
+    """The inverse of :func:`bert_flax_to_torch`: a BERT state_dict -> the
+    numpy ``{'params': ...}`` tree of the JAX module."""
+    params: dict = {}
+    for key, v in state_dict.items():
+        mod, _, field = key.rpartition(".")
+        path = re.sub(r"layer\.(\d+)", r"layer_\1", mod).replace(".", "/")
+        if not _BERT_MODULE.match(path) or field not in ("weight", "bias"):
+            raise ValueError(f"unknown BERT parameter {key!r}")
+        a = v.detach().cpu().float().numpy()
+        if field == "bias":
+            name = "bias"
+        elif path.endswith("_embeddings"):
+            name = "embedding"
+        elif path.endswith("LayerNorm"):
+            name = "scale"
+        else:
+            name, a = "kernel", a.T
+        node = params
+        for part in path.split("/"):
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(a)
+    return {"params": params}

@@ -71,6 +71,19 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     )
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where a gradient is wanted through a forward-only kernel
+    wrapper: with grad mode on and an input that requires grad, its output
+    would come back detached on CUDA (the kernel fills a fresh tensor),
+    so both devices refuse instead."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward (nor has its JAX counterpart): call it "
+            "under torch.no_grad() or torch.inference_mode(), or on inputs "
+            "that do not require grad")
+
+
 def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 

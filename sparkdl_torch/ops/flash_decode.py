@@ -20,7 +20,12 @@ import math
 
 import torch
 
-from sparkdl_torch.ops._dispatch import load_library, on_cuda, stream_handle
+from sparkdl_torch.ops._dispatch import (
+    load_library,
+    on_cuda,
+    refuse_grad,
+    stream_handle,
+)
 from sparkdl_torch.ops.flash_attention import MAX_HEAD_DIM, NEG_INF
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -77,9 +82,11 @@ def flash_decode(q, ck, cv, idx, *, start=None):
     On CUDA tensors this launches the kernel on the current stream,
     reading the cache in place by strides (last dim contiguous);
     ``flash_decode.launches`` counts the launches. On CPU tensors it runs
-    :func:`reference_decode`.
+    :func:`reference_decode`. Forward only: raises where an input
+    requires grad under grad mode.
     """
     _check(q, ck, cv, idx, start)
+    refuse_grad("flash_decode", q, ck, cv)
     idx = int(idx)
     operands = (q, ck, cv) if start is None else (q, ck, cv, start)
     if not on_cuda(*operands):

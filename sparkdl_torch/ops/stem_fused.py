@@ -19,7 +19,12 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from sparkdl_torch.ops._dispatch import load_library, on_cuda, stream_handle
+from sparkdl_torch.ops._dispatch import (
+    load_library,
+    on_cuda,
+    refuse_grad,
+    stream_handle,
+)
 
 _PARAM_SHAPES = {
     "k1": (3, 3, 3, 32), "s1": (32,), "b1": (32,),
@@ -103,9 +108,11 @@ def inception_stem_fused(x: torch.Tensor, folded: dict, *,
     ``folded`` from :func:`fold_stem_params`. On CUDA tensors this launches
     the kernel on the current stream (``inception_stem_fused.launches``
     counts the launches); on CPU tensors it runs :func:`stem_reference`.
+    Forward only: raises where an input requires grad under grad mode.
     """
     _check(x, folded, dtype)
     params = [folded[k] for k in _PARAM_ORDER]
+    refuse_grad("inception_stem_fused", x, *params)
     if not on_cuda(x, *params):
         return stem_reference(x, folded, dtype)
     for t in (x, *params):

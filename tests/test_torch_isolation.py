@@ -34,6 +34,17 @@ df = LocalDataFrame.from_rows([{"p": [5, 3, 9]}, {"p": [1]}, {"p": []}])
 rows = DeepTextGenerator(inputCol="p", outputCol="g", model=(cfg, sd), maxNewTokens=3,
                          device="cpu").transform(df).collect()
 assert [len(r["g"]) for r in rows[:2]] == [3, 3] and rows[2]["g"] is None
+from sparkdl_torch.models.bert import BertConfig, BertForSequenceClassification, init_bert_
+from sparkdl_torch.train import finetune_classifier
+bert = init_bert_(BertForSequenceClassification(BertConfig.tiny(attn_impl="flash"),
+                                                device="cpu"), seed=0)
+batch = {"input_ids": np.arange(16).reshape(2, 8) % 128, "attention_mask": np.ones((2, 8)),
+         "labels": np.array([0, 1])}
+_, history = finetune_classifier(bert, [batch])
+assert len(history) == 1 and np.isfinite(history[0]["loss"])
+from sparkdl_torch.ops.fused_gemm_bn import conv1x1_bn_stats
+y, mean, var = conv1x1_bn_stats(torch.randn(2, 4, 4, 128), torch.randn(128, 8))
+assert y.shape == (2, 4, 4, 8) and mean.shape == var.shape == (8,)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in FORBIDDEN)
 print("LOADED", loaded)
@@ -41,8 +52,9 @@ print("LOADED", loaded)
 
 
 def test_featurize_in_fresh_interpreter_loads_no_jax():
-    """One featurize and one text-generation transform in a fresh
-    interpreter load no module of JAX, Flax or sparkdl_tpu."""
+    """One featurize and one text-generation transform, one BERT fine-tune
+    step and one fused 1x1-conv call in a fresh interpreter load no module
+    of JAX, Flax or sparkdl_tpu."""
     env = dict(os.environ)
     env.pop("PYTHONSTARTUP", None)
     proc = subprocess.run(

@@ -33,8 +33,16 @@ def inception_variables(seed=7, size=75):
     """
     from sparkdl_tpu.models.inception import InceptionV3
 
+    return zoo_variables(InceptionV3(include_top=True), seed, size)
+
+
+def zoo_variables(model, seed, size, gamma=None):
+    """A Flax zoo model's variable tree from ``jax.eval_shape`` of its
+    init, with numpy values drawn from ``seed`` (see
+    :func:`inception_variables`); ``gamma`` = (mean, std) draws the BN
+    scales around ``mean`` instead of around 0."""
     shapes = jax.eval_shape(
-        InceptionV3(include_top=True).init, jax.random.PRNGKey(0),
+        model.init, jax.random.PRNGKey(0),
         jnp.zeros((1, size, size, 3), jnp.float32))
     r = np.random.default_rng(seed)
 
@@ -45,6 +53,9 @@ def inception_variables(seed=7, size=75):
             return (r.standard_normal(shape) * std).astype(np.float32)
         if field == "var":
             return (0.5 + r.random(shape)).astype(np.float32)
+        if field == "scale" and gamma is not None:
+            return (gamma[0] + gamma[1] * r.standard_normal(shape)).astype(
+                np.float32)
         return (r.standard_normal(shape) * 0.1).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(draw, shapes)
