@@ -348,8 +348,8 @@ def _left_padded_mask(rng, b: int, length: int):
     return (torch.arange(length)[None, :] >= (length - lens)[:, None]).cuda()
 
 
-def _bound(flops: float, nbytes: float) -> tuple[float, str]:
-    ops_ms = flops / H100_F32_FLOPS * 1e3
+def _bound(flops: float, nbytes: float, peak: float = H100_F32_FLOPS) -> tuple[float, str]:
+    ops_ms = flops / peak * 1e3
     bytes_ms = nbytes / H100_BYTES_S * 1e3
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
@@ -744,14 +744,120 @@ def _right_padded_mask(rng, b: int, length: int, lo: int = 16):
     return (torch.arange(length)[None, :] < lens[:, None]).cuda()
 
 
+# [flash_attention_bwd] cases at the edges of the backward kernels' tiling and
+# loads: (name, B, Lq, Lk, D, causal, q_offset, mask, packed). L=197 is the
+# ViT-B/16 length; D=32 and D=128 run causal with q_offset=3 and Lq < Lk; at
+# D=30 rows start off 16-byte boundaries (the kernels' scalar load path), and
+# q, k, v are strided views of one packed [B, L, H, 3D] tensor. "dead": a
+# right-padded key mask whose last batch row has no valid key.
+BWD_EDGE_CASES = (
+    ("vit_L197", 4, BERT_LEN, BERT_LEN, HEAD_DIM, False, 0, None, False),
+    ("d32_causal_qoff3", 4, 125, 131, 32, True, 3, "dead", False),
+    ("d128_causal_qoff3", 4, 125, 131, 128, True, 3, "dead", False),
+    ("d30_unaligned", 4, 77, 77, 30, False, 0, "dead", True),
+)
+
+
+def _check_bwd(name, q, k, v, do, mask, causal, q_offset, dtype, tol, errs) -> str:
+    """Both backward kernels against flash_attention_bwd_reference (rel err
+    within tol x max|ref|), bitwise equal across two calls and to the
+    gradients autograd takes through flash_attention; one report item."""
+    import torch
+
+    from sparkdl_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_reference,
+    )
+
+    qd, kd, vd, dod = (t.to(dtype) for t in (q, k, v, do))
+    o, lse = flash_attention(qd, kd, vd, mask, causal=causal, q_offset=q_offset,
+                             return_lse=True)
+    got = flash_attention_bwd(qd, kd, vd, mask, o, lse, dod, causal=causal,
+                              q_offset=q_offset)
+    again = flash_attention_bwd(qd, kd, vd, mask, o, lse, dod, causal=causal,
+                                q_offset=q_offset)
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_reference(qd, kd, vd, mask, o, lse, dod, causal=causal,
+                                         q_offset=q_offset)
+    rels = []
+    for g, w, n in zip(got, want, ("dq", "dk", "dv")):
+        if g.shape != w.shape or not torch.isfinite(g.float()).all():
+            raise AssertionError(f"flash_attention_bwd {name} {dtype} {n}: bad output")
+        abs_err, rel = _rel_err(g, w)
+        if rel > tol:
+            raise AssertionError(f"flash_attention_bwd {name} {dtype} {n}: "
+                                 f"rel err {rel:.3e} > {tol}")
+        rels.append(rel)
+        errs[name, dtype, n] = abs_err
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise AssertionError(f"{name} {dtype}: two calls differ (not deterministic)")
+    # through autograd: flash_attention's backward is the kernels
+    qq, kk, vv = (t.detach().clone().requires_grad_() for t in (qd, kd, vd))
+    flash_attention(qq, kk, vv, mask, causal=causal, q_offset=q_offset).backward(dod)
+    for g, w in zip((qq.grad, kk.grad, vv.grad), got):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name} {dtype}: autograd != flash_attention_bwd")
+    dead = int((lse <= -1e29).sum())
+    return (f"{name} {'f32' if dtype == torch.float32 else 'bf16'} "
+            f"dq/dk/dv {'/'.join(f'{r:.1e}' for r in rels)} ({dead} rows without a valid key)")
+
+
+def _bwd_builds() -> str:
+    """Each backward kernel's build: HMMA (tensor-core) instructions in its
+    SASS (cuobjdump -sass on the built library), asserted > 0 in every
+    instantiation, f32 and bf16; and registers, shared memory per block,
+    resident blocks per SM and spill bytes from cudaFuncGetAttributes."""
+    import ctypes
+
+    from sparkdl_torch.ops import _dispatch
+
+    lib = _dispatch.library_path("flash_attention_bwd")
+    tool = os.path.join(os.path.dirname(_dispatch._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], check=True, capture_output=True,
+                          text=True, timeout=300).stdout
+    hmma, func = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            func = line.split("Function : ", 1)[1].strip()
+            hmma[func] = 0
+        elif func is not None and "HMMA" in line:
+            hmma[func] += 1
+    attrs = _dispatch.load_library("flash_attention_bwd").flash_attention_bwd_attrs
+    attrs.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    attrs.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    parts = []
+    for which, kname in ((0, "dq"), (1, "dkv")):
+        for bf16, tname, mangled in ((0, "f32", "f"), (1, "bf16", "13__nv_bfloat16")):
+            counts, builds = [], []
+            for dp in (16, 32, 64, 128):
+                hits = [n for f, n in hmma.items()
+                        if f"flash_bwd_{kname}_kernelI{mangled}Li{dp}E" in f]
+                if len(hits) != 1 or hits[0] <= 0:
+                    raise AssertionError(f"flash_bwd_{kname}_kernel<{tname}, {dp}>: HMMA "
+                                         f"counts {hits} in the SASS (want one kernel, > 0)")
+                rc = attrs(which, bf16, dp, out)
+                if rc != 0:
+                    raise RuntimeError(f"flash_attention_bwd_attrs: cudaError {rc}")
+                counts.append(str(hits[0]))
+                builds.append(f"{out[0]}/{out[1]}/{out[2]}/{out[3]}")
+            parts.append(f"{kname} {tname} HMMA {'/'.join(counts)}, regs/smem B/blocks "
+                         f"per SM/spill B {' '.join(builds)}")
+    return "; ".join(parts) + " (D 16/32/64/128)"
+
+
 def phase_flash_attention_bwd(card: str) -> tuple[dict, dict, dict]:
     """Both backward kernels against flash_attention_bwd_reference on the
     card, f32 and bf16, at the BERT-base fine-tune shape (right-padded key
-    mask, one batch row with no valid key) and the GPT-2 prefill shape
-    (causal, left-padded: its pad rows see no valid key); timed at the
-    BERT shape in f32 against the bound, the plain backward and the
-    backward of scaled_dot_product_attention. Returns the dq and dk/dv
-    entries and the forward kernel's time at the BERT training shape."""
+    mask, one batch row with no valid key), the GPT-2 prefill shape
+    (causal, left-padded: its pad rows see no valid key) and the edge
+    cases of BWD_EDGE_CASES; each bitwise equal across two calls and to
+    autograd. Prints the kernels' builds (_bwd_builds). Timed at the BERT
+    shape in f32 against both bounds (CUDA-core f32 and 3xTF32 tensor
+    cores against bytes), the plain backward and the backward of
+    scaled_dot_product_attention. Returns the dq and dk/dv entries and the
+    forward kernel's time at the BERT training shape."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -764,6 +870,7 @@ def phase_flash_attention_bwd(card: str) -> tuple[dict, dict, dict]:
         flash_attention_reference,
     )
 
+    builds = _bwd_builds()
     rng = np.random.default_rng(7)
     b, length = BERT_TRAIN_BATCH, BERT_TRAIN_LEN
     bert_mask = _right_padded_mask(rng, b, length)
@@ -777,32 +884,24 @@ def phase_flash_attention_bwd(card: str) -> tuple[dict, dict, dict]:
         q, k, v, do = (torch.from_numpy(rng.standard_normal(
             (bb, ll, HEADS, HEAD_DIM), dtype=np.float32)).cuda() for _ in "qkvo")
         for dtype, tol in ((torch.float32, BWD_TOL), (torch.bfloat16, BWD_BF16_TOL)):
-            qd, kd, vd, dod = (t.to(dtype) for t in (q, k, v, do))
-            o, lse = flash_attention(qd, kd, vd, mask, causal=causal, return_lse=True)
-            got = flash_attention_bwd(qd, kd, vd, mask, o, lse, dod, causal=causal)
-            torch.cuda.synchronize()
-            want = flash_attention_bwd_reference(qd, kd, vd, mask, o, lse, dod,
-                                                 causal=causal)
-            rels = []
-            for g, w, n in zip(got, want, ("dq", "dk", "dv")):
-                if g.shape != w.shape or not torch.isfinite(g.float()).all():
-                    raise AssertionError(f"flash_attention_bwd {name} {dtype} {n}: bad output")
-                abs_err, rel = _rel_err(g, w)
-                if rel > tol:
-                    raise AssertionError(f"flash_attention_bwd {name} {dtype} {n}: "
-                                         f"rel err {rel:.3e} > {tol}")
-                rels.append(rel)
-                errs[name, dtype, n] = abs_err
-            # through autograd: flash_attention's backward is the kernels
-            qq, kk, vv = (t.detach().clone().requires_grad_() for t in (qd, kd, vd))
-            flash_attention(qq, kk, vv, mask, causal=causal).backward(dod)
-            for g, w in zip((qq.grad, kk.grad, vv.grad), got):
-                if not torch.equal(g, w):
-                    raise AssertionError(f"{name} {dtype}: autograd != flash_attention_bwd")
-            dead = int((lse <= -1e29).sum())
-            report.append(f"{name} {'f32' if dtype == torch.float32 else 'bf16'} "
-                          f"dq/dk/dv {'/'.join(f'{r:.1e}' for r in rels)} "
-                          f"({dead} rows without a valid key)")
+            report.append(_check_bwd(name, q, k, v, do, mask, causal, 0, dtype, tol, errs))
+    for name, bb, lq, lk, d, causal, q_offset, mask_kind, packed in BWD_EDGE_CASES:
+        mask = None
+        if mask_kind == "dead":
+            mask = _right_padded_mask(rng, bb, lk, lo=8)
+            mask[-1] = False
+        if packed:
+            x = torch.from_numpy(rng.standard_normal((bb, lq, HEADS, 3 * d),
+                                                     dtype=np.float32)).cuda()
+            q, k, v = x[..., :d], x[..., d:2 * d], x[..., 2 * d:]
+        else:
+            q = torch.from_numpy(rng.standard_normal((bb, lq, HEADS, d), dtype=np.float32)).cuda()
+            k, v = (torch.from_numpy(rng.standard_normal(
+                (bb, lk, HEADS, d), dtype=np.float32)).cuda() for _ in "kv")
+        do = torch.from_numpy(rng.standard_normal((bb, lq, HEADS, d), dtype=np.float32)).cuda()
+        for dtype, tol in ((torch.float32, BWD_TOL), (torch.bfloat16, BWD_BF16_TOL)):
+            report.append(_check_bwd(name, q, k, v, do, mask, causal, q_offset, dtype, tol,
+                                     errs))
 
     # timing: the BERT training shape, float32, every row with a valid key
     q, k, v, do = (torch.from_numpy(rng.standard_normal(
@@ -819,27 +918,39 @@ def phase_flash_attention_bwd(card: str) -> tuple[dict, dict, dict]:
     keep = _keep_mask(b, length, length, bert_mask, False, 0, q.device)
     sdpa = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep)
     dot = do.transpose(1, 2).contiguous()
-    library_ms = sum(_kernel_times(lambda: torch.autograd.grad(
-        sdpa, (qt, kt, vt), dot, retain_graph=True)).values())
+    sdpa_times = _kernel_times(lambda: torch.autograd.grad(
+        sdpa, (qt, kt, vt), dot, retain_graph=True))
+    library_ms = sum(sdpa_times.values())
+    sdpa_kernel = max(sdpa_times, key=sdpa_times.get).split("(")[0]
     fwd_library_ms = _device_ms(lambda: F.scaled_dot_product_attention(
         qt.detach(), kt.detach(), vt.detach(), attn_mask=keep))
     prod = 2.0 * b * HEADS * length * length * HEAD_DIM  # one L x L x D product
     tensor = 4.0 * b * length * HEADS * HEAD_DIM
     rows = 2 * 4.0 * b * HEADS * length  # lse and delta
-    dq_bound, dq_by = _bound(3 * prod, 4 * tensor + rows + tensor)
-    dkv_bound, dkv_by = _bound(4 * prod, 4 * tensor + rows + 2 * tensor)
+    dq_bytes, dkv_bytes = 4 * tensor + rows + tensor, 4 * tensor + rows + 2 * tensor
+    # on the CUDA cores in float32, and on the tensor cores as 3xTF32 (three
+    # TF32 passes a product): the kernels' bound is the latter
+    dq_f32_bound, dq_f32_by = _bound(3 * prod, dq_bytes)
+    dkv_f32_bound, dkv_f32_by = _bound(4 * prod, dkv_bytes)
+    dq_bound, dq_by = _bound(3 * 3 * prod, dq_bytes, H100_TF32_FLOPS)
+    dkv_bound, dkv_by = _bound(3 * 4 * prod, dkv_bytes, H100_TF32_FLOPS)
     fwd_bound, _ = _bound(2 * prod, 4 * tensor + b * length)
-    print(f"[flash_attention_bwd] H={HEADS} D={HEAD_DIM}, tol f32 {BWD_TOL} bf16 "
-          f"{BWD_BF16_TOL} x max|ref|; {card}: " + "; ".join(report)
-          + f"; BERT B={b} L={length} f32 (device ms per call, profiler): dq kernel "
-          f"{dq_ms:.4f} (bound {dq_bound:.4f}, {dq_by}), dk/dv kernel {dkv_ms:.4f} "
-          f"(bound {dkv_bound:.4f}, {dkv_by}); the two kernels {dq_ms + dkv_ms:.4f} "
-          f"= {(dq_ms + dkv_ms) / plain_ms:.2f}x the plain backward (dq, dk, dv "
-          f"together); whole backward with delta "
-          f"{whole_ms:.4f} (CUDA-graph replay), plain {plain_ms:.4f}, SDPA backward "
-          f"{library_ms:.4f} (its kernels' device time, profiler); forward kernel at "
-          f"this shape {fwd_ms:.4f}, plain {fwd_plain_ms:.4f}, SDPA {fwd_library_ms:.4f}, "
-          f"bound {fwd_bound:.4f}")
+    print(f"[flash_attention_bwd] builds: {builds}")
+    print(f"[flash_attention_bwd] H={HEADS}, tol f32 {BWD_TOL} bf16 {BWD_BF16_TOL} x "
+          f"max|ref|, each case bitwise equal across two calls and to autograd; {card}: "
+          + "; ".join(report)
+          + f"; BERT B={b} L={length} D={HEAD_DIM} f32 (device ms per call, profiler): dq "
+          f"kernel {dq_ms:.4f} (bound {dq_bound:.4f} {dq_by} on the tensor cores as "
+          f"3xTF32, {dq_f32_bound:.4f} {dq_f32_by} on the CUDA cores), dk/dv kernel "
+          f"{dkv_ms:.4f} (bound {dkv_bound:.4f} {dkv_by}; {dkv_f32_bound:.4f} "
+          f"{dkv_f32_by}); the two kernels {dq_ms + dkv_ms:.4f} = "
+          f"{(dq_ms + dkv_ms) / plain_ms:.2f}x the plain backward (dq, dk, dv together) "
+          f"and {(dq_ms + dkv_ms) / library_ms:.2f}x SDPA's backward; whole backward "
+          f"with delta {whole_ms:.4f} (CUDA-graph replay), plain {plain_ms:.4f}, SDPA "
+          f"backward {library_ms:.4f} (its kernels' device time, profiler; main kernel "
+          f"{sdpa_kernel} {sdpa_times[max(sdpa_times, key=sdpa_times.get)]:.4f}); forward "
+          f"kernel at this shape {fwd_ms:.4f}, plain {fwd_plain_ms:.4f}, SDPA "
+          f"{fwd_library_ms:.4f}, bound {fwd_bound:.4f}")
     # plain_ms and library_ms time dq, dk and dv together (no plain or library
     # call computes one of them alone): hold them against pair_ms, not ms
     common = {"route": "cuda", "source": "sparkdl_torch/csrc/flash_attention_bwd.cu",
@@ -848,12 +959,13 @@ def phase_flash_attention_bwd(card: str) -> tuple[dict, dict, dict]:
     dq = {"name": "flash_attention_bwd_dq", **common,
           "replaces": "sparkdl_tpu/ops/flash_attention.py:189",
           "max_abs_err": errs["bert", torch.float32, "dq"], "ms": dq_ms,
-          "bound_ms": dq_bound, "bound_by": dq_by}
+          "bound_ms": dq_bound, "bound_by": dq_by, "cuda_core_bound_ms": dq_f32_bound}
     dkv = {"name": "flash_attention_bwd_dkv", **common,
            "replaces": "sparkdl_tpu/ops/flash_attention.py:223",
            "max_abs_err": max(errs["bert", torch.float32, "dk"],
                               errs["bert", torch.float32, "dv"]),
-           "ms": dkv_ms, "bound_ms": dkv_bound, "bound_by": dkv_by}
+           "ms": dkv_ms, "bound_ms": dkv_bound, "bound_by": dkv_by,
+           "cuda_core_bound_ms": dkv_f32_bound}
     return dq, dkv, {"ms": fwd_ms, "plain_ms": fwd_plain_ms,
                      "library_ms": fwd_library_ms, "bound_ms": fwd_bound}
 

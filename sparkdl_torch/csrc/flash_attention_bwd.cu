@@ -1,4 +1,5 @@
-// Flash attention backward as two CUDA kernels for Hopper (sm_90a).
+// Flash attention backward as two CUDA kernels for Hopper (sm_90a), on the
+// tensor cores at float32 accuracy.
 //
 // Replaces: sparkdl_tpu/ops/flash_attention.py::_bwd_dq_kernel and
 // ::_bwd_dkv_kernel (the Pallas backward, reached through the custom VJP
@@ -30,45 +31,94 @@
 // products (as the TPU kernels do). D <= 128.
 //
 // Bound on this card (H100 SXM, 700 W), at the BERT-base fine-tune shape
-// B = 32, L = 128, H = 12, D = 64, float32, not causal: the dq kernel
-// does 3 products of 2*B*H*L^2*D = 0.81 GFLOP each, the dk/dv kernel 4;
-// 5.6 GFLOP together = 0.084 ms at 67 TFLOP/s f32. Bytes: q, k, v, dO in,
-// dq, dk, dv out, 25.2 MB x 7/4 = 44 MB = 0.013 ms at 3.35 TB/s. So
-// operations bound it (on the CUDA cores; the tensor cores are later work).
+// B = 32, L = 128, H = 12, D = 64, float32, not causal (chip_smoke.py's
+// count). One L x L x D product is 2*B*H*L^2*D = 0.805 GFLOP; dq does 3,
+// dk/dv 4. Bytes, each input read once and each output written once: a
+// [B, L, H, D] tensor is 12.58 MB, lse and delta 0.39 MB together; dq reads
+// q, dO, k, v and writes dq: 63.3 MB = 0.0189 ms at 3.35 TB/s; dk/dv reads
+// the same and writes dk, dv: 75.9 MB = 0.0227 ms.
+// - On the CUDA cores (67 TFLOP/s f32): 0.0361 and 0.0481 ms, operations.
+// - On the tensor cores as 3xTF32 (three TF32 passes per product, 495
+//   TFLOP/s): 7.25 and 9.66 GFLOP = 0.0146 and 0.0195 ms, so bytes bound
+//   both kernels: 0.0189 and 0.0227 ms.
 //
 // What the design does about it:
-// - No atomics: every output tile has one owner. The dq kernel is one
-//   block per (64-row q tile, head, batch row), looping over 64-key tiles;
-//   the dk/dv kernel one block per (64-key tile, head, batch row), looping
-//   over 64-row q tiles. The TPU's sequential grid axis becomes that loop.
-// - Scores, p and ds never reach device memory: they live in registers
-//   and in one (two for dk/dv) 64 x 65 shared-memory tile.
-// - 256 threads, four per output row, the forward kernel's layout: a
-//   thread scores 16 columns (c, c+4, ...) with float4 shared-memory reads
-//   (rows padded to D+4 floats against bank conflicts) and owns D/4 output
-//   columns (interleaved float4 chunks) of its row.
-// - Causally dead tiles are skipped, as the TPU kernels skip them; the
-//   dk/dv kernel visits one after all only when a row of the q tile has no
-//   valid key (its p = 1/Lk reaches every key).
-// - float32 FMAs on the CUDA cores, no wgmma/TMA, no double-buffering:
-//   a simple kernel that is right first.
+// - Tensor cores through mma.sync (mma_tf32x3.cuh). float32: m16n8k8 TF32
+//   with the 3xTF32 split (x = big + small, small*big + big*small +
+//   big*big into a float32 accumulator), float32 accuracy at a third of
+//   the TF32 rate, 2.5x the CUDA cores' float32 peak. bfloat16: m16n8k16 in
+//   one pass. Not wgmma: wgmma takes TF32 only K-major from shared memory,
+//   and dk = ds^T q and dv = p^T dO contract over the query index, so they
+//   would need a transpose in shared memory; mma.sync fragments are loaded
+//   by address, so the transpose is an indexing choice. wgmma is later work.
+// - One owner per output tile, no atomics: bitwise reproducible. The dq
+//   kernel is one block per (64-row q tile, head, batch row), looping over
+//   16-key tiles; the dk/dv kernel one block per (64-key tile, head, batch
+//   row), looping over 16-row q tiles. The TPU's sequential grid axis
+//   becomes that loop. 4 warps; each owns 16 of the block's 64 rows (dq:
+//   query rows; dk/dv: keys) and builds its 16 x 16 scores S and dP (dk/dv:
+//   S^T and dP^T, key-major, so p and ds come out laid out for dv and dk)
+//   in mma accumulator registers, where p and ds are computed. Scores, p
+//   and ds never reach shared or device memory.
+// - Accumulator to A operand without moving data. For TF32 m16n8k8 the
+//   accumulator layout (lane holds columns 2t, 2t+1 of rows g, g+8) is not
+//   the A layout (columns t, t+4). Neither __shfl_sync nor a staging tile:
+//   a product sums over its k index in any order, so the second product
+//   numbers its 8 contracted rows as 0, 2, 4, 6, 1, 3, 5, 7. Then a lane's
+//   accumulator (c0, c1, c2, c3) is its A fragment (a0, a2, a1, a3) as it
+//   stands, and the B fragment reads rows 2t and 2t + 1 of the shared tile
+//   (Op<float>::load_b_kn). bfloat16 m16n8k16 needs no renumbering: two
+//   accumulator tiles pack into one A fragment, as in FlashAttention-2.
+// - Accuracy. An mma rounds the running sum it is handed by the tensor
+//   cores' own rule, so a long chain of them drifts. S and dP sum each
+//   k-step from zero and add it in float32 (mma_tf32x3_rn): their error
+//   enters exp() and through p every gradient. dq, dk and dv chain through
+//   their accumulators. On the H100, chaining all five products put BERT's
+//   first-step gradients 1.5e-4 from the dense path; this split gives
+//   3.1e-5, as summing all five from zero does, in 4% less time
+//   (tools/flash_bwd_variants.py).
+// - Shared-memory rows are padded by 16 bytes (4 floats, 8 bf16), so the
+//   32-bit fragment loads of a warp fall in 32 different banks (row stride
+//   = 4 words mod 32: lane (g, t) hits bank 4g + t, or 8t + g transposed).
+// - Loads: a two-stage ring, 16-byte cp.async. The loop tile t + 1 (dq: K
+//   and V; dk/dv: Q, dO, lse and delta) is issued before tile t is
+//   computed. Operands stay in their own type in shared memory and are
+//   converted (split into TF32 pairs) as fragments are loaded. Where a row
+//   cannot be read as 16-byte chunks (D not a multiple of 4 floats or 8
+//   bf16, a stride or base off a 16-byte boundary), load_rows takes its
+//   scalar path in the same kernel: element loads with zero fill, not
+//   overlapped with compute. Rows past L and columns past D are zeros.
+// - Occupancy: 128 threads. At D = 64 in float32 a block holds 51 KB of
+//   shared memory (its own 64 rows of two operands, and the two-stage ring
+//   of 16-row tiles of two operands) and 168 registers a thread, so 3
+//   blocks fit on an SM (registers bind). At the BERT shape on the H100,
+//   32-row loop tiles ran 4% slower (tools/flash_bwd_variants.py).
+// - Causally dead tiles are skipped; the dk/dv kernel visits one after all
+//   when a row of it has no valid key (its p = 1/Lk reaches every key),
+//   probing such tiles four at a time, a warp each.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_tf32x3.cuh"
+
 namespace {
 
-constexpr int BM = 64;        // query rows per tile
-constexpr int BN = 64;        // keys per tile
-constexpr int NT = 256;       // threads: 4 per output row
-constexpr int CPT = 16;       // columns scored per thread (64 / 4)
-constexpr float NEG = -1e30f; // the masked-score sentinel
+constexpr int NW = 4;          // warps per block
+constexpr int NT = 32 * NW;    // threads per block
+constexpr int BO = 16 * NW;    // rows a block owns: 16 per warp
+constexpr int BL = 16;         // rows of the tile the block loops over
+constexpr int NJ = BL / 8;     // 8-column accumulator tiles across a loop tile
+static_assert(BL % 16 == 0 && BL <= 32, "a bf16 k-step spans 16 rows; a probe, a warp's lanes");
 constexpr float DEAD = -1e29f; // lse at or below: a row with no valid key
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__host__ __device__ constexpr int row_stride(int dp) {
+  return dp + 16 / static_cast<int>(sizeof(T));
+}
+
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
@@ -82,259 +132,422 @@ struct Args {
   int Lq, Lk, H, D;
   long long qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh, osb, osl, osh, msb;
   float scale; int causal, q_offset;
+  int vec_q, vec_k, vec_v, vec_o;        // rows readable as 16-byte chunks
 };
 
-// rows [r0, r0 + BM) of a strided [B, L, H, D] tensor -> shared [BM][DP + 4]
-// as float, zero past L and past D
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0, int L,
-                                          long long sb, long long sl, long long sh,
-                                          int b, int h, int D) {
-  constexpr int RS = DP + 4;
-  for (int i = threadIdx.x; i < BM * DP; i += NT) {
-    const int rr = i / DP, d = i % DP;
-    float x = 0.f;
-    if (r0 + rr < L && d < D) x = to_f(src[b * sb + (r0 + rr) * sl + h * sh + d]);
-    dst[rr * RS + d] = x;
+// Fragments of one warp's mma.sync, lane = 4 g + t. A is 16 x K row-major,
+// B is K x 8, accumulators 16 x 8 float32: lane holds (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1). Shared tiles are [rows][rs] in T.
+template <typename T> struct Op;
+
+template <> struct Op<float> {
+  static constexpr int K = 8;
+  struct A { uint32_t big[4], small[4]; };
+  struct B { uint32_t big[2], small[2]; };
+
+  static __device__ __forceinline__ void mma(float (&d)[4], const A& a, const B& b) {
+    mma3::mma_tf32x3(d, a.big, a.small, b.big, b.small);
+  }
+  static __device__ __forceinline__ void mma_rn(float (&d)[4], const A& a, const B& b) {
+    mma3::mma_tf32x3_rn(d, a.big, a.small, b.big, b.small);
+  }
+  // A[m][k] = x[m][8 ks + k]
+  static __device__ __forceinline__ A load_a(const float* x, int rs, int ks, int g, int t) {
+    const float* p = x + g * rs + ks * K + t;
+    A a;
+    mma3::split_tf32(p[0], a.big[0], a.small[0]);
+    mma3::split_tf32(p[8 * rs], a.big[1], a.small[1]);
+    mma3::split_tf32(p[4], a.big[2], a.small[2]);
+    mma3::split_tf32(p[8 * rs + 4], a.big[3], a.small[3]);
+    return a;
+  }
+  // B[k][n] = x[n0 + n][8 ks + k]
+  static __device__ __forceinline__ B load_b_nk(const float* x, int rs, int n0, int ks, int g,
+                                                int t) {
+    const float* p = x + (n0 + g) * rs + ks * K + t;
+    B b;
+    mma3::split_tf32(p[0], b.big[0], b.small[0]);
+    mma3::split_tf32(p[4], b.big[1], b.small[1]);
+    return b;
+  }
+  // B[k][n] = x[8 ks + r(k)][n0 + n], k renumbered: r(t) = 2t, r(t + 4) = 2t + 1
+  static __device__ __forceinline__ B load_b_kn(const float* x, int rs, int ks, int n0, int g,
+                                                int t) {
+    const float* p = x + (ks * K + 2 * t) * rs + n0 + g;
+    B b;
+    mma3::split_tf32(p[0], b.big[0], b.small[0]);
+    mma3::split_tf32(p[rs], b.big[1], b.small[1]);
+    return b;
+  }
+  // A over the accumulator columns [8 ks, 8 ks + 8), renumbered as load_b_kn
+  template <int N>
+  static __device__ __forceinline__ A a_from_c(const float (&c)[N][4], int ks) {
+    A a;
+    mma3::split_tf32(c[ks][0], a.big[0], a.small[0]);
+    mma3::split_tf32(c[ks][2], a.big[1], a.small[1]);
+    mma3::split_tf32(c[ks][1], a.big[2], a.small[2]);
+    mma3::split_tf32(c[ks][3], a.big[3], a.small[3]);
+    return a;
+  }
+};
+
+template <> struct Op<__nv_bfloat16> {
+  using T = __nv_bfloat16;
+  static constexpr int K = 16;
+  struct A { uint32_t r[4]; };
+  struct B { uint32_t r[2]; };
+
+  static __device__ __forceinline__ uint32_t u32(const T* p) {
+    return *reinterpret_cast<const uint32_t*>(p);
+  }
+  static __device__ __forceinline__ void mma(float (&d)[4], const A& a, const B& b) {
+    mma3::mma_bf16(d, a.r, b.r);
+  }
+  static __device__ __forceinline__ void mma_rn(float (&d)[4], const A& a, const B& b) {
+    mma3::mma_bf16(d, a.r, b.r);  // bfloat16 operands: their rounding dominates
+  }
+  // A[m][k] = x[m][16 ks + k]: lane holds k = 2t, 2t + 1 and 2t + 8, 2t + 9
+  static __device__ __forceinline__ A load_a(const T* x, int rs, int ks, int g, int t) {
+    const T* p = x + g * rs + ks * K + 2 * t;
+    return A{{u32(p), u32(p + 8 * rs), u32(p + 8), u32(p + 8 * rs + 8)}};
+  }
+  // B[k][n] = x[n0 + n][16 ks + k]
+  static __device__ __forceinline__ B load_b_nk(const T* x, int rs, int n0, int ks, int g,
+                                                int t) {
+    const T* p = x + (n0 + g) * rs + ks * K + 2 * t;
+    return B{{u32(p), u32(p + 8)}};
+  }
+  // B[k][n] = x[16 ks + k][n0 + n]
+  static __device__ __forceinline__ B load_b_kn(const T* x, int rs, int ks, int n0, int g,
+                                                int t) {
+    const T* p = x + (ks * K + 2 * t) * rs + n0 + g;
+    return B{{mma3::pack_bf16(p[0], p[rs]), mma3::pack_bf16(p[8 * rs], p[9 * rs])}};
+  }
+  // A over the accumulator columns [16 ks, 16 ks + 16): tiles 2 ks, 2 ks + 1
+  template <int N>
+  static __device__ __forceinline__ A a_from_c(const float (&c)[N][4], int ks) {
+    const float(&lo)[4] = c[2 * ks];
+    const float(&hi)[4] = c[2 * ks + 1];
+    return A{{mma3::pack_bf16(lo[0], lo[1]), mma3::pack_bf16(lo[2], lo[3]),
+              mma3::pack_bf16(hi[0], hi[1]), mma3::pack_bf16(hi[2], hi[3])}};
+  }
+};
+
+// c[16 x 8N] += x[16 x DP] . y[8N x DP]^T: x the warp's 16 rows, y a loop tile.
+// The scores S and dP: each k-step sums from zero (mma_rn), since their error
+// enters exp() and through p every gradient
+template <typename T, int DP, int N>
+__device__ __forceinline__ void gemm_xyt(float (&c)[N][4], const T* x, const T* y, int g,
+                                         int t) {
+  constexpr int RS = row_stride<T>(DP);
+#pragma unroll
+  for (int ks = 0; ks < DP / Op<T>::K; ++ks) {
+    const typename Op<T>::A a = Op<T>::load_a(x, RS, ks, g, t);
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      Op<T>::mma_rn(c[j], a, Op<T>::load_b_nk(y, RS, 8 * j, ks, g, t));
   }
 }
 
-template <int DP>
-constexpr size_t dq_smem_bytes() {
-  return (4 * BM * (DP + 4) + BM * (BN + 1)) * sizeof(float) + BN * sizeof(int);
-}
-
-template <int DP>
-constexpr size_t dkv_smem_bytes() {
-  return (4 * BM * (DP + 4) + 2 * BN * (BM + 1) + 2 * BM) * sizeof(float);
-}
-
-// dq: one block per (q tile, head, batch row)
-template <typename T, int DP>
-__global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Args a) {
-  constexpr int RS = DP + 4;
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;
-  float* sO = sQ + BM * RS;   // dO
-  float* sK = sO + BM * RS;
-  float* sV = sK + BN * RS;
-  float* sS = sV + BN * RS;   // ds [BM][BN + 1]
-  int* sOk = reinterpret_cast<int*>(sS + BM * (BN + 1));  // per key: 1 valid, 0 masked, -1 past Lk
-
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* dout = static_cast<const T*>(a.dout);
-  const int tid = threadIdx.x, r = tid >> 2, c = tid & 3;
-  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
-  const int row = q0 + r;
-  const long long qpos = static_cast<long long>(a.q_offset) + row;
-
-  load_tile<T, DP>(sQ, q, q0, a.Lq, a.qsb, a.qsl, a.qsh, b, h, a.D);
-  load_tile<T, DP>(sO, dout, q0, a.Lq, a.osb, a.osl, a.osh, b, h, a.D);
-  const long long stat = (static_cast<long long>(b) * a.H + h) * a.Lq + row;
-  const float lse = row < a.Lq ? a.lse[stat] : 0.f;
-  const float delta = row < a.Lq ? a.delta[stat] : 0.f;
-  // a row with no valid key has ds = 0 everywhere: it adds nothing to dq
-  const bool live_row = row < a.Lq && lse > DEAD;
-
-  float acc[DP / 4];
+// acc[16 x DP] += c[16 x 8N] . y[8N x DP]: c the accumulators of gemm_xyt.
+// The gradients chain through acc (mma): their drift stays under 1e-5 of
+// max|ref| at L <= 512, and summing from zero here too costs 4% more time
+template <typename T, int DP, int N>
+__device__ __forceinline__ void gemm_cy(float (&acc)[DP / 8][4], const float (&c)[N][4],
+                                        const T* y, int g, int t) {
+  constexpr int RS = row_stride<T>(DP);
 #pragma unroll
-  for (int t = 0; t < DP / 4; ++t) acc[t] = 0.f;
+  for (int ks = 0; ks < 8 * N / Op<T>::K; ++ks) {
+    const typename Op<T>::A a = Op<T>::a_from_c(c, ks);
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+      Op<T>::mma(acc[n], a, Op<T>::load_b_kn(y, RS, ks, 8 * n, g, t));
+  }
+}
 
-  const int nkt = (a.Lk + BN - 1) / BN;
+// rows [r0, r0 + R) of one (batch row, head) slice of a strided [B, L, H, D]
+// tensor (src points at its row 0, sl its row stride) -> shared [R][RS],
+// zeros past L and past D. vec: 16-byte cp.async, asynchronous (the caller
+// commits and waits). Otherwise the scalar path: element loads and stores.
+template <typename T, int DP, int R>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int r0, int L, long long sl,
+                                          int D, int vec) {
+  constexpr int RS = row_stride<T>(DP);
+  if (vec) {
+    constexpr int V = 16 / sizeof(T), CPR = DP / V;
+    for (int i = threadIdx.x; i < R * CPR; i += NT) {
+      const int rr = i / CPR, c = (i % CPR) * V, row = r0 + rr;
+      const bool in = row < L && c < D;
+      mma3::cp_async16(dst + rr * RS + c, in ? src + row * sl + c : src, in);
+    }
+  } else {
+    for (int i = threadIdx.x; i < R * DP; i += NT) {
+      const int rr = i / DP, d = i % DP, row = r0 + rr;
+      dst[rr * RS + d] = (row < L && d < D) ? src[row * sl + d] : from_f<T>(0.f);
+    }
+  }
+}
+
+// acc[16 x DP] of a warp -> rows row0, row0 + 8 of a contiguous [., D] output
+template <typename T, int DP>
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[DP / 8][4], long long row0,
+                                           bool in0, bool in1, int D, long long row_elems, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (!(r ? in1 : in0)) continue;
+    T* o = out + (row0 + 8 * r) * row_elems;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int d = 8 * n + 2 * t;
+      if (d < D) o[d] = from_f<T>(acc[n][2 * r]);
+      if (d + 1 < D) o[d + 1] = from_f<T>(acc[n][2 * r + 1]);
+    }
+  }
+}
+
+template <typename T, int DP>
+constexpr size_t dq_smem_bytes() {
+  return (2 * BO + 4 * BL) * row_stride<T>(DP) * sizeof(T) + 2 * BL * sizeof(int);
+}
+
+template <typename T, int DP>
+constexpr size_t dkv_smem_bytes() {
+  return (2 * BO + 4 * BL) * row_stride<T>(DP) * sizeof(T) + 4 * BL * sizeof(float) +
+         NW * sizeof(int);
+}
+
+// dq: one block per (64-row q tile, head, batch row)
+template <typename T, int DP>
+__global__ void __launch_bounds__(NT, DP <= 64 ? 3 : 1) flash_bwd_dq_kernel(const Args a) {
+  constexpr int RS = row_stride<T>(DP);
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sO = sQ + BO * RS;      // dO
+  T* sK = sO + BO * RS;      // [2][BL][RS]
+  T* sV = sK + 2 * BL * RS;  // [2][BL][RS]
+  int* sOk = reinterpret_cast<int*>(sV + 2 * BL * RS);  // [2][BL]: key valid
+
+  const int tid = threadIdx.x, w = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const int q0 = blockIdx.x * BO, h = blockIdx.y, b = blockIdx.z;
+  const T* q = static_cast<const T*>(a.q) + b * a.qsb + h * a.qsh;
+  const T* k = static_cast<const T*>(a.k) + b * a.ksb + h * a.ksh;
+  const T* v = static_cast<const T*>(a.v) + b * a.vsb + h * a.vsh;
+  const T* dout = static_cast<const T*>(a.dout) + b * a.osb + h * a.osh;
+  const uint8_t* mask = a.mask ? a.mask + b * a.msb : nullptr;
+  auto key_ok = [&](int col) -> int { return col < a.Lk && (!mask || mask[col] != 0); };
+
+  const int nkt = (a.Lk + BL - 1) / BL;
   int kt_end = nkt;
   if (a.causal) {
-    const long long last = static_cast<long long>(a.q_offset) + min(q0 + BM, a.Lq) - 1;
-    kt_end = static_cast<int>(min(static_cast<long long>(nkt), last / BN + 1));
+    const long long last = static_cast<long long>(a.q_offset) + min(q0 + BO, a.Lq) - 1;
+    kt_end = static_cast<int>(min(static_cast<long long>(nkt), last / BL + 1));
   }
+
+  load_rows<T, DP, BO>(sQ, q, q0, a.Lq, a.qsl, a.D, a.vec_q);
+  load_rows<T, DP, BO>(sO, dout, q0, a.Lq, a.osl, a.D, a.vec_o);
+  load_rows<T, DP, BL>(sK, k, 0, a.Lk, a.ksl, a.D, a.vec_k);
+  load_rows<T, DP, BL>(sV, v, 0, a.Lk, a.vsl, a.D, a.vec_v);
+  mma3::cp_async_commit();
+  if (tid < BL) sOk[tid] = key_ok(tid);
+
+  // this lane's two query rows
+  const int row0 = q0 + 16 * w + g;
+  const long long stat = (static_cast<long long>(b) * a.H + h) * a.Lq;
+  float lse[2], delta[2];
+  bool live[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    lse[r] = row < a.Lq ? a.lse[stat + row] : 0.f;
+    delta[r] = row < a.Lq ? a.delta[stat + row] : 0.f;
+    // a row with no valid key has ds = 0 everywhere: it adds nothing to dq
+    live[r] = row < a.Lq && lse[r] > DEAD;
+  }
+
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
   for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();  // the previous tile's sK, sV, sS, sOk are consumed
-    load_tile<T, DP>(sK, k, k0, a.Lk, a.ksb, a.ksl, a.ksh, b, h, a.D);
-    load_tile<T, DP>(sV, v, k0, a.Lk, a.vsb, a.vsl, a.vsh, b, h, a.D);
-    if (tid < BN) {
-      const int col = k0 + tid;
-      sOk[tid] = col >= a.Lk ? -1 : (a.mask ? (a.mask[b * a.msb + col] != 0) : 1);
+    const int buf = kt & 1, k0 = kt * BL;
+    const bool more = kt + 1 < kt_end;
+    const int next_ok = more && tid < BL ? key_ok(k0 + BL + tid) : 0;
+    mma3::cp_async_wait_all();
+    __syncthreads();  // tile kt has landed; tile kt - 1 (the other buffer) is consumed
+    if (more) {
+      load_rows<T, DP, BL>(sK + (buf ^ 1) * BL * RS, k, k0 + BL, a.Lk, a.ksl, a.D, a.vec_k);
+      load_rows<T, DP, BL>(sV + (buf ^ 1) * BL * RS, v, k0 + BL, a.Lk, a.vsl, a.D, a.vec_v);
+      mma3::cp_async_commit();
+      if (tid < BL) sOk[(buf ^ 1) * BL + tid] = next_ok;
     }
-    __syncthreads();
+    const T* tK = sK + buf * BL * RS;
+    const int* ok = sOk + buf * BL;
 
-    float s[CPT], dp[CPT];
+    float s[NJ][4], dp[NJ][4];
 #pragma unroll
-    for (int i = 0; i < CPT; ++i) s[i] = dp[i] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < DP; d += 4) {
-      const float4 qa = *reinterpret_cast<const float4*>(sQ + r * RS + d);
-      const float4 oa = *reinterpret_cast<const float4*>(sO + r * RS + d);
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int i = 0; i < CPT; ++i) {
-        const float4 kb = *reinterpret_cast<const float4*>(sK + (c + 4 * i) * RS + d);
-        const float4 vb = *reinterpret_cast<const float4*>(sV + (c + 4 * i) * RS + d);
-        s[i] = fmaf(qa.x, kb.x, fmaf(qa.y, kb.y, fmaf(qa.z, kb.z, fmaf(qa.w, kb.w, s[i]))));
-        dp[i] = fmaf(oa.x, vb.x, fmaf(oa.y, vb.y, fmaf(oa.z, vb.z, fmaf(oa.w, vb.w, dp[i]))));
-      }
-    }
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    gemm_xyt<T, DP, NJ>(s, sQ + 16 * w * RS, tK, g, t);
+    gemm_xyt<T, DP, NJ>(dp, sO + 16 * w * RS, sV + buf * BL * RS, g, t);
 #pragma unroll
-    for (int i = 0; i < CPT; ++i) {
-      const int j = c + 4 * i;
-      float ds = 0.f;
-      if (live_row && sOk[j] > 0 && !(a.causal && k0 + j > qpos)) {
-        const float p = expf(s[i] * a.scale - lse);
-        ds = p * (dp[i] - delta) * a.scale;
-      }
-      sS[r * (BN + 1) + j] = to_f(from_f<T>(ds));
-    }
-    __syncwarp();  // row r's ds come from its own four lanes
-
-#pragma unroll 4
-    for (int j = 0; j < BN; ++j) {
-      const float ds = sS[r * (BN + 1) + j];
-#pragma unroll
-      for (int t = 0; t < DP / 16; ++t) {
-        const float4 kb = *reinterpret_cast<const float4*>(sK + j * RS + (4 * t + c) * 4);
-        acc[4 * t + 0] = fmaf(ds, kb.x, acc[4 * t + 0]);
-        acc[4 * t + 1] = fmaf(ds, kb.y, acc[4 * t + 1]);
-        acc[4 * t + 2] = fmaf(ds, kb.z, acc[4 * t + 2]);
-        acc[4 * t + 3] = fmaf(ds, kb.w, acc[4 * t + 3]);
-      }
-    }
-  }
-
-  if (row < a.Lq) {
-    T* o = static_cast<T*>(a.dq) + ((static_cast<long long>(b) * a.Lq + row) * a.H + h) * a.D;
-#pragma unroll
-    for (int t = 0; t < DP / 16; ++t)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int d = (4 * t + c) * 4 + e;
-        if (d < a.D) o[d] = from_f<T>(acc[4 * t + e]);
+        const int r = e >> 1, col = 8 * j + 2 * t + (e & 1);
+        float ds = 0.f;
+        if (live[r] && ok[col] &&
+            !(a.causal && k0 + col > static_cast<long long>(a.q_offset) + row0 + 8 * r)) {
+          const float p = expf(s[j][e] * a.scale - lse[r]);
+          ds = p * (dp[j][e] - delta[r]) * a.scale;
+        }
+        s[j][e] = ds;
       }
+    gemm_cy<T, DP, NJ>(acc, s, tK, g, t);
   }
+  mma3::cp_async_wait_all();
+
+  const long long row_elems = static_cast<long long>(a.H) * a.D;
+  store_rows<T, DP>(static_cast<T*>(a.dq) + (static_cast<long long>(b) * a.Lq * a.H + h) * a.D,
+                    acc, row0, row0 < a.Lq, row0 + 8 < a.Lq, a.D, row_elems, t);
 }
 
-// dk, dv: one block per (key tile, head, batch row)
+// dk, dv: one block per (64-key tile, head, batch row)
 template <typename T, int DP>
-__global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Args a) {
-  constexpr int RS = DP + 4;
-  extern __shared__ __align__(16) float smem[];
-  float* sK = smem;
-  float* sV = sK + BN * RS;
-  float* sQ = sV + BN * RS;
-  float* sO = sQ + BM * RS;   // dO
-  float* sP = sO + BM * RS;   // p  [BN][BM + 1], key-major
-  float* sS = sP + BN * (BM + 1);  // ds [BN][BM + 1]
-  float* sLse = sS + BN * (BM + 1);
-  float* sDelta = sLse + BM;
+__global__ void __launch_bounds__(NT, DP <= 64 ? 3 : 1) flash_bwd_dkv_kernel(const Args a) {
+  constexpr int RS = row_stride<T>(DP);
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sK = reinterpret_cast<T*>(smem);
+  T* sV = sK + BO * RS;
+  T* sQ = sV + BO * RS;      // [2][BL][RS]
+  T* sO = sQ + 2 * BL * RS;  // [2][BL][RS], dO
+  float* sLse = reinterpret_cast<float*>(sO + 2 * BL * RS);  // [2][BL]
+  float* sDelta = sLse + 2 * BL;                             // [2][BL]
+  int* sProbe = reinterpret_cast<int*>(sDelta + 2 * BL);     // [NW]
 
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* dout = static_cast<const T*>(a.dout);
-  const int tid = threadIdx.x, r = tid >> 2, c = tid & 3;
-  const int k0 = blockIdx.x * BN, h = blockIdx.y, b = blockIdx.z;
-  const int key = k0 + r;
-  const bool key_in = key < a.Lk;
-  const bool key_ok = key_in && (a.mask ? a.mask[b * a.msb + key] != 0 : true);
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * BO, h = blockIdx.y, b = blockIdx.z;
+  const T* q = static_cast<const T*>(a.q) + b * a.qsb + h * a.qsh;
+  const T* k = static_cast<const T*>(a.k) + b * a.ksb + h * a.ksh;
+  const T* v = static_cast<const T*>(a.v) + b * a.vsb + h * a.vsh;
+  const T* dout = static_cast<const T*>(a.dout) + b * a.osb + h * a.osh;
+  const long long stat0 = (static_cast<long long>(b) * a.H + h) * a.Lq;
+  const float* lse = a.lse + stat0;
+  const float* delta = a.delta + stat0;
   const float inv_lk = 1.f / static_cast<float>(a.Lk);
 
-  load_tile<T, DP>(sK, k, k0, a.Lk, a.ksb, a.ksl, a.ksh, b, h, a.D);
-  load_tile<T, DP>(sV, v, k0, a.Lk, a.vsb, a.vsl, a.vsh, b, h, a.D);
-
-  float acc_k[DP / 4], acc_v[DP / 4];
+  // this lane's two keys
+  const int key0 = k0 + 16 * w + g;
+  bool key_in[2], key_ok[2];
 #pragma unroll
-  for (int t = 0; t < DP / 4; ++t) acc_k[t] = acc_v[t] = 0.f;
-
-  const long long stat0 = (static_cast<long long>(b) * a.H + h) * a.Lq;
-  const int nqt = (a.Lq + BM - 1) / BM;
-  for (int qt = 0; qt < nqt; ++qt) {
-    const int q0 = qt * BM;
-    __syncthreads();  // the previous tile's sQ, sO, sP, sS, sLse are consumed
-    bool any_dead = false;
-    if (tid < BM) {
-      const int row = q0 + tid;
-      const float lse = row < a.Lq ? a.lse[stat0 + row] : 0.f;
-      sLse[tid] = lse;
-      sDelta[tid] = row < a.Lq ? a.delta[stat0 + row] : 0.f;
-      any_dead = row < a.Lq && lse <= DEAD;
-    }
-    // causally dead for every key of the tile: the tile's last query sits
-    // before its first key. Visited only for rows with no valid key.
-    const bool causal_dead = a.causal && static_cast<long long>(a.q_offset) +
-                                             min(q0 + BM, a.Lq) - 1 < k0;
-    if (__syncthreads_or(any_dead) == 0 && causal_dead) continue;
-    load_tile<T, DP>(sQ, q, q0, a.Lq, a.qsb, a.qsl, a.qsh, b, h, a.D);
-    load_tile<T, DP>(sO, dout, q0, a.Lq, a.osb, a.osl, a.osh, b, h, a.D);
-    __syncthreads();
-
-    float s[CPT], dp[CPT];
-#pragma unroll
-    for (int i = 0; i < CPT; ++i) s[i] = dp[i] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < DP; d += 4) {
-      const float4 ka = *reinterpret_cast<const float4*>(sK + r * RS + d);
-      const float4 va = *reinterpret_cast<const float4*>(sV + r * RS + d);
-#pragma unroll
-      for (int i = 0; i < CPT; ++i) {
-        const float4 qb = *reinterpret_cast<const float4*>(sQ + (c + 4 * i) * RS + d);
-        const float4 ob = *reinterpret_cast<const float4*>(sO + (c + 4 * i) * RS + d);
-        s[i] = fmaf(ka.x, qb.x, fmaf(ka.y, qb.y, fmaf(ka.z, qb.z, fmaf(ka.w, qb.w, s[i]))));
-        dp[i] = fmaf(va.x, ob.x, fmaf(va.y, ob.y, fmaf(va.z, ob.z, fmaf(va.w, ob.w, dp[i]))));
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < CPT; ++i) {
-      const int qi = c + 4 * i, row = q0 + qi;
-      const float lse = sLse[qi];
-      float p = 0.f, ds = 0.f;
-      if (row < a.Lq && key_in) {
-        if (lse <= DEAD) {
-          p = inv_lk;  // no valid key in the row: uniform over all Lk keys
-        } else if (key_ok && !(a.causal && static_cast<long long>(key) >
-                                               static_cast<long long>(a.q_offset) + row)) {
-          p = expf(s[i] * a.scale - lse);
-          ds = p * (dp[i] - sDelta[qi]) * a.scale;
-        }
-      }
-      sP[r * (BM + 1) + qi] = to_f(from_f<T>(p));
-      sS[r * (BM + 1) + qi] = to_f(from_f<T>(ds));
-    }
-    __syncwarp();  // key row r's p and ds come from its own four lanes
-
-#pragma unroll 4
-    for (int i = 0; i < BM; ++i) {
-      const float p = sP[r * (BM + 1) + i];
-      const float ds = sS[r * (BM + 1) + i];
-#pragma unroll
-      for (int t = 0; t < DP / 16; ++t) {
-        const float4 ob = *reinterpret_cast<const float4*>(sO + i * RS + (4 * t + c) * 4);
-        const float4 qb = *reinterpret_cast<const float4*>(sQ + i * RS + (4 * t + c) * 4);
-        acc_v[4 * t + 0] = fmaf(p, ob.x, acc_v[4 * t + 0]);
-        acc_v[4 * t + 1] = fmaf(p, ob.y, acc_v[4 * t + 1]);
-        acc_v[4 * t + 2] = fmaf(p, ob.z, acc_v[4 * t + 2]);
-        acc_v[4 * t + 3] = fmaf(p, ob.w, acc_v[4 * t + 3]);
-        acc_k[4 * t + 0] = fmaf(ds, qb.x, acc_k[4 * t + 0]);
-        acc_k[4 * t + 1] = fmaf(ds, qb.y, acc_k[4 * t + 1]);
-        acc_k[4 * t + 2] = fmaf(ds, qb.z, acc_k[4 * t + 2]);
-        acc_k[4 * t + 3] = fmaf(ds, qb.w, acc_k[4 * t + 3]);
-      }
-    }
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    key_in[r] = key < a.Lk;
+    key_ok[r] = key_in[r] && (a.mask ? a.mask[b * a.msb + key] != 0 : true);
   }
 
-  if (key_in) {
-    const long long base = ((static_cast<long long>(b) * a.Lk + key) * a.H + h) * a.D;
-    T* ok = static_cast<T*>(a.dk) + base;
-    T* ov = static_cast<T*>(a.dv) + base;
+  // q tiles from live_from on hold a query that may see a key of this block;
+  // the tiles before are causally dead for all of them
+  const int nqt = (a.Lq + BL - 1) / BL;
+  int live_from = 0;
+  if (a.causal) {
+    const long long need = static_cast<long long>(k0) - a.q_offset;  // first row that sees key k0
+    live_from = need <= 0 ? 0 : need > a.Lq - 1 ? nqt : static_cast<int>(need / BL);
+  }
+  // the first tile at or after qt that the block visits: causally live, or
+  // holding a row with no valid key; dead tiles are probed a warp each
+  auto next_tile = [&](int qt) -> int {
+    for (int base = qt; base < live_from; base += NW) {
+      const int cand = base + w, row = cand * BL + lane;
+      const bool dead = cand < live_from && lane < BL && row < a.Lq && lse[row] <= DEAD;
+      const int any = __any_sync(0xffffffffu, dead);
+      __syncthreads();  // the previous probe is read
+      if (lane == 0) sProbe[w] = any;
+      __syncthreads();
 #pragma unroll
-    for (int t = 0; t < DP / 16; ++t)
+      for (int i = 0; i < NW; ++i)
+        if (sProbe[i]) return base + i;
+    }
+    return max(qt, live_from);
+  };
+  auto load_tile = [&](int qt, int buf) {
+    const int q0 = qt * BL;
+    load_rows<T, DP, BL>(sQ + buf * BL * RS, q, q0, a.Lq, a.qsl, a.D, a.vec_q);
+    load_rows<T, DP, BL>(sO + buf * BL * RS, dout, q0, a.Lq, a.osl, a.D, a.vec_o);
+    if (tid < 2 * BL) {
+      const int i = tid % BL, row = q0 + i;
+      const bool in = row < a.Lq;
+      const float* src = tid < BL ? lse : delta;
+      mma3::cp_async4((tid < BL ? sLse : sDelta) + buf * BL + i, in ? src + row : src, in);
+    }
+  };
+
+  load_rows<T, DP, BO>(sK, k, k0, a.Lk, a.ksl, a.D, a.vec_k);
+  load_rows<T, DP, BO>(sV, v, k0, a.Lk, a.vsl, a.D, a.vec_v);
+  int cur = next_tile(0);
+  if (cur < nqt) load_tile(cur, 0);
+  mma3::cp_async_commit();
+
+  float acc_k[DP / 8][4], acc_v[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+  for (int it = 0; cur < nqt; ++it) {
+    const int buf = it & 1, q0 = cur * BL;
+    const int nxt = next_tile(cur + 1);
+    mma3::cp_async_wait_all();
+    __syncthreads();  // tile cur has landed; the previous tile (other buffer) is consumed
+    if (nxt < nqt) {
+      load_tile(nxt, buf ^ 1);
+      mma3::cp_async_commit();
+    }
+    const T* tQ = sQ + buf * BL * RS;
+    const T* tO = sO + buf * BL * RS;
+    const float* tLse = sLse + buf * BL;
+    const float* tDelta = sDelta + buf * BL;
+
+    float st[NJ][4], dpt[NJ][4];  // S^T, dP^T: [16 keys][32 query rows]
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+    gemm_xyt<T, DP, NJ>(st, sK + 16 * w * RS, tQ, g, t);
+    gemm_xyt<T, DP, NJ>(dpt, sV + 16 * w * RS, tO, g, t);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int d = (4 * t + c) * 4 + e;
-        if (d < a.D) {
-          ok[d] = from_f<T>(acc_k[4 * t + e]);
-          ov[d] = from_f<T>(acc_v[4 * t + e]);
+        const int r = e >> 1, qi = 8 * j + 2 * t + (e & 1), row = q0 + qi;
+        const float l = tLse[qi];
+        float p = 0.f, ds = 0.f;
+        if (row < a.Lq && key_in[r]) {
+          if (l <= DEAD) {
+            p = inv_lk;  // no valid key in the row: uniform over all Lk keys
+          } else if (key_ok[r] && !(a.causal && key0 + 8 * r >
+                                                    static_cast<long long>(a.q_offset) + row)) {
+            p = expf(st[j][e] * a.scale - l);
+            ds = p * (dpt[j][e] - tDelta[qi]) * a.scale;
+          }
         }
+        dpt[j][e] = p;  // p^T, for dv
+        st[j][e] = ds;  // ds^T, for dk
       }
+    gemm_cy<T, DP, NJ>(acc_v, dpt, tO, g, t);
+    gemm_cy<T, DP, NJ>(acc_k, st, tQ, g, t);
+    cur = nxt;
   }
+  mma3::cp_async_wait_all();
+
+  const long long row_elems = static_cast<long long>(a.H) * a.D;
+  const long long base = (static_cast<long long>(b) * a.Lk * a.H + h) * a.D;
+  store_rows<T, DP>(static_cast<T*>(a.dk) + base, acc_k, key0, key_in[0], key_in[1], a.D,
+                    row_elems, t);
+  store_rows<T, DP>(static_cast<T*>(a.dv) + base, acc_v, key0, key_in[0], key_in[1], a.D,
+                    row_elems, t);
 }
 
 // above 48 KB of shared memory only after opting in; once per kernel and
@@ -354,40 +567,48 @@ cudaError_t opt_in(K kernel, size_t bytes, unsigned long long& opted_in) {
   return cudaSuccess;
 }
 
+// which = 0: the dq kernel, 1: the dk/dv kernel. attrs null: launch it;
+// else fill attrs with its registers per thread, shared bytes per block,
+// resident blocks per SM and local (spill) bytes per thread, and launch
+// nothing
 template <typename T, int DP>
-int launch_dq(const Args& a, int B, cudaStream_t stream) {
-  static unsigned long long opted_in = 0;
-  const size_t bytes = dq_smem_bytes<DP>();
-  cudaError_t err = opt_in(flash_bwd_dq_kernel<T, DP>, bytes, opted_in);
+int run(int which, const Args& a, int B, cudaStream_t stream, int* attrs) {
+  static unsigned long long opted_in[2] = {0, 0};
+  void (*kernel)(const Args) =
+      which == 0 ? flash_bwd_dq_kernel<T, DP> : flash_bwd_dkv_kernel<T, DP>;
+  const size_t bytes = which == 0 ? dq_smem_bytes<T, DP>() : dkv_smem_bytes<T, DP>();
+  cudaError_t err = opt_in(kernel, bytes, opted_in[which]);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.Lq + BM - 1) / BM, a.H, B);
-  flash_bwd_dq_kernel<T, DP><<<grid, NT, bytes, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int DP>
-int launch_dkv(const Args& a, int B, cudaStream_t stream) {
-  static unsigned long long opted_in = 0;
-  const size_t bytes = dkv_smem_bytes<DP>();
-  cudaError_t err = opt_in(flash_bwd_dkv_kernel<T, DP>, bytes, opted_in);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.Lk + BN - 1) / BN, a.H, B);
-  flash_bwd_dkv_kernel<T, DP><<<grid, NT, bytes, stream>>>(a);
+  if (attrs) {
+    cudaFuncAttributes fa;
+    err = cudaFuncGetAttributes(&fa, kernel);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, NT, bytes);
+    attrs[0] = fa.numRegs;
+    attrs[1] = static_cast<int>(fa.sharedSizeBytes + bytes);
+    attrs[2] = blocks;
+    attrs[3] = static_cast<int>(fa.localSizeBytes);
+    return static_cast<int>(err);
+  }
+  const dim3 grid(((which == 0 ? a.Lq : a.Lk) + BO - 1) / BO, a.H, B);
+  kernel<<<grid, NT, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_d(const Args& a, int B, int which, cudaStream_t stream) {
-  if (which == 0) {
-    if (a.D <= 16) return launch_dq<T, 16>(a, B, stream);
-    if (a.D <= 32) return launch_dq<T, 32>(a, B, stream);
-    if (a.D <= 64) return launch_dq<T, 64>(a, B, stream);
-    return launch_dq<T, 128>(a, B, stream);
-  }
-  if (a.D <= 16) return launch_dkv<T, 16>(a, B, stream);
-  if (a.D <= 32) return launch_dkv<T, 32>(a, B, stream);
-  if (a.D <= 64) return launch_dkv<T, 64>(a, B, stream);
-  return launch_dkv<T, 128>(a, B, stream);
+int run_d(int which, const Args& a, int B, cudaStream_t stream, int* attrs) {
+  if (a.D <= 16) return run<T, 16>(which, a, B, stream, attrs);
+  if (a.D <= 32) return run<T, 32>(which, a, B, stream, attrs);
+  if (a.D <= 64) return run<T, 64>(which, a, B, stream, attrs);
+  return run<T, 128>(which, a, B, stream, attrs);
+}
+
+// rows of a [B, L, H, D] tensor at p with these strides are 16-byte chunks
+int vec_rows(const void* p, long long sb, long long sl, long long sh, int D, int elt) {
+  const long long v = 16 / elt;
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && D % v == 0 && sb % v == 0 &&
+         sl % v == 0 && sh % v == 0;
 }
 
 }  // namespace
@@ -410,9 +631,24 @@ extern "C" int flash_attention_bwd(int which, const void* q, const void* k, cons
                                    long long ksh, long long vsb, long long vsl, long long vsh,
                                    long long osb, long long osl, long long osh, long long msb,
                                    float scale, int causal, int q_offset, void* stream) {
+  const int elt = bf16 ? 2 : 4;
   const Args a{q, k, v, dout, static_cast<const uint8_t*>(mask), lse, delta, dq, dk, dv,
                Lq, Lk, H, D, qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh, osb, osl, osh,
-               msb, scale, causal, q_offset};
+               msb, scale, causal, q_offset,
+               vec_rows(q, qsb, qsl, qsh, D, elt), vec_rows(k, ksb, ksl, ksh, D, elt),
+               vec_rows(v, vsb, vsl, vsh, D, elt), vec_rows(dout, osb, osl, osh, D, elt)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_d<__nv_bfloat16>(a, B, which, st) : launch_d<float>(a, B, which, st);
+  return bf16 ? run_d<__nv_bfloat16>(which, a, B, st, nullptr)
+              : run_d<float>(which, a, B, st, nullptr);
+}
+
+// The build of one kernel: which = 0 dq, 1 dk/dv; bf16 and D select the
+// instantiation as flash_attention_bwd does. Fills out[4] with registers
+// per thread, shared bytes per block, resident blocks per SM (at 128
+// threads) and local bytes per thread; returns a cudaError_t (0 on success).
+extern "C" int flash_attention_bwd_attrs(int which, int bf16, int D, int* out) {
+  Args a{};
+  a.D = D;
+  return bf16 ? run_d<__nv_bfloat16>(which, a, 1, nullptr, out)
+              : run_d<float>(which, a, 1, nullptr, out);
 }
