@@ -357,8 +357,10 @@ def _bound(flops: float, nbytes: float, peak: float = H100_F32_FLOPS) -> tuple[f
 def phase_flash_attention(card: str) -> dict:
     """The kernel against flash_attention_reference on the card, f32 and
     bf16 (output and lse), at the GPT-2 prefill, the cached prefill and
-    the BERT/ViT shapes; timed in f32 against its bound and against
-    scaled_dot_product_attention on the same inputs."""
+    the BERT/ViT shapes; timed in f32 against its bound (3xTF32 on the
+    tensor cores, the CUDA-core f32 bound beside it) and against
+    scaled_dot_product_attention on the same inputs. Prints the kernel's
+    builds (_fwd_builds)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -369,6 +371,7 @@ def phase_flash_attention(card: str) -> dict:
         flash_attention_reference,
     )
 
+    builds = _fwd_builds()
     rng = np.random.default_rng(4)
     cases = (  # name, B, Lq, Lk, causal, q_offset
         ("gpt2_prefill", GEN_BATCH, GEN_LEN, GEN_LEN, True, 0),
@@ -414,15 +417,20 @@ def phase_flash_attention(card: str) -> dict:
                   else lq * lk)
         flops = 4.0 * b * HEADS * HEAD_DIM * n_keys  # QK and PV, 2 per MAC
         nbytes = 4.0 * HEADS * HEAD_DIM * b * (2 * lq + 2 * lk) + b * lk
-        bound_ms, bound_by = _bound(flops, nbytes)
+        # on the tensor cores as 3xTF32 (three TF32 passes a product); the
+        # CUDA cores' f32 bound beside it
+        bound_ms, bound_by = _bound(3 * flops, nbytes, H100_TF32_FLOPS)
+        core_ms, core_by = _bound(flops, nbytes)
         report.append(
             f"{name} B={b} Lq={lq} Lk={lk}{' causal' if causal else ''}"
             f"{f' q_offset={q_offset}' if q_offset else ''}: rel err f32 "
             f"{errs[torch.float32][1]:.2e} (lse {errs[torch.float32][2]:.2e}), "
             f"bf16 {errs[torch.bfloat16][1]:.2e}; kernel {ms:.4f} ms ({host_ms:.4f} "
             f"per call from the host), plain {plain_ms:.4f}, sdpa "
-            f"{library_ms:.4f}, bound {bound_ms:.4f} "
-            f"({bound_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB)")
+            f"{library_ms:.4f} (kernel/sdpa {ms / library_ms:.2f}), bound {bound_ms:.4f} "
+            f"({bound_by}; {flops / 1e9:.3f} GFLOP, 3xTF32 at 495 TFLOP/s "
+            f"{3 * flops / H100_TF32_FLOPS * 1e3:.4f} ms, {nbytes / 1e6:.1f} MB), "
+            f"CUDA-core bound {core_ms:.4f} ({core_by})")
         if entry is None:  # the main path's shape: the GPT-2 prefill
             entry = {
                 "name": "flash_attention", "route": "cuda",
@@ -431,7 +439,9 @@ def phase_flash_attention(card: str) -> dict:
                 "launches": None, "max_abs_err": errs[torch.float32][0],
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms,
+                "cuda_core_bound_ms": core_ms,
             }
+    print(f"[flash_attention] builds: {builds}")
     print(f"[flash_attention] H={HEADS} D={HEAD_DIM}, tol f32 {ATTN_TOL} "
           f"bf16 {BF16_TOL} x max|ref|; device ms per call from CUDA-graph "
           f"replays; {card}: " + "; ".join(report))
@@ -803,16 +813,12 @@ def _check_bwd(name, q, k, v, do, mask, causal, q_offset, dtype, tol, errs) -> s
             f"dq/dk/dv {'/'.join(f'{r:.1e}' for r in rels)} ({dead} rows without a valid key)")
 
 
-def _bwd_builds() -> str:
-    """Each backward kernel's build: HMMA (tensor-core) instructions in its
-    SASS (cuobjdump -sass on the built library), asserted > 0 in every
-    instantiation, f32 and bf16; and registers, shared memory per block,
-    resident blocks per SM and spill bytes from cudaFuncGetAttributes."""
-    import ctypes
-
+def _sass_hmma(name: str) -> dict:
+    """HMMA (tensor-core) instructions per function in the SASS of the
+    built library of csrc/<name>.cu (cuobjdump -sass)."""
     from sparkdl_torch.ops import _dispatch
 
-    lib = _dispatch.library_path("flash_attention_bwd")
+    lib = _dispatch.library_path(name)
     tool = os.path.join(os.path.dirname(_dispatch._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], check=True, capture_output=True,
                           text=True, timeout=300).stdout
@@ -823,28 +829,67 @@ def _bwd_builds() -> str:
             hmma[func] = 0
         elif func is not None and "HMMA" in line:
             hmma[func] += 1
-    attrs = _dispatch.load_library("flash_attention_bwd").flash_attention_bwd_attrs
-    attrs.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    return hmma
+
+
+def _builds(name: str, attrs_fn: str, rows) -> str:
+    """One library's kernel builds: for each (label, [(mangled name
+    fragment, attrs args), ...]) the HMMA count of each instantiation in
+    its SASS, asserted > 0, and registers/shared bytes per block/resident
+    blocks per SM/spill bytes from cudaFuncGetAttributes (the library's
+    ``attrs_fn(*args, int out[4])``)."""
+    import ctypes
+
+    from sparkdl_torch.ops import _dispatch
+
+    hmma = _sass_hmma(name)
+    attrs = getattr(_dispatch.load_library(name), attrs_fn)
     attrs.restype = ctypes.c_int
     out = (ctypes.c_int * 4)()
     parts = []
-    for which, kname in ((0, "dq"), (1, "dkv")):
-        for bf16, tname, mangled in ((0, "f32", "f"), (1, "bf16", "13__nv_bfloat16")):
-            counts, builds = [], []
-            for dp in (16, 32, 64, 128):
-                hits = [n for f, n in hmma.items()
-                        if f"flash_bwd_{kname}_kernelI{mangled}Li{dp}E" in f]
-                if len(hits) != 1 or hits[0] <= 0:
-                    raise AssertionError(f"flash_bwd_{kname}_kernel<{tname}, {dp}>: HMMA "
-                                         f"counts {hits} in the SASS (want one kernel, > 0)")
-                rc = attrs(which, bf16, dp, out)
-                if rc != 0:
-                    raise RuntimeError(f"flash_attention_bwd_attrs: cudaError {rc}")
-                counts.append(str(hits[0]))
-                builds.append(f"{out[0]}/{out[1]}/{out[2]}/{out[3]}")
-            parts.append(f"{kname} {tname} HMMA {'/'.join(counts)}, regs/smem B/blocks "
-                         f"per SM/spill B {' '.join(builds)}")
-    return "; ".join(parts) + " (D 16/32/64/128)"
+    for label, insts in rows:
+        counts, builds = [], []
+        for needle, args in insts:
+            hits = [n for f, n in hmma.items() if needle in f]
+            if len(hits) != 1 or hits[0] <= 0:
+                raise AssertionError(f"{needle}: HMMA counts {hits} in the SASS of "
+                                     f"{name} (want one kernel, > 0)")
+            attrs.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
+            rc = attrs(*args, out)
+            if rc != 0:
+                raise RuntimeError(f"{attrs_fn}{args}: cudaError {rc}")
+            counts.append(str(hits[0]))
+            builds.append(f"{out[0]}/{out[1]}/{out[2]}/{out[3]}")
+        parts.append(f"{label} HMMA {'/'.join(counts)}, regs/smem B/blocks per SM/spill B "
+                     f"{' '.join(builds)}")
+    return "; ".join(parts)
+
+
+_TYPES = ((0, "f32", "f"), (1, "bf16", "13__nv_bfloat16"))  # attrs flag, label, mangled
+
+
+def _fwd_builds() -> str:
+    """The forward kernel's builds (_builds), D 16/32/64/128, f32 and bf16."""
+    return _builds("flash_attention", "flash_attention_fwd_attrs", [
+        (f"fwd {tname}", [(f"flash_fwd_kernelI{mangled}Li{dp}E", (bf16, dp))
+                          for dp in (16, 32, 64, 128)])
+        for bf16, tname, mangled in _TYPES]) + " (D 16/32/64/128)"
+
+
+def _bwd_builds() -> str:
+    """Each backward kernel's builds (_builds), D 16/32/64/128, f32 and bf16."""
+    return _builds("flash_attention_bwd", "flash_attention_bwd_attrs", [
+        (f"{kname} {tname}", [(f"flash_bwd_{kname}_kernelI{mangled}Li{dp}E", (which, bf16, dp))
+                              for dp in (16, 32, 64, 128)])
+        for which, kname in ((0, "dq"), (1, "dkv")) for bf16, tname, mangled in _TYPES]
+    ) + " (D 16/32/64/128)"
+
+
+def _gemm_builds() -> str:
+    """The GEMM kernel's builds (_builds), f32 and bf16."""
+    return _builds("fused_gemm_bn", "gemm_bn_stats_attrs", [
+        (f"gemm {tname}", [(f"gemm_bn_kernelI{mangled}E", (bf16,))])
+        for bf16, tname, mangled in _TYPES])
 
 
 def phase_flash_attention_bwd(card: str) -> tuple[dict, dict, dict]:
@@ -934,7 +979,8 @@ def phase_flash_attention_bwd(card: str) -> tuple[dict, dict, dict]:
     dkv_f32_bound, dkv_f32_by = _bound(4 * prod, dkv_bytes)
     dq_bound, dq_by = _bound(3 * 3 * prod, dq_bytes, H100_TF32_FLOPS)
     dkv_bound, dkv_by = _bound(3 * 4 * prod, dkv_bytes, H100_TF32_FLOPS)
-    fwd_bound, _ = _bound(2 * prod, 4 * tensor + b * length)
+    fwd_bound, _ = _bound(3 * 2 * prod, 4 * tensor + b * length, H100_TF32_FLOPS)
+    fwd_core_bound, _ = _bound(2 * prod, 4 * tensor + b * length)
     print(f"[flash_attention_bwd] builds: {builds}")
     print(f"[flash_attention_bwd] H={HEADS}, tol f32 {BWD_TOL} bf16 {BWD_BF16_TOL} x "
           f"max|ref|, each case bitwise equal across two calls and to autograd; {card}: "
@@ -950,7 +996,9 @@ def phase_flash_attention_bwd(card: str) -> tuple[dict, dict, dict]:
           f"backward {library_ms:.4f} (its kernels' device time, profiler; main kernel "
           f"{sdpa_kernel} {sdpa_times[max(sdpa_times, key=sdpa_times.get)]:.4f}); forward "
           f"kernel at this shape {fwd_ms:.4f}, plain {fwd_plain_ms:.4f}, SDPA "
-          f"{fwd_library_ms:.4f}, bound {fwd_bound:.4f}")
+          f"{fwd_library_ms:.4f} (kernel/SDPA {fwd_ms / fwd_library_ms:.2f}), bound "
+          f"{fwd_bound:.4f} (3xTF32 tensor cores vs bytes; CUDA-core bound "
+          f"{fwd_core_bound:.4f})")
     # plain_ms and library_ms time dq, dk and dv together (no plain or library
     # call computes one of them alone): hold them against pair_ms, not ms
     common = {"route": "cuda", "source": "sparkdl_torch/csrc/flash_attention_bwd.cu",
@@ -967,7 +1015,8 @@ def phase_flash_attention_bwd(card: str) -> tuple[dict, dict, dict]:
            "ms": dkv_ms, "bound_ms": dkv_bound, "bound_by": dkv_by,
            "cuda_core_bound_ms": dkv_f32_bound}
     return dq, dkv, {"ms": fwd_ms, "plain_ms": fwd_plain_ms,
-                     "library_ms": fwd_library_ms, "bound_ms": fwd_bound}
+                     "library_ms": fwd_library_ms, "bound_ms": fwd_bound,
+                     "cuda_core_bound_ms": fwd_core_bound}
 
 
 # (M, K, N, launches in one step) of the fused ResNet50 step at B=64, 224 px:
@@ -985,8 +1034,9 @@ def phase_fused_gemm_bn(card: str) -> dict:
     """The kernel against reference_conv1x1_bn_stats at the shapes the
     fused ResNet50 step launches (M = 64 x 56^2 .. 64 x 7^2; 64 x 7^2 is
     not a multiple of the 128-row tile), prev BN with ReLU on and off, f32
-    and bf16, plus an odd M; timed in f32 against its bound, its plain
-    version and the bare torch.matmul."""
+    and bf16, plus an odd M; timed in f32 against its bound (3xTF32 on the
+    tensor cores, the CUDA-core f32 bound beside it), its plain version and
+    the bare torch.matmul. Prints the kernel's builds (_gemm_builds)."""
     import numpy as np
     import torch
 
@@ -997,6 +1047,7 @@ def phase_fused_gemm_bn(card: str) -> dict:
         reference_conv1x1_bn_stats,
     )
 
+    builds = _gemm_builds()
     rng = np.random.default_rng(8)
 
     def make(m, k, n, prev):
@@ -1035,7 +1086,7 @@ def phase_fused_gemm_bn(card: str) -> dict:
                 key = ("f32" if dtype == torch.float32 else "bf16", what)
                 worst[key] = max(worst.get(key, (0.0, 0.0)), (rel, abs_err))
 
-    ms = plain_ms = bound_ms = ops_ms = bytes_ms = 0.0
+    ms = plain_ms = mm_ms = bound_ms = core_ms = ops_ms = bytes_ms = 0.0
     for m, k, n, count, prev in RESNET_GEMMS:
         x, w, bias, bn = make(m, k, n, prev)
         x2 = x.reshape(m, k)
@@ -1048,27 +1099,35 @@ def phase_fused_gemm_bn(card: str) -> dict:
                                                          relu_in=prev))
         t_mm = _device_ms(lambda: x2 @ w)
         nbytes = 4.0 * (m * k + k * n + m * n + 2 * n + (2 * k if prev else 0))
-        b_ms, b_by = _bound(2.0 * m * k * n, nbytes)
-        ms, plain_ms, bound_ms = ms + count * t_k, plain_ms + count * t_p, bound_ms + count * b_ms
-        ops_ms += count * (2.0 * m * k * n / H100_F32_FLOPS * 1e3)
+        # 3xTF32 on the tensor cores: three TF32 passes a product
+        b_ms, b_by = _bound(3 * 2.0 * m * k * n, nbytes, H100_TF32_FLOPS)
+        c_ms, c_by = _bound(2.0 * m * k * n, nbytes)
+        ms, plain_ms, mm_ms = ms + count * t_k, plain_ms + count * t_p, mm_ms + count * t_mm
+        bound_ms, core_ms = bound_ms + count * b_ms, core_ms + count * c_ms
+        ops_ms += count * (3 * 2.0 * m * k * n / H100_TF32_FLOPS * 1e3)
         bytes_ms += count * (nbytes / H100_BYTES_S * 1e3)
         report.append(f"{m}x{k}->{n} x{count}: kernel {t_k:.4f}, plain {t_p:.4f}, "
-                      f"matmul {t_mm:.4f}, bound {b_ms:.4f} ({b_by})")
+                      f"matmul {t_mm:.4f}, bound {b_ms:.4f} ({b_by}; CUDA-core "
+                      f"{c_ms:.4f} {c_by})")
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    print(f"[fused_gemm_bn] builds: {builds}")
     print(f"[fused_gemm_bn] tol f32 y {GEMM_TOL}, mean/var {STATS_TOL}, bf16 "
           f"{GEMM_BF16_TOL} x max|ref|; worst rel err " + ", ".join(
               f"{d} {w} {e[0]:.1e}" for (d, w), e in sorted(worst.items()))
           + f" over {len(checks)} shapes (prev BN + ReLU on/off, M 1000 and "
           f"3136 not tile multiples); {card}; f32 device ms per call (CUDA-graph "
           f"replay): " + "; ".join(report)
-          + f"; one step's 25 launches: kernel {ms:.3f} ms, plain {plain_ms:.3f}, "
-          f"bound {bound_ms:.3f}; library_ms null: no single PyTorch call computes "
+          + f"; one step's 25 launches: kernel {ms:.3f} ms, plain {plain_ms:.3f}, bare "
+          f"f32 torch.matmul {mm_ms:.3f}, bound {bound_ms:.3f} ({bound_by}: 3xTF32 "
+          f"operations {ops_ms:.3f} at 495 TFLOP/s, bytes {bytes_ms:.3f}; CUDA-core bound "
+          f"{core_ms:.3f}); library_ms null: no single PyTorch call computes "
           "the GEMM with the BN stats (torch.matmul above is for information)")
     return {"name": "gemm_bn_stats", "route": "cuda",
             "source": "sparkdl_torch/csrc/fused_gemm_bn.cu",
             "replaces": "sparkdl_tpu/ops/fused_gemm_bn.py:67", "launches": None,
             "max_abs_err": worst["f32", "y"][1], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "cuda_core_bound_ms": core_ms, "matmul_ms": mm_ms}
 
 
 def phase_train_bert(card: str, dq_entry: dict, dkv_entry: dict, fwd: dict) -> float:
@@ -1291,9 +1350,13 @@ def main() -> int:
     print(f"[summary] {card}: featurizer {images_s:.1f} images/s; generator "
           f"{tokens_s:.1f} tokens/s; BERT-base fine-tune {examples_s:.1f} examples/s; "
           f"ResNet50 training {train_images_s:.1f} images/s; flash_attention at the "
+          f"GPT-2 prefill {attn['ms']:.4f} ms (SDPA {attn['library_ms']:.4f}, bound "
+          f"{attn['bound_ms']:.4f}), at the "
           f"BERT training shape {bert_fwd['ms']:.4f} ms (plain {bert_fwd['plain_ms']:.4f}, "
           f"SDPA {bert_fwd['library_ms']:.4f}, bound {bert_fwd['bound_ms']:.4f}), "
-          f"{bert_fwd['bert_launches']} launches in [train_bert]; kernel ms vs bound ms: "
+          f"{bert_fwd['bert_launches']} launches in [train_bert]; gemm_bn_stats "
+          f"{gemm['ms']:.3f} ms a ResNet50 step (plain {gemm['plain_ms']:.3f}, bare matmul "
+          f"{gemm['matmul_ms']:.3f}, bound {gemm['bound_ms']:.3f}); kernel ms vs bound ms: "
           + ", ".join(f"{k['name']} {k['ms']:.4f} vs {k['bound_ms']:.4f}" for k in kernels))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -102,9 +102,16 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_tf32x3.cuh"
+#include "attention_tiles.cuh"
 
 namespace {
+
+using attn::gemm_cy;
+using attn::gemm_xyt;
+using attn::load_rows;
+using attn::store_rows;
+using attn::vec_rows;
+using mma3::row_stride;
 
 constexpr int NW = 4;          // warps per block
 constexpr int NT = 32 * NW;    // threads per block
@@ -113,17 +120,6 @@ constexpr int BL = 16;         // rows of the tile the block loops over
 constexpr int NJ = BL / 8;     // 8-column accumulator tiles across a loop tile
 static_assert(BL % 16 == 0 && BL <= 32, "a bf16 k-step spans 16 rows; a probe, a warp's lanes");
 constexpr float DEAD = -1e29f; // lse at or below: a row with no valid key
-
-template <typename T>
-__host__ __device__ constexpr int row_stride(int dp) {
-  return dp + 16 / static_cast<int>(sizeof(T));
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 struct Args {
   const void* q; const void* k; const void* v; const void* dout; const uint8_t* mask;
@@ -134,176 +130,6 @@ struct Args {
   float scale; int causal, q_offset;
   int vec_q, vec_k, vec_v, vec_o;        // rows readable as 16-byte chunks
 };
-
-// Fragments of one warp's mma.sync, lane = 4 g + t. A is 16 x K row-major,
-// B is K x 8, accumulators 16 x 8 float32: lane holds (g, 2t), (g, 2t + 1),
-// (g + 8, 2t), (g + 8, 2t + 1). Shared tiles are [rows][rs] in T.
-template <typename T> struct Op;
-
-template <> struct Op<float> {
-  static constexpr int K = 8;
-  struct A { uint32_t big[4], small[4]; };
-  struct B { uint32_t big[2], small[2]; };
-
-  static __device__ __forceinline__ void mma(float (&d)[4], const A& a, const B& b) {
-    mma3::mma_tf32x3(d, a.big, a.small, b.big, b.small);
-  }
-  static __device__ __forceinline__ void mma_rn(float (&d)[4], const A& a, const B& b) {
-    mma3::mma_tf32x3_rn(d, a.big, a.small, b.big, b.small);
-  }
-  // A[m][k] = x[m][8 ks + k]
-  static __device__ __forceinline__ A load_a(const float* x, int rs, int ks, int g, int t) {
-    const float* p = x + g * rs + ks * K + t;
-    A a;
-    mma3::split_tf32(p[0], a.big[0], a.small[0]);
-    mma3::split_tf32(p[8 * rs], a.big[1], a.small[1]);
-    mma3::split_tf32(p[4], a.big[2], a.small[2]);
-    mma3::split_tf32(p[8 * rs + 4], a.big[3], a.small[3]);
-    return a;
-  }
-  // B[k][n] = x[n0 + n][8 ks + k]
-  static __device__ __forceinline__ B load_b_nk(const float* x, int rs, int n0, int ks, int g,
-                                                int t) {
-    const float* p = x + (n0 + g) * rs + ks * K + t;
-    B b;
-    mma3::split_tf32(p[0], b.big[0], b.small[0]);
-    mma3::split_tf32(p[4], b.big[1], b.small[1]);
-    return b;
-  }
-  // B[k][n] = x[8 ks + r(k)][n0 + n], k renumbered: r(t) = 2t, r(t + 4) = 2t + 1
-  static __device__ __forceinline__ B load_b_kn(const float* x, int rs, int ks, int n0, int g,
-                                                int t) {
-    const float* p = x + (ks * K + 2 * t) * rs + n0 + g;
-    B b;
-    mma3::split_tf32(p[0], b.big[0], b.small[0]);
-    mma3::split_tf32(p[rs], b.big[1], b.small[1]);
-    return b;
-  }
-  // A over the accumulator columns [8 ks, 8 ks + 8), renumbered as load_b_kn
-  template <int N>
-  static __device__ __forceinline__ A a_from_c(const float (&c)[N][4], int ks) {
-    A a;
-    mma3::split_tf32(c[ks][0], a.big[0], a.small[0]);
-    mma3::split_tf32(c[ks][2], a.big[1], a.small[1]);
-    mma3::split_tf32(c[ks][1], a.big[2], a.small[2]);
-    mma3::split_tf32(c[ks][3], a.big[3], a.small[3]);
-    return a;
-  }
-};
-
-template <> struct Op<__nv_bfloat16> {
-  using T = __nv_bfloat16;
-  static constexpr int K = 16;
-  struct A { uint32_t r[4]; };
-  struct B { uint32_t r[2]; };
-
-  static __device__ __forceinline__ uint32_t u32(const T* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-  }
-  static __device__ __forceinline__ void mma(float (&d)[4], const A& a, const B& b) {
-    mma3::mma_bf16(d, a.r, b.r);
-  }
-  static __device__ __forceinline__ void mma_rn(float (&d)[4], const A& a, const B& b) {
-    mma3::mma_bf16(d, a.r, b.r);  // bfloat16 operands: their rounding dominates
-  }
-  // A[m][k] = x[m][16 ks + k]: lane holds k = 2t, 2t + 1 and 2t + 8, 2t + 9
-  static __device__ __forceinline__ A load_a(const T* x, int rs, int ks, int g, int t) {
-    const T* p = x + g * rs + ks * K + 2 * t;
-    return A{{u32(p), u32(p + 8 * rs), u32(p + 8), u32(p + 8 * rs + 8)}};
-  }
-  // B[k][n] = x[n0 + n][16 ks + k]
-  static __device__ __forceinline__ B load_b_nk(const T* x, int rs, int n0, int ks, int g,
-                                                int t) {
-    const T* p = x + (n0 + g) * rs + ks * K + 2 * t;
-    return B{{u32(p), u32(p + 8)}};
-  }
-  // B[k][n] = x[16 ks + k][n0 + n]
-  static __device__ __forceinline__ B load_b_kn(const T* x, int rs, int ks, int n0, int g,
-                                                int t) {
-    const T* p = x + (ks * K + 2 * t) * rs + n0 + g;
-    return B{{mma3::pack_bf16(p[0], p[rs]), mma3::pack_bf16(p[8 * rs], p[9 * rs])}};
-  }
-  // A over the accumulator columns [16 ks, 16 ks + 16): tiles 2 ks, 2 ks + 1
-  template <int N>
-  static __device__ __forceinline__ A a_from_c(const float (&c)[N][4], int ks) {
-    const float(&lo)[4] = c[2 * ks];
-    const float(&hi)[4] = c[2 * ks + 1];
-    return A{{mma3::pack_bf16(lo[0], lo[1]), mma3::pack_bf16(lo[2], lo[3]),
-              mma3::pack_bf16(hi[0], hi[1]), mma3::pack_bf16(hi[2], hi[3])}};
-  }
-};
-
-// c[16 x 8N] += x[16 x DP] . y[8N x DP]^T: x the warp's 16 rows, y a loop tile.
-// The scores S and dP: each k-step sums from zero (mma_rn), since their error
-// enters exp() and through p every gradient
-template <typename T, int DP, int N>
-__device__ __forceinline__ void gemm_xyt(float (&c)[N][4], const T* x, const T* y, int g,
-                                         int t) {
-  constexpr int RS = row_stride<T>(DP);
-#pragma unroll
-  for (int ks = 0; ks < DP / Op<T>::K; ++ks) {
-    const typename Op<T>::A a = Op<T>::load_a(x, RS, ks, g, t);
-#pragma unroll
-    for (int j = 0; j < N; ++j)
-      Op<T>::mma_rn(c[j], a, Op<T>::load_b_nk(y, RS, 8 * j, ks, g, t));
-  }
-}
-
-// acc[16 x DP] += c[16 x 8N] . y[8N x DP]: c the accumulators of gemm_xyt.
-// The gradients chain through acc (mma): their drift stays under 1e-5 of
-// max|ref| at L <= 512, and summing from zero here too costs 4% more time
-template <typename T, int DP, int N>
-__device__ __forceinline__ void gemm_cy(float (&acc)[DP / 8][4], const float (&c)[N][4],
-                                        const T* y, int g, int t) {
-  constexpr int RS = row_stride<T>(DP);
-#pragma unroll
-  for (int ks = 0; ks < 8 * N / Op<T>::K; ++ks) {
-    const typename Op<T>::A a = Op<T>::a_from_c(c, ks);
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n)
-      Op<T>::mma(acc[n], a, Op<T>::load_b_kn(y, RS, ks, 8 * n, g, t));
-  }
-}
-
-// rows [r0, r0 + R) of one (batch row, head) slice of a strided [B, L, H, D]
-// tensor (src points at its row 0, sl its row stride) -> shared [R][RS],
-// zeros past L and past D. vec: 16-byte cp.async, asynchronous (the caller
-// commits and waits). Otherwise the scalar path: element loads and stores.
-template <typename T, int DP, int R>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, int r0, int L, long long sl,
-                                          int D, int vec) {
-  constexpr int RS = row_stride<T>(DP);
-  if (vec) {
-    constexpr int V = 16 / sizeof(T), CPR = DP / V;
-    for (int i = threadIdx.x; i < R * CPR; i += NT) {
-      const int rr = i / CPR, c = (i % CPR) * V, row = r0 + rr;
-      const bool in = row < L && c < D;
-      mma3::cp_async16(dst + rr * RS + c, in ? src + row * sl + c : src, in);
-    }
-  } else {
-    for (int i = threadIdx.x; i < R * DP; i += NT) {
-      const int rr = i / DP, d = i % DP, row = r0 + rr;
-      dst[rr * RS + d] = (row < L && d < D) ? src[row * sl + d] : from_f<T>(0.f);
-    }
-  }
-}
-
-// acc[16 x DP] of a warp -> rows row0, row0 + 8 of a contiguous [., D] output
-template <typename T, int DP>
-__device__ __forceinline__ void store_rows(T* out, const float (&acc)[DP / 8][4], long long row0,
-                                           bool in0, bool in1, int D, long long row_elems, int t) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (!(r ? in1 : in0)) continue;
-    T* o = out + (row0 + 8 * r) * row_elems;
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      const int d = 8 * n + 2 * t;
-      if (d < D) o[d] = from_f<T>(acc[n][2 * r]);
-      if (d + 1 < D) o[d + 1] = from_f<T>(acc[n][2 * r + 1]);
-    }
-  }
-}
 
 template <typename T, int DP>
 constexpr size_t dq_smem_bytes() {
@@ -343,10 +169,10 @@ __global__ void __launch_bounds__(NT, DP <= 64 ? 3 : 1) flash_bwd_dq_kernel(cons
     kt_end = static_cast<int>(min(static_cast<long long>(nkt), last / BL + 1));
   }
 
-  load_rows<T, DP, BO>(sQ, q, q0, a.Lq, a.qsl, a.D, a.vec_q);
-  load_rows<T, DP, BO>(sO, dout, q0, a.Lq, a.osl, a.D, a.vec_o);
-  load_rows<T, DP, BL>(sK, k, 0, a.Lk, a.ksl, a.D, a.vec_k);
-  load_rows<T, DP, BL>(sV, v, 0, a.Lk, a.vsl, a.D, a.vec_v);
+  load_rows<T, DP, BO, NT>(sQ, q, q0, a.Lq, a.qsl, a.D, a.vec_q);
+  load_rows<T, DP, BO, NT>(sO, dout, q0, a.Lq, a.osl, a.D, a.vec_o);
+  load_rows<T, DP, BL, NT>(sK, k, 0, a.Lk, a.ksl, a.D, a.vec_k);
+  load_rows<T, DP, BL, NT>(sV, v, 0, a.Lk, a.vsl, a.D, a.vec_v);
   mma3::cp_async_commit();
   if (tid < BL) sOk[tid] = key_ok(tid);
 
@@ -377,8 +203,8 @@ __global__ void __launch_bounds__(NT, DP <= 64 ? 3 : 1) flash_bwd_dq_kernel(cons
     mma3::cp_async_wait_all();
     __syncthreads();  // tile kt has landed; tile kt - 1 (the other buffer) is consumed
     if (more) {
-      load_rows<T, DP, BL>(sK + (buf ^ 1) * BL * RS, k, k0 + BL, a.Lk, a.ksl, a.D, a.vec_k);
-      load_rows<T, DP, BL>(sV + (buf ^ 1) * BL * RS, v, k0 + BL, a.Lk, a.vsl, a.D, a.vec_v);
+      load_rows<T, DP, BL, NT>(sK + (buf ^ 1) * BL * RS, k, k0 + BL, a.Lk, a.ksl, a.D, a.vec_k);
+      load_rows<T, DP, BL, NT>(sV + (buf ^ 1) * BL * RS, v, k0 + BL, a.Lk, a.vsl, a.D, a.vec_v);
       mma3::cp_async_commit();
       if (tid < BL) sOk[(buf ^ 1) * BL + tid] = next_ok;
     }
@@ -405,7 +231,7 @@ __global__ void __launch_bounds__(NT, DP <= 64 ? 3 : 1) flash_bwd_dq_kernel(cons
         }
         s[j][e] = ds;
       }
-    gemm_cy<T, DP, NJ>(acc, s, tK, g, t);
+    gemm_cy<T, DP, NJ, false>(acc, s, tK, g, t);
   }
   mma3::cp_async_wait_all();
 
@@ -474,8 +300,8 @@ __global__ void __launch_bounds__(NT, DP <= 64 ? 3 : 1) flash_bwd_dkv_kernel(con
   };
   auto load_tile = [&](int qt, int buf) {
     const int q0 = qt * BL;
-    load_rows<T, DP, BL>(sQ + buf * BL * RS, q, q0, a.Lq, a.qsl, a.D, a.vec_q);
-    load_rows<T, DP, BL>(sO + buf * BL * RS, dout, q0, a.Lq, a.osl, a.D, a.vec_o);
+    load_rows<T, DP, BL, NT>(sQ + buf * BL * RS, q, q0, a.Lq, a.qsl, a.D, a.vec_q);
+    load_rows<T, DP, BL, NT>(sO + buf * BL * RS, dout, q0, a.Lq, a.osl, a.D, a.vec_o);
     if (tid < 2 * BL) {
       const int i = tid % BL, row = q0 + i;
       const bool in = row < a.Lq;
@@ -484,8 +310,8 @@ __global__ void __launch_bounds__(NT, DP <= 64 ? 3 : 1) flash_bwd_dkv_kernel(con
     }
   };
 
-  load_rows<T, DP, BO>(sK, k, k0, a.Lk, a.ksl, a.D, a.vec_k);
-  load_rows<T, DP, BO>(sV, v, k0, a.Lk, a.vsl, a.D, a.vec_v);
+  load_rows<T, DP, BO, NT>(sK, k, k0, a.Lk, a.ksl, a.D, a.vec_k);
+  load_rows<T, DP, BO, NT>(sV, v, k0, a.Lk, a.vsl, a.D, a.vec_v);
   int cur = next_tile(0);
   if (cur < nqt) load_tile(cur, 0);
   mma3::cp_async_commit();
@@ -536,8 +362,8 @@ __global__ void __launch_bounds__(NT, DP <= 64 ? 3 : 1) flash_bwd_dkv_kernel(con
         dpt[j][e] = p;  // p^T, for dv
         st[j][e] = ds;  // ds^T, for dk
       }
-    gemm_cy<T, DP, NJ>(acc_v, dpt, tO, g, t);
-    gemm_cy<T, DP, NJ>(acc_k, st, tQ, g, t);
+    gemm_cy<T, DP, NJ, false>(acc_v, dpt, tO, g, t);
+    gemm_cy<T, DP, NJ, false>(acc_k, st, tQ, g, t);
     cur = nxt;
   }
   mma3::cp_async_wait_all();
@@ -550,23 +376,6 @@ __global__ void __launch_bounds__(NT, DP <= 64 ? 3 : 1) flash_bwd_dkv_kernel(con
                     row_elems, t);
 }
 
-// above 48 KB of shared memory only after opting in; once per kernel and
-// device (a bit per device id), so that launches, and their capture in a
-// CUDA graph, skip it
-template <typename K>
-cudaError_t opt_in(K kernel, size_t bytes, unsigned long long& opted_in) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (!(opted_in >> dev & 1ull)) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-    opted_in |= 1ull << dev;
-  }
-  return cudaSuccess;
-}
-
 // which = 0: the dq kernel, 1: the dk/dv kernel. attrs null: launch it;
 // else fill attrs with its registers per thread, shared bytes per block,
 // resident blocks per SM and local (spill) bytes per thread, and launch
@@ -577,20 +386,9 @@ int run(int which, const Args& a, int B, cudaStream_t stream, int* attrs) {
   void (*kernel)(const Args) =
       which == 0 ? flash_bwd_dq_kernel<T, DP> : flash_bwd_dkv_kernel<T, DP>;
   const size_t bytes = which == 0 ? dq_smem_bytes<T, DP>() : dkv_smem_bytes<T, DP>();
-  cudaError_t err = opt_in(kernel, bytes, opted_in[which]);
+  cudaError_t err = mma3::opt_in(kernel, bytes, opted_in[which]);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (attrs) {
-    cudaFuncAttributes fa;
-    err = cudaFuncGetAttributes(&fa, kernel);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, NT, bytes);
-    attrs[0] = fa.numRegs;
-    attrs[1] = static_cast<int>(fa.sharedSizeBytes + bytes);
-    attrs[2] = blocks;
-    attrs[3] = static_cast<int>(fa.localSizeBytes);
-    return static_cast<int>(err);
-  }
+  if (attrs) return static_cast<int>(mma3::kernel_attrs(kernel, NT, bytes, attrs));
   const dim3 grid(((which == 0 ? a.Lq : a.Lk) + BO - 1) / BO, a.H, B);
   kernel<<<grid, NT, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -602,13 +400,6 @@ int run_d(int which, const Args& a, int B, cudaStream_t stream, int* attrs) {
   if (a.D <= 32) return run<T, 32>(which, a, B, stream, attrs);
   if (a.D <= 64) return run<T, 64>(which, a, B, stream, attrs);
   return run<T, 128>(which, a, B, stream, attrs);
-}
-
-// rows of a [B, L, H, D] tensor at p with these strides are 16-byte chunks
-int vec_rows(const void* p, long long sb, long long sl, long long sh, int D, int elt) {
-  const long long v = 16 / elt;
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && D % v == 0 && sb % v == 0 &&
-         sl % v == 0 && sh % v == 0;
 }
 
 }  // namespace

@@ -1,4 +1,5 @@
-// Fused 1x1-conv GEMM with BatchNorm-training epilogues, for Hopper (sm_90a).
+// Fused 1x1-conv GEMM with BatchNorm-training epilogues, for Hopper (sm_90a),
+// on the tensor cores at float32 accuracy.
 //
 // Replaces: sparkdl_tpu/ops/fused_gemm_bn.py::_fwd_kernel (the Pallas
 // kernel, reached through conv1x1_bn_stats -> gemm_bn_stats -> _fwd_call).
@@ -22,45 +23,80 @@
 // kernel sums them in a fixed order. No atomics: a step gives the same
 // bits run to run.
 //
-// Bound on this card (H100 SXM, 700 W), at ResNet50's first stage-1 1x1
-// (B = 64, 56x56, K = 256 -> N = 64): 2*M*K*N = 6.6 GFLOP = 0.10 ms at
-// 67 TFLOP/s f32; x 205 MB + y 51 MB = 0.077 ms at 3.35 TB/s. The
-// ResNet50 shapes sit near the ridge on the CUDA cores: operations bound
-// the wide ones (K, N >= 512), bytes the narrow ones.
+// Bound on this card (H100 SXM, 700 W; chip_smoke.py's count). Each of the
+// seven ResNet50 1x1 shapes of a B = 64, 224 px step is 2*M*K*N = 6.58
+// GFLOP, 25 launches a step: 164.4 GFLOP.
+// - On the CUDA cores (67 TFLOP/s f32): 0.098 ms a launch, 2.454 ms a step.
+// - On the tensor cores as 3xTF32 (three TF32 passes a product, 495
+//   TFLOP/s): 0.0399 ms a launch, 0.996 ms a step. Bytes (x, w, y, bias,
+//   scale and shift, each once) are 0.077 ms at the first stage-1 shape
+//   (56x56, K = 256 -> N = 64: x 205 MB + y 51 MB at 3.35 TB/s) down to
+//   0.011 ms at 7x7, 0.691 ms a step. So bytes bound the narrow early
+//   shape, operations the deep ones: 0.996 ms a step (operations).
 //
 // What the design does about it:
-// - A 128 x 64 output tile per block of 256 threads, 8 x 4 outputs per
-//   thread in registers, K in steps of 16 staged through shared memory
-//   (A transposed, rows padded): 3 float4 shared-memory reads per 32
-//   FMAs. The BN-normalize + ReLU prologue runs on the A load, so the
-//   normalized activation never exists in device memory; bias and the
-//   stats run on the accumulator, so no pass over y is needed for them.
-// - The per-tile stats are reduced over the block's 16 row groups in
-//   shared memory in a fixed order.
-// - float32 FMAs on the CUDA cores, no wgmma/TMA, no double-buffering:
-//   a simple kernel that is right first.
+// - Tensor cores through mma.sync (mma_tf32x3.cuh): float32 as m16n8k8
+//   TF32 with the 3xTF32 split (float32 accuracy at a third of the TF32
+//   rate, 2.5x the CUDA cores' f32 peak), bfloat16 as m16n8k16 in one pass.
+//   x is the row-major A operand; w's usual strides (1, K) are k-contiguous
+//   rows per output column, which is mma's "col" B operand as it lies.
+// - Tiles: a block owns 64 x 64 outputs, 4 warps of 32 x 32 (2 x 4 mma
+//   tiles each), 4 blocks an SM. The deep-K shapes get enough blocks
+//   (2048 -> 512 at M = 3136: 392 for 132 SMs, where 128-row blocks give
+//   200). Over a step, 128-row blocks of 8 warps were 1% slower, warps of
+//   64 x 32 or 32 x 64 (128-row blocks) 1–8% slower, 64-wide K slices or a
+//   4-stage ring 9–15% slower.
+// - Loads: K in steps of 32 through a 3-stage ring of 16-byte cp.async
+//   copies (x and w rows, and the K-slice's scale and shift), two slices in
+//   flight while one is computed. Where rows cannot be read as 16-byte
+//   chunks (K not a multiple of 4 floats or 8 bf16, a base off 16 bytes, w
+//   in other strides), the same kernel takes a scalar path: element loads,
+//   not overlapped with compute. Rows past M, columns past N and K past K
+//   are zeros. Shared rows are padded by 16 bytes (conflict-free fragment
+//   loads).
+// - The grid's fastest axis walks the N tiles, so the blocks in flight
+//   share their rows of x and read them from L2 (2.7% faster than M first).
+// - The BN-normalize + ReLU prologue runs as A fragments are read from
+//   shared memory, before the TF32 split (bfloat16: before the drop to
+//   bfloat16), so the normalized activation never exists in device memory.
+//   The split leaves its small half for the tensor cores to truncate
+//   (split_tf32_trunc): 4% faster, y's error 1.46e-6 against 1.37e-6
+//   rounded.
+// - Accuracy: an mma rounds the running sum it is handed by the tensor
+//   cores' own rule, so a chain of them over K up to 2048 drifts: chained
+//   through the accumulator, y came 1.38e-5 from the plain version at the
+//   ResNet50 shapes, over chip_smoke.py's 1e-5. Each ring stage's 32-wide
+//   K slice (RUN = 4 float32 k-steps of three passes, 2 bfloat16 ones)
+//   sums from zero and reaches the accumulator in one float32 add: 1.5e-6,
+//   2.6% faster than summing every k-step from zero (1.6e-6;
+//   tools/fwd_gemm_variants.py on an H100 80GB HBM3 at 700 W, as are the
+//   other figures here).
+// - Epilogue on the accumulators: bias, the store of y, and the tile's
+//   column sums of y and y^2 (rows < M), reduced over a warp's rows with
+//   shuffles and over the block's warps in shared memory, in a fixed order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tf32x3.cuh"
+
 namespace {
 
-constexpr int BM = 128;  // output rows per block
-constexpr int BN = 64;   // output columns per block
-constexpr int BK = 16;   // K per shared-memory stage
-constexpr int NT = 256;  // threads: 16 row groups x 16 column groups
-constexpr int TM = BM / 16;  // rows per thread (8)
-constexpr int TN = BN / 16;  // columns per thread (4)
-constexpr int RED_COLS = 32, RED_GROUPS = 32;  // the stats reduce's block
+using mma3::from_f;
+using mma3::Op;
+using mma3::row_stride;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+constexpr int BM = 64;         // output rows per block
+constexpr int BN = 64;         // output columns per block
+constexpr int BK = 32;         // K per ring stage
+constexpr int STAGES = 3;      // ring depth
+constexpr int WM = 32, WN = 32;             // a warp's output sub-tile
+constexpr int MT = WM / 16, NTL = WN / 8;   // its mma tiles: 2 x 4
+constexpr int WARPS_M = BM / WM;
+constexpr int NT = 32 * WARPS_M * (BN / WN);  // threads per block
+constexpr int MIN_BLOCKS = 4;  // resident blocks per SM the register budget is cut for
+constexpr int RED_COLS = 32, RED_GROUPS = 32;  // the stats reduce's block
 
 struct Args {
   const void* x; const void* w;
@@ -69,94 +105,235 @@ struct Args {
   int M, K, N;
   long long wsk, wsn;
   int relu_in;
+  int vec_x, vec_w;  // x rows / w's k-contiguous rows readable as 16-byte chunks
 };
 
 template <typename T>
-__global__ void __launch_bounds__(NT) gemm_bn_kernel(const Args a) {
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN + 4];
-  __shared__ float red[2][16][BN];
+constexpr size_t smem_bytes() {
+  return STAGES * ((BM + BN) * row_stride<T>(BK) * sizeof(T) + 2 * BK * sizeof(float));
+}
+
+__device__ __forceinline__ float act(float x, float sc, float sh, bool affine, bool relu) {
+  if (affine) x = fmaf(x, sc, sh);
+  return relu ? fmaxf(x, 0.f) : x;
+}
+
+// A fragment of k-step ks from a staged x tile [16 rows][RS], the
+// prologue applied (sc, sh: the stage's scale and shift)
+__device__ __forceinline__ Op<float>::A load_a_act(const float* x, int rs, int ks, int g, int t,
+                                                   const float* sc, const float* sh, bool affine,
+                                                   bool relu) {
+  const int k = ks * 8 + t;
+  const float s0 = affine ? sc[k] : 1.f, h0 = affine ? sh[k] : 0.f;
+  const float s1 = affine ? sc[k + 4] : 1.f, h1 = affine ? sh[k + 4] : 0.f;
+  const float* p = x + g * rs + k;
+  Op<float>::A a;
+  mma3::split_tf32_trunc(act(p[0], s0, h0, affine, relu), a.big[0], a.small[0]);
+  mma3::split_tf32_trunc(act(p[8 * rs], s0, h0, affine, relu), a.big[1], a.small[1]);
+  mma3::split_tf32_trunc(act(p[4], s1, h1, affine, relu), a.big[2], a.small[2]);
+  mma3::split_tf32_trunc(act(p[8 * rs + 4], s1, h1, affine, relu), a.big[3], a.small[3]);
+  return a;
+}
+
+// B fragment of k-step ks from a staged w^T tile [8 columns][RS]
+// (Op<float>::load_b_nk with the truncating split)
+__device__ __forceinline__ Op<float>::B load_b(const float* w, int rs, int n0, int ks, int g,
+                                               int t) {
+  const float* p = w + (n0 + g) * rs + ks * 8 + t;
+  Op<float>::B b;
+  mma3::split_tf32_trunc(p[0], b.big[0], b.small[0]);
+  mma3::split_tf32_trunc(p[4], b.big[1], b.small[1]);
+  return b;
+}
+
+__device__ __forceinline__ Op<__nv_bfloat16>::B load_b(const __nv_bfloat16* w, int rs, int n0,
+                                                       int ks, int g, int t) {
+  return Op<__nv_bfloat16>::load_b_nk(w, rs, n0, ks, g, t);
+}
+
+// bfloat16: the pair at p (k, k + 1) through the prologue, back to bfloat16
+__device__ __forceinline__ uint32_t act_pair(const __nv_bfloat16* p, const float* sc,
+                                             const float* sh, int k, bool affine, bool relu) {
+  const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  if (!affine) return relu ? mma3::pack_bf16(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f))
+                           : *reinterpret_cast<const uint32_t*>(p);
+  return mma3::pack_bf16(act(v.x, sc[k], sh[k], true, relu), act(v.y, sc[k + 1], sh[k + 1], true,
+                                                                     relu));
+}
+
+__device__ __forceinline__ Op<__nv_bfloat16>::A load_a_act(const __nv_bfloat16* x, int rs, int ks,
+                                                           int g, int t, const float* sc,
+                                                           const float* sh, bool affine,
+                                                           bool relu) {
+  const int k = ks * 16 + 2 * t;
+  const __nv_bfloat16* p = x + g * rs + k;
+  return Op<__nv_bfloat16>::A{{act_pair(p, sc, sh, k, affine, relu),
+                               act_pair(p + 8 * rs, sc, sh, k, affine, relu),
+                               act_pair(p + 8, sc, sh, k + 8, affine, relu),
+                               act_pair(p + 8 * rs + 8, sc, sh, k + 8, affine, relu)}};
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS) gemm_bn_kernel(const Args a) {
+  constexpr int RS = row_stride<T>(BK);
+  constexpr int KSTEPS = BK / Op<T>::K;
+  constexpr int RUN = KSTEPS;  // k-steps summed from zero before they reach acc: a ring stage
+  static_assert(KSTEPS % RUN == 0, "runs tile a ring stage");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sA = reinterpret_cast<T*>(smem);                      // [STAGES][BM][RS]
+  T* sB = sA + STAGES * BM * RS;                           // [STAGES][BN][RS]: w^T rows
+  float* sSc = reinterpret_cast<float*>(sB + STAGES * BN * RS);  // [STAGES][BK]
+  float* sSh = sSc + STAGES * BK;                                // [STAGES][BK]
+  __shared__ float red[2][WARPS_M][BN];
 
   const T* x = static_cast<const T*>(a.x);
   const T* w = static_cast<const T*>(a.w);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int tid = threadIdx.x, wid = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const int wm = wid % WARPS_M, wn = wid / WARPS_M;
+  const int mt = blockIdx.y, nt = blockIdx.x;  // this block's M and N tiles
+  const int m0 = mt * BM, n0 = nt * BN;
+  const bool affine = a.scale != nullptr, relu = a.relu_in != 0;
+  const int nk = (a.K + BK - 1) / BK;
 
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < a.K; k0 += BK) {
-    // A: 128 x 16, the previous BN's normalize (+ReLU) on the load
-#pragma unroll
-    for (int e = 0; e < BM * BK / NT; ++e) {
-      const int i = tid + NT * e, row = i / BK, kk = i % BK;
-      const int gm = m0 + row, gk = k0 + kk;
-      float val = 0.f;
-      if (gm < a.M && gk < a.K) {
-        val = to_f(x[static_cast<long long>(gm) * a.K + gk]);
-        if (a.scale) val = fmaf(val, a.scale[gk], a.shift[gk]);
-        if (a.relu_in) val = fmaxf(val, 0.f);
-        val = to_f(from_f<T>(val));  // the operand in its storage type
+  // K-slice kt -> ring stage kt % STAGES; commits a group even past K, so
+  // that wait_group counts stages
+  auto fetch = [&](int kt) {
+    if (kt < nk) {
+      const int st = kt % STAGES, k0 = kt * BK;
+      T* dA = sA + st * BM * RS;
+      T* dB = sB + st * BN * RS;
+      constexpr int V = 16 / sizeof(T), CPR = BK / V;
+      if (a.vec_x) {
+        for (int i = tid; i < BM * CPR; i += NT) {
+          const int rr = i / CPR, c = (i % CPR) * V, row = m0 + rr;
+          const bool in = row < a.M && k0 + c < a.K;
+          mma3::cp_async16(dA + rr * RS + c,
+                           in ? x + static_cast<long long>(row) * a.K + k0 + c : x, in);
+        }
+      } else {
+        for (int i = tid; i < BM * BK; i += NT) {
+          const int rr = i / BK, c = i % BK, row = m0 + rr;
+          dA[rr * RS + c] = (row < a.M && k0 + c < a.K)
+                                ? x[static_cast<long long>(row) * a.K + k0 + c]
+                                : from_f<T>(0.f);
+        }
       }
-      As[kk][row] = val;
+      if (a.vec_w) {
+        for (int i = tid; i < BN * CPR; i += NT) {
+          const int nn = i / CPR, c = (i % CPR) * V, col = n0 + nn;
+          const bool in = col < a.N && k0 + c < a.K;
+          mma3::cp_async16(dB + nn * RS + c, in ? w + col * a.wsn + k0 + c : w, in);
+        }
+      } else {
+        for (int i = tid; i < BN * BK; i += NT) {
+          int nn, c;  // neighbouring threads on neighbouring addresses
+          if (a.wsn == 1) { nn = i % BN; c = i / BN; } else { c = i % BK; nn = i / BK; }
+          const int col = n0 + nn, kk = k0 + c;
+          dB[nn * RS + c] = (col < a.N && kk < a.K) ? w[kk * a.wsk + col * a.wsn]
+                                                    : from_f<T>(0.f);
+        }
+      }
+      static_assert(NT >= 2 * BK, "a thread per scale and shift of a K slice");
+      if (affine && tid < 2 * BK) {
+        const int kk = k0 + tid % BK;
+        const float* src = tid < BK ? a.scale : a.shift;
+        const bool in = kk < a.K;  // past K: scale = shift = 0, so a = 0
+        mma3::cp_async4((tid < BK ? sSc : sSh) + st * BK + tid % BK, in ? src + kk : src, in);
+      }
     }
-    // B: 16 x 64, neighbouring threads on neighbouring addresses
+    mma3::cp_async_commit();
+  };
+
+  float acc[MT][NTL][4];
 #pragma unroll
-    for (int e = 0; e < BK * BN / NT; ++e) {
-      const int i = tid + NT * e;
-      int kk, nn;
-      if (a.wsn == 1) { nn = i % BN; kk = i / BN; } else { kk = i % BK; nn = i / BK; }
-      const int gk = k0 + kk, gn = n0 + nn;
-      Bs[kk][nn] = (gk < a.K && gn < a.N) ? to_f(w[gk * a.wsk + gn * a.wsn]) : 0.f;
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NTL; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) fetch(s);
+  for (int kt = 0; kt < nk; ++kt) {
+    mma3::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // slice kt has landed; slice kt - 1 (the stage refilled next) is consumed
+    fetch(kt + STAGES - 1);
+    const int st = kt % STAGES;
+    const T* tA = sA + st * BM * RS + wm * WM * RS;
+    const T* tB = sB + st * BN * RS;
+    const float* sc = sSc + st * BK;
+    const float* sh = sSh + st * BK;
+#pragma unroll
+    for (int ks0 = 0; ks0 < KSTEPS; ks0 += RUN) {
+      float part[MT][NTL][4];  // a run of k-steps, from zero
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NTL; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+#pragma unroll
+      for (int ks = ks0; ks < ks0 + RUN; ++ks) {
+        typename Op<T>::A af[MT];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          af[i] = load_a_act(tA + 16 * i * RS, RS, ks, g, t, sc, sh, affine, relu);
+#pragma unroll
+        for (int j = 0; j < NTL; ++j) {
+          const typename Op<T>::B bf = load_b(tB, RS, wn * WN + 8 * j, ks, g, t);
+#pragma unroll
+          for (int i = 0; i < MT; ++i) Op<T>::mma(part[i][j], af[i], bf);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NTL; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][ty * TM + 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-      const float av[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[TN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
   }
+  mma3::cp_async_wait_all();
 
   // epilogue: bias, store, this tile's column sums of y and y^2 (rows < M)
   T* y = static_cast<T*>(a.y);
-  float s[TN], sq[TN];
 #pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const int gn = n0 + tx * TN + j;
-    const float bj = (a.bias && gn < a.N) ? a.bias[gn] : 0.f;
-    s[j] = sq[j] = 0.f;
+  for (int j = 0; j < NTL; ++j)
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int gm = m0 + ty * TM + i;
-      if (gm < a.M && gn < a.N) {
-        const float val = acc[i][j] + bj;
-        y[static_cast<long long>(gm) * a.N + gn] = from_f<T>(val);
-        s[j] += val;
-        sq[j] = fmaf(val, val, sq[j]);
+    for (int c = 0; c < 2; ++c) {
+      const int nn = wn * WN + 8 * j + 2 * t + c, col = n0 + nn;
+      const float bj = (a.bias && col < a.N) ? a.bias[col] : 0.f;
+      float s = 0.f, sq = 0.f;
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = m0 + wm * WM + 16 * i + 8 * r + g;
+          if (row < a.M) {
+            const float val = acc[i][j][2 * r + c] + bj;
+            if (col < a.N) y[static_cast<long long>(row) * a.N + col] = from_f<T>(val);
+            s += val;
+            sq = fmaf(val, val, sq);
+          }
+        }
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {  // over g: fixed order
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+        sq += __shfl_xor_sync(0xffffffffu, sq, off);
+      }
+      if (g == 0) {
+        red[0][wm][nn] = s;
+        red[1][wm][nn] = sq;
       }
     }
-    red[0][ty][tx * TN + j] = s[j];
-    red[1][ty][tx * TN + j] = sq[j];
-  }
   __syncthreads();
-  if (tid < 2 * BN) {
-    const int stat = tid / BN, nn = tid % BN;
-    float t = 0.f;
+  for (int i = tid; i < 2 * BN; i += NT) {
+    const int stat = i / BN, nn = i % BN;
+    float tot = 0.f;
 #pragma unroll
-    for (int g = 0; g < 16; ++g) t += red[stat][g][nn];  // fixed order
+    for (int r = 0; r < WARPS_M; ++r) tot += red[stat][r][nn];  // fixed order
     if (n0 + nn < a.N)
-      a.partial[(static_cast<long long>(blockIdx.x) * 2 + stat) * a.N + n0 + nn] = t;
+      a.partial[(static_cast<long long>(mt) * 2 + stat) * a.N + n0 + nn] = tot;
   }
 }
 
@@ -180,11 +357,19 @@ stats_reduce_kernel(const float* partial, float* stats, int tiles, int n2) {
   }
 }
 
+// attrs null: launch the GEMM and the stats reduce; else fill attrs with
+// the GEMM's registers per thread, shared bytes per block, resident blocks
+// per SM and local (spill) bytes per thread, and launch nothing
 template <typename T>
-int launch(const Args& a, float* stats, cudaStream_t stream) {
+int run(const Args& a, float* stats, cudaStream_t stream, int* attrs) {
+  static unsigned long long opted_in = 0;
+  constexpr size_t bytes = smem_bytes<T>();
+  cudaError_t err = mma3::opt_in(gemm_bn_kernel<T>, bytes, opted_in);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (attrs) return static_cast<int>(mma3::kernel_attrs(gemm_bn_kernel<T>, NT, bytes, attrs));
   const int tiles = (a.M + BM - 1) / BM;
-  gemm_bn_kernel<T><<<dim3(tiles, (a.N + BN - 1) / BN), NT, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
+  gemm_bn_kernel<T><<<dim3((a.N + BN - 1) / BN, tiles), NT, bytes, stream>>>(a);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n2 = 2 * a.N;
   stats_reduce_kernel<<<(n2 + RED_COLS - 1) / RED_COLS, RED_COLS * RED_GROUPS, 0, stream>>>(
@@ -195,21 +380,36 @@ int launch(const Args& a, float* stats, cudaStream_t stream) {
 }  // namespace
 
 // C entry, bound with ctypes (sparkdl_torch/ops/fused_gemm_bn.py).
+// M up to 65535 * 64 rows (a launch past that returns
+// cudaErrorInvalidConfiguration).
 // x [M, K] contiguous, w [K, N] with element strides (wsk, wsn), y [M, N]
 // contiguous: float32 (bf16 = 0) or bfloat16 (bf16 = 1). scale, shift
 // float32 [K] (both or neither), bias float32 [N] or null. partial:
-// float32 scratch [ceil(M / 128), 2, N]; stats: float32 [2, N] out (sum of
-// y, sum of y^2). Launches the GEMM and the stats reduce on `stream`, does
-// not synchronise, and returns cudaGetLastError() after the launches (0 on
-// success). The caller checks shapes: M, K, N >= 1.
+// float32 scratch [gemm_bn_tiles(M), 2, N]; stats: float32 [2, N] out
+// (sum of y, sum of y^2). Launches the GEMM and the stats reduce on
+// `stream`, does not synchronise, and returns cudaGetLastError() after the
+// launches (0 on success). The caller checks shapes: M, K, N >= 1.
 extern "C" int gemm_bn_stats(const void* x, const void* w, const float* scale,
                              const float* shift, const float* bias, void* y, float* partial,
                              float* stats, int bf16, int M, int K, int N, long long wsk,
                              long long wsn, int relu_in, void* stream) {
-  const Args a{x, w, scale, shift, bias, y, partial, M, K, N, wsk, wsn, relu_in};
+  const long long v = bf16 ? 8 : 4;  // elements in 16 bytes
+  const int vec_x = reinterpret_cast<uintptr_t>(x) % 16 == 0 && K % v == 0;
+  const int vec_w =
+      reinterpret_cast<uintptr_t>(w) % 16 == 0 && wsk == 1 && wsn % v == 0 && K % v == 0;
+  const Args a{x, w, scale, shift, bias, y, partial, M, K, N, wsk, wsn, relu_in, vec_x, vec_w};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(a, stats, st) : launch<float>(a, stats, st);
+  return bf16 ? run<__nv_bfloat16>(a, stats, st, nullptr) : run<float>(a, stats, st, nullptr);
 }
 
 // The number of M tiles (rows of the partial scratch) for M rows.
 extern "C" int gemm_bn_tiles(int M) { return (M + BM - 1) / BM; }
+
+// The build of the GEMM kernel, float32 (bf16 = 0) or bfloat16: fills
+// out[4] with registers per thread, shared bytes per block, resident blocks
+// per SM and local bytes per thread; returns a cudaError_t (0 on success).
+extern "C" int gemm_bn_stats_attrs(int bf16, int* out) {
+  const Args a{};
+  return bf16 ? run<__nv_bfloat16>(a, nullptr, nullptr, out)
+              : run<float>(a, nullptr, nullptr, out);
+}

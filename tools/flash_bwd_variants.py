@@ -65,21 +65,24 @@ VARIANTS = {
 
 def build() -> dict:
     csrc = os.path.join(ROOT, "sparkdl_torch", "csrc")
-    src = open(os.path.join(csrc, "flash_attention_bwd.cu")).read()
+    files = ["flash_attention_bwd.cu"] + sorted(f for f in os.listdir(csrc)
+                                                if f.endswith(".cuh"))
+    srcs = {f: open(os.path.join(csrc, f)).read() for f in files}
     out_root = os.path.join(ROOT, "sparkdl_torch", "_build", "variants")
     shutil.rmtree(out_root, ignore_errors=True)
     procs = {}
     for name, edits in VARIANTS.items():
-        text = src
+        texts = dict(srcs)
         for old, new in D64_ONLY + edits:
-            if old not in text:
-                raise SystemExit(f"variant {name}: {old[:60]!r} is not in the source")
-            text = text.replace(old, new)
+            hits = [f for f, text in texts.items() if old in text]
+            if len(hits) != 1:
+                raise SystemExit(f"variant {name}: {old[:60]!r} is in {hits}, not one file")
+            texts[hits[0]] = texts[hits[0]].replace(old, new)
         d = os.path.join(out_root, name)
         os.makedirs(d)
-        with open(os.path.join(d, "flash_attention_bwd.cu"), "w") as f:
-            f.write(text)
-        shutil.copy(os.path.join(csrc, "mma_tf32x3.cuh"), d)
+        for f, text in texts.items():
+            with open(os.path.join(d, f), "w") as out:
+                out.write(text)
         lib = os.path.join(d, f"lib{name}.so")
         cmd = [_dispatch._nvcc(), *_dispatch.NVCC_FLAGS, "-o", lib,
                os.path.join(d, "flash_attention_bwd.cu")]
