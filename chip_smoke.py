@@ -159,7 +159,54 @@ def phase_build():
           f"{secs:.1f} s wall")
 
 
+STEM_EDGE_SIZES = (11, 59, 75, 150, 299)  # ragged tiles: Rp 1, 13, 17, 35, 73
+STEM_EDGE_BATCHES = (1, 3, 64)
+
+
+def _stem_builds() -> str:
+    """The stem kernel's builds (_builds): u8/f32 pixels x f32/bf16 out."""
+    return _builds("stem_fused", "stem_fused_attrs", [
+        (f"{tin}->{tout}", [(f"stem_fused_kernelI{min_}{mout}E", (u8, bf16))])
+        for u8, tin, min_ in ((1, "u8", "h"), (0, "f32", "f"))
+        for bf16, tout, mout in ((0, "f32", "f"), (1, "bf16", "13__nv_bfloat16"))])
+
+
+def _stem_check(x_u8, folded, errs) -> None:
+    """The kernel against stem_reference on one batch: f32 and u8 pixels to
+    f32 features within STEM_TOL, u8 to bf16 within 2^-7 (both sides round
+    to bf16: one bf16 step apart at most), each the same bits on a second
+    call. Records the worst relative error per label in ``errs``."""
+    import torch
+
+    from sparkdl_torch.ops.stem_fused import inception_stem_fused, stem_reference
+
+    b, s = x_u8.shape[0], x_u8.shape[1]
+    x_f32 = x_u8.float()
+    want = stem_reference(x_f32, folded)
+    for label, x, dtype, tol in (("f32->f32", x_f32, torch.float32, STEM_TOL),
+                                 ("u8->f32", x_u8, torch.float32, STEM_TOL),
+                                 ("u8->bf16", x_u8, torch.bfloat16, 2.0 ** -7)):
+        got = inception_stem_fused(x, folded, dtype=dtype)
+        again = inception_stem_fused(x, folded, dtype=dtype)
+        torch.cuda.synchronize()
+        ref = want if dtype == torch.float32 else want.to(dtype)
+        if got.shape != ref.shape or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"stem {label} B={b} S={s}: bad output {tuple(got.shape)}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"stem {label} B={b} S={s}: two calls differ")
+        err = _rel_err(got, ref)
+        if err[1] > tol:
+            raise AssertionError(f"stem {label} B={b} S={s}: rel err {err[1]:.3e} > {tol}")
+        if err[1] >= errs.get(label, (0.0, -1.0))[1]:
+            errs[label] = err
+
+
 def phase_stem():
+    """The stem kernel's builds (_stem_builds), then the kernel against
+    stem_reference at every S of STEM_EDGE_SIZES and B of STEM_EDGE_BATCHES
+    (_stem_check), then timed at B=64, S=299 against its plain version and
+    its bound (3xTF32 on the tensor cores, the CUDA-core f32 bound beside
+    it)."""
     import numpy as np
     import torch
 
@@ -172,27 +219,28 @@ def phase_stem():
         stem_reference,
     )
 
+    print(f"[stem] builds: {_stem_builds()}")
     model = build_torch_model("InceptionV3", "random", include_top=False,
                               device="cuda", seed=0)
     folded = fold_stem_params(fold_tf_preprocess(model.state_dict()))
     rng = np.random.default_rng(1)
+    edge_errs = {}
+    for s in STEM_EDGE_SIZES:
+        for b in STEM_EDGE_BATCHES:
+            if (b, s) == (BATCH, SIZE):
+                continue
+            x = torch.from_numpy(rng.integers(0, 256, (b, s, s, 3), dtype=np.uint8)).cuda()
+            _stem_check(x, folded, edge_errs)
+    print(f"[stem] S {'/'.join(map(str, STEM_EDGE_SIZES))} x B "
+          f"{'/'.join(map(str, STEM_EDGE_BATCHES))}: worst rel err "
+          + ", ".join(f"{k} {v[1]:.2e}" for k, v in edge_errs.items())
+          + f" (tol {STEM_TOL}, bf16 {2.0 ** -7}); every result the same bits on a "
+          "second call")
     x_u8 = torch.from_numpy(
         rng.integers(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)).cuda()
     x_f32 = x_u8.float()
-    want = stem_reference(x_f32, folded)
     errs = {}
-    for label, x, dtype, tol in (("f32->f32", x_f32, torch.float32, STEM_TOL),
-                                 ("u8->f32", x_u8, torch.float32, STEM_TOL),
-                                 # both round to bf16: one bf16 step apart at most
-                                 ("u8->bf16", x_u8, torch.bfloat16, 2.0 ** -7)):
-        got = inception_stem_fused(x, folded, dtype=dtype)
-        torch.cuda.synchronize()
-        ref = want if dtype == torch.float32 else want.to(dtype)
-        if got.shape != ref.shape or not torch.isfinite(got.float()).all():
-            raise AssertionError(f"stem {label}: bad output {tuple(got.shape)}")
-        errs[label] = _rel_err(got, ref)
-        if errs[label][1] > tol:
-            raise AssertionError(f"stem {label}: rel err {errs[label][1]:.3e} > {tol}")
+    _stem_check(x_u8, folded, errs)
 
     ms = _time_ms(lambda: inception_stem_fused(x_f32, folded))
     plain_ms = _time_ms(lambda: stem_reference(x_f32, folded))
@@ -202,25 +250,23 @@ def phase_stem():
     rp = stem_out_size(SIZE)
     nbytes = (x_f32.numel() * 4 + sum(p.numel() * 4 for p in folded.values())
               + BATCH * rp * rp * 64 * 4)
-    ops_ms = 2 * macs / H100_F32_FLOPS * 1e3
-    bytes_ms = nbytes / H100_BYTES_S * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
+    # on the tensor cores as 3xTF32: three TF32 passes a product
+    bound_ms, bound_by = _bound(3 * 2 * macs, nbytes, H100_TF32_FLOPS)
+    core_ms = _bound(2 * macs, nbytes)[0]
     print("[stem] B=%d S=%d: rel err %s (tol %g); kernel %.3f ms, plain %.3f ms, "
-          "bound %.3f ms (%s: %.2f GFLOP at 67 TFLOP/s f32; %.1f MB at 3.35 TB/s "
-          "= %.3f ms; TF32 floor %.3f ms); library_ms null: no single PyTorch "
-          "call computes the stem" % (
+          "bound %.3f ms (%s: %.2f GFLOP as 3xTF32 at 495 TFLOP/s; %.1f MB at "
+          "3.35 TB/s = %.3f ms; CUDA-core f32 bound %.3f ms at 67 TFLOP/s); "
+          "library_ms null: no single PyTorch call computes the stem" % (
               BATCH, SIZE, ", ".join(f"{k} {v[1]:.2e}" for k, v in errs.items()),
-              STEM_TOL, ms, plain_ms, bound_ms,
-              "operations" if ops_ms >= bytes_ms else "bytes", 2 * macs / 1e9,
-              nbytes / 1e6, bytes_ms, 2 * macs / H100_TF32_FLOPS * 1e3))
+              STEM_TOL, ms, plain_ms, bound_ms, bound_by, 2 * macs / 1e9,
+              nbytes / 1e6, nbytes / H100_BYTES_S * 1e3, core_ms))
     return {
         "name": "inception_stem_fused", "route": "cuda",
         "source": "sparkdl_torch/csrc/stem_fused.cu",
         "replaces": "sparkdl_tpu/ops/stem_fused.py:242",
         "launches": None, "max_abs_err": errs["f32->f32"][0], "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "cuda_core_bound_ms": core_ms,
     }
 
 

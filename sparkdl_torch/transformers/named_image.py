@@ -234,7 +234,26 @@ class DeepImagePredictor(_NamedImageTransformer):
         return [(self.getOutputCol(), "array<float>")]
 
 
+@functools.lru_cache(maxsize=1)
+def _imagenet_class_index() -> "dict[int, tuple[str, str]] | None":
+    """ImageNet class index if cached locally (zero-egress: no download)."""
+    import json
+    import os
+
+    path = os.path.join(
+        os.path.expanduser("~"), ".keras", "models", "imagenet_class_index.json"
+    )
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        raw = json.load(f)
+    return {int(k): (v[0], v[1]) for k, v in raw.items()}
+
+
 def _class_description(idx: int) -> str:
-    """ImageNet class names ship with pretrained weights, which are not
-    ported yet: classes are named by index."""
+    """The class's ImageNet name where the local class index has it, else
+    ``class_{idx}``."""
+    index = _imagenet_class_index()
+    if index and idx in index:
+        return index[idx][1]
     return f"class_{idx}"

@@ -11,6 +11,7 @@ with device="cpu", where its stem is the kernel's plain version.
 Tolerance: max |diff| <= 1e-4 * max |ref| (torch_parity.NET_TOL).
 """
 
+import json
 import os
 
 import numpy as np
@@ -142,6 +143,53 @@ def test_predictor_matches_jax(jax_named_image, rows, torch_loader):
     assert top[-1] is None
     assert [c for c, _, _ in top[0]] == list(np.argsort(got[0])[::-1][:3])
     assert top[0][0][1] == f"class_{top[0][0][0]}"
+
+
+@pytest.fixture
+def class_index_home(tmp_path, monkeypatch, jax_named_image):
+    """A temporary HOME, with both packages' cached class index cleared
+    before and after the test (the JAX package's code stays as it is)."""
+    caches = (torch_ni._imagenet_class_index, jax_named_image._imagenet_class_index)
+    monkeypatch.setenv("HOME", str(tmp_path))
+    for cache in caches:
+        cache.cache_clear()
+    yield tmp_path
+    for cache in caches:
+        cache.cache_clear()
+
+
+def test_predictor_reads_the_local_class_index_as_jax_does(
+        class_index_home, jax_named_image, rows, torch_loader):
+    """With ~/.keras/models/imagenet_class_index.json present, the port
+    names classes as the JAX package does: by the index where it has the
+    class, by ``class_{idx}`` where it has not (every 7th is left out)."""
+    models = class_index_home / ".keras" / "models"
+    models.mkdir(parents=True)
+    index = {str(i): [f"n{i:08d}", f"label_{i}"] for i in range(1000) if i % 7}
+    (models / "imagenet_class_index.json").write_text(json.dumps(index))
+    for idx in (0, 1, 6, 7, 500, 999):
+        assert torch_ni._class_description(idx) == jax_named_image._class_description(idx)
+    assert torch_ni._class_description(1) == "label_1"
+    assert torch_ni._class_description(7) == "class_7"
+
+    want = _jax_features(jax_named_image, rows, "DeepImagePredictor",
+                         decodePredictions=True, topK=20)
+    got = _torch_features(rows, DeepImagePredictor, decodePredictions=True, topK=20)
+    assert got[-1] is None and want[-1] is None
+    for i in (0, 1, 2):
+        assert got[i][0][:2] == want[i][0][:2]
+        assert all(d == jax_named_image._class_description(c) for c, d, _ in got[i])
+        assert any(d.startswith("label_") for _, d, _ in got[i])
+
+
+def test_predictor_without_a_class_index_names_classes_by_index(
+        class_index_home, jax_named_image, rows, torch_loader):
+    """Without the file, both packages give ``class_{idx}``."""
+    for idx in (0, 1, 999):
+        assert torch_ni._class_description(idx) == f"class_{idx}"
+        assert jax_named_image._class_description(idx) == f"class_{idx}"
+    top = _torch_features(rows, DeepImagePredictor, decodePredictions=True, topK=3)
+    assert all(d == f"class_{c}" for c, d, _ in top[0])
 
 
 def _write_pngs(root, r):
