@@ -25,9 +25,11 @@ last two lines are a JSON object of per-kernel numbers and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -283,11 +285,90 @@ def _png_dir(root: str, rng) -> int:
     return len(shapes)
 
 
-def phase_main_path(stem_entry: dict):
+@contextlib.contextmanager
+def _runner_settings(**settings):
+    """Inside the block the featurizer's runners carry ``settings``
+    (BatchedRunner fields: prefetch, chain_k, async_fetch): one runner
+    per cached runner and settings, so graphs and rings are reused
+    across the block's transforms as a user's would be."""
+    import dataclasses
+
+    from sparkdl_torch.transformers import named_image
+
+    orig = named_image._named_model_runner
+    made = {}
+
+    def runner(*key):
+        if key not in made:
+            made[key] = dataclasses.replace(orig(*key), **settings)
+        return made[key]
+
+    named_image._named_model_runner = runner
+    try:
+        yield made
+    finally:
+        named_image._named_model_runner = orig
+
+
+SERIAL = dict(prefetch=0, chain_k=1, async_fetch=False)
+SPLIT_SPANS = (("extract", "partition.extract"), ("pack", "batch.pack"),
+               ("slot copy", "ring.copy"), ("H2D", "batch.h2d"), ("enqueue", "dispatch.chain"),
+               ("D2H", "batch.d2h"), ("fetch wait", "fetch.wait"),
+               ("unpad", "batch.unpad"))
+TIME_REPS = 5
+CHAIN_BATCH, CHAIN_K = 16, 4  # the forced chain: four batches of 16 a replay
+
+
+def _host_split(featurizer, df, n_batches: int, runners) -> str:
+    """One transform with tracing on: host ms per batch in each span of
+    the feed (extract and pack on the host; slot copy the ring's copy of
+    a packed batch into its slot; H2D the put, its copy waited for; enqueue the dispatch's launches; D2H the blocking readback, which
+    waits for the device; fetch wait the async readback's; unpad), and
+    the device ms per batch from the chainer's CUDA events. ``runners()``
+    gives the runners the transform used."""
+    import torch
+
+    from sparkdl_torch.observability import tracing
+    from sparkdl_torch.observability.registry import registry
+
+    def device_s():
+        for r in runners():
+            r._chainer._harvest()  # fold in the last dispatches' events
+        fam = registry().get("sparkdl_dispatch_seconds")
+        v = fam.snapshot_values().get('path="batch"') if fam else None
+        return (v["sum"], v["count"]) if v else (0.0, 0)
+
+    tracing.clear_trace()
+    tracing.enable_tracing()
+    before = device_s()
+    try:
+        t0 = time.perf_counter()
+        featurizer.transform(df).collect()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        tracing.disable_tracing()
+    after = device_s()
+    dev_ms = (after[0] - before[0]) / max(after[1] - before[1], 1) * 1e3
+    totals = {}
+    for ev in tracing.trace_events():
+        totals[ev["name"]] = totals.get(ev["name"], 0.0) + ev["dur"] / 1e3
+    parts = [f"{label} {totals[name] / n_batches:.2f}"
+             for label, name in SPLIT_SPANS if name in totals]
+    return (f"{wall / n_batches * 1e3:.1f} ms a batch of {n_batches}: "
+            + ", ".join(parts) + f"; device (CUDA events) {dev_ms:.2f}")
+
+
+def phase_main_path(stem_entry: dict, card: str):
     import numpy as np
     import torch
 
-    from sparkdl_torch import DeepImageFeaturizer, LocalDataFrame, readImagesWithCustomFn
+    from sparkdl_torch import (
+        DeepImageFeaturizer,
+        LocalDataFrame,
+        readImages,
+        readImagesWithCustomFn,
+    )
     from sparkdl_torch.image import (
         PIL_decode_bytes,
         imageArrayToStructBGR,
@@ -297,9 +378,19 @@ def phase_main_path(stem_entry: dict):
         fused_inception_v3_features,
         prepare_fused_inception_v3,
     )
+    from sparkdl_torch.native import _lib
+    from sparkdl_torch.native.bridge import FEED_STATS
     from sparkdl_torch.ops.fold import fold_tf_preprocess
     from sparkdl_torch.ops.stem_fused import inception_stem_fused, stem_reference
     from sparkdl_torch.transformers.named_image import _load_named_model
+
+    # the host libraries: the staging ring must build, the decoder may not
+    # (libjpeg/libpng headers); each built from csrc/ into _build/
+    if not _lib.available():
+        raise AssertionError(f"sdl_bridge did not build: {_lib.BRIDGE.build_error}")
+    decoder = _lib.decode_available()
+    print(f"[feed] sdl_bridge built ({os.path.basename(_lib.BRIDGE.path())}); "
+          f"sdl_decode {'built' if decoder else 'NOT built: ' + str(_lib.DECODE.build_error)[:300]}")
 
     rng = np.random.default_rng(2)
     featurizer = DeepImageFeaturizer(
@@ -311,7 +402,18 @@ def phase_main_path(stem_entry: dict):
     with tempfile.TemporaryDirectory() as root:
         n_png = _png_dir(root, rng)
         files = readImagesWithCustomFn(root, PIL_decode_bytes, numPartition=2)
+        native_files = readImages(root, numPartition=2)
         rows = featurizer.transform(files).collect()
+    if decoder:
+        pil = files.collect()
+        nat = native_files.collect()
+        if pil != nat:
+            raise AssertionError("readImages (native decoder) structs differ from PIL's")
+        print(f"[feed] readImages through sdl_decode: {len(nat)} structs bitwise "
+              "equal to PIL's (corrupt file undefined in both)")
+    else:
+        print("[feed] sdl_decode not built: readImages defers to PIL (no native "
+              "decode checked in this run)")
     bad = [r for r in rows if r["filePath"].endswith("corrupt.png")]
     good = [r for r in rows if not r["filePath"].endswith("corrupt.png")]
     if len(good) != n_png or len(bad) != 1 or bad[0]["features"] is not None:
@@ -329,33 +431,100 @@ def phase_main_path(stem_entry: dict):
                for i in range(N_ROWS)]
     rows_in.insert(N_ROWS // 3, {"id": -1, "image": undefined_image("none")})
     df = LocalDataFrame.from_rows(rows_in, N_PARTS)
-    n_batches = sum(r["n"] for r in df.mapPartitions(
-        lambda part: [{"n": math.ceil(sum(r["id"] >= 0 for r in part) / BATCH)}]
-    ).collect())
+    df1 = LocalDataFrame.from_rows(rows_in, 1)
 
-    featurizer.transform(df).collect()  # warm-up: model, runner, cuDNN plans
-    torch.cuda.synchronize()
-    _zero_counts()
-    t0 = time.perf_counter()
-    out = featurizer.transform(df).collect()
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = inception_stem_fused.launches
+    def batches(frame, batch):
+        return sum(r["n"] for r in frame.mapPartitions(
+            lambda part: [{"n": math.ceil(sum(r["id"] >= 0 for r in part) / batch)}]
+        ).collect())
 
-    by_id = {r["id"]: r["features"] for r in out}
-    if len(out) != N_ROWS + 1 or by_id[-1] is not None:
-        raise AssertionError("undefined row did not come out None")
-    feats = np.stack([by_id[i] for i in range(N_ROWS)])
-    if feats.shape != (N_ROWS, 2048) or not np.isfinite(feats).all():
-        raise AssertionError(f"features: bad shape or values {feats.shape}")
+    def features(out):
+        by_id = {r["id"]: r["features"] for r in out}
+        if len(out) != N_ROWS + 1 or by_id[-1] is not None:
+            raise AssertionError("undefined row did not come out None")
+        feats = np.stack([by_id[i] for i in range(N_ROWS)])
+        if feats.shape != (N_ROWS, 2048) or not np.isfinite(feats).all():
+            raise AssertionError(f"features: bad shape or values {feats.shape}")
+        return feats
+
+    def counted(f, frame):
+        """One transform with every launch count at 0 before it: features,
+        seconds, stem launches, ring batches."""
+        torch.cuda.synchronize()
+        _zero_counts()
+        ring0 = FEED_STATS["ring_batches"]
+        t0 = time.perf_counter()
+        out = f.transform(frame).collect()
+        torch.cuda.synchronize()
+        return (features(out), time.perf_counter() - t0,
+                inception_stem_fused.launches, FEED_STATS["ring_batches"] - ring0)
+
+    n_batches = batches(df, BATCH)
+    featurizer.transform(df).collect()  # warm-up: model, graphs, cuDNN plans
+    # the main path: the default runner (ring, async fetch, auto chain,
+    # CUDA graphs), every launch count at 0 just before it
+    feats, secs, launches, ring_batches = counted(featurizer, df)
     if launches != n_batches:
         raise AssertionError(
             f"stem kernel launched {launches} times for {n_batches} batches")
+    if ring_batches != n_batches:
+        raise AssertionError(
+            f"the staging ring carried {ring_batches} of {n_batches} batches")
+    from sparkdl_torch.transformers.named_image import _named_model_runner
+
+    runner = _named_model_runner("InceptionV3", "random", False, "features", BATCH, "cuda")
+    chainer = runner._chainer
+    graphs = sorted((dict(k[0][1])["img"][0][0], k[1]) for k in chainer.graph_keys)
+
+    # bitwise: the serial runner (no staging ahead, eager steps, blocking
+    # readback) gives the same bits
+    with _runner_settings(**SERIAL):
+        featurizer.transform(df).collect()  # warm-up
+        serial, serial_secs, serial_launches, _ = counted(featurizer, df)
+    if serial_launches != n_batches:
+        raise AssertionError(f"serial: {serial_launches} stem launches for {n_batches}")
+    if not np.array_equal(feats, serial):
+        raise AssertionError(
+            "pipelined features differ from the serial runner's: max abs diff "
+            f"{np.abs(feats - serial).max():.3e}")
+
+    # a forced chain: chain_k=4 at batch 16 (four batches a graph replay)
+    small = DeepImageFeaturizer(
+        inputCol="image", outputCol="features", modelName="InceptionV3",
+        weights="random", batchSize=CHAIN_BATCH)
+    n16 = batches(df, CHAIN_BATCH)
+    with _runner_settings(chain_k=CHAIN_K) as made:
+        small.transform(df).collect()  # warm-up: captures the K=4 graph
+        chained, _, chained_launches, _ = counted(small, df)
+        chain_graphs = sorted((dict(k[0][1])["img"][0][0], k[1])
+                              for r in made.values() for k in r._chainer.graph_keys)
+    with _runner_settings(chain_k=1):
+        unchained, _, _, _ = counted(small, df)
+    if chained_launches != n16:
+        raise AssertionError(
+            f"chain_k={CHAIN_K}: {chained_launches} stem launches for {n16} batches")
+    if not np.array_equal(chained, unchained):
+        raise AssertionError(
+            f"chain_k={CHAIN_K} features differ from chain_k=1: max abs diff "
+            f"{np.abs(chained - unchained).max():.3e}")
+    if (CHAIN_BATCH, CHAIN_K) not in chain_graphs:
+        raise AssertionError(f"chain_k={CHAIN_K} captured no such graph: {chain_graphs}")
+    print(f"[feed] bitwise: default runner (ring, async fetch, auto chain K="
+          f"{chainer.target_chain_len()}, graphs (bucket, K) {graphs}) == serial "
+          f"runner ({SERIAL}) over {N_ROWS}+1 rows; chain_k={CHAIN_K} at batch "
+          f"{CHAIN_BATCH} (graphs "
+          f"{chain_graphs}, stem launches {chained_launches} = batches {n16}) == "
+          f"chain_k=1; ring carried {ring_batches} of {n_batches} batches; ring "
+          f"streams {FEED_STATS['ring_streams']}, reused {FEED_STATS['ring_reused']}, "
+          f"slots page-locked {FEED_STATS['pinned_slots']}, fallback streams "
+          f"{FEED_STATS['fallback_streams']}")
+    if FEED_STATS["fallback_streams"]:
+        raise AssertionError("a stream took the pure-Python prefetcher on the card")
 
     # 8 rows against the same forward with the plain stem
     module = _load_named_model("InceptionV3", "random", False, "cuda")
     params = prepare_fused_inception_v3(fold_tf_preprocess(module.state_dict()))
-    pick = [0, 1, 63, 64, 100, 150, 200, 255]
+    pick = [i % N_ROWS for i in (0, 1, 63, 64, 100, 150, 200, 255)]
     x = torch.from_numpy(images[pick].astype(np.float32)).cuda()  # RGB as fed
     with torch.inference_mode():
         want = fused_inception_v3_features(params, x, stem=stem_reference)
@@ -373,11 +542,44 @@ def phase_main_path(stem_entry: dict):
     print(f"[forward] fused InceptionV3 forward, B={BATCH} already on the device: "
           f"{fwd['kernel']:.2f} ms with the stem kernel "
           f"({BATCH / fwd['kernel'] * 1e3:.0f} images/s), {fwd['plain']:.2f} ms "
-          f"with the plain stem; the transform takes {secs / n_batches * 1e3:.1f} ms "
-          f"per batch, the rest of it on the host (decode, staging, copies)")
+          f"with the plain stem; {card}")
+
+    # time, repeated: serial and pipelined in turns, after a warm-up of each,
+    # over the 4-partition frame (one batch a partition) and one partition
+    n1 = batches(df1, BATCH)
+    featurizer.transform(df1).collect()
+    with _runner_settings(**SERIAL):
+        featurizer.transform(df1).collect()
+    rates = {}
+    for _ in range(TIME_REPS):
+        for frame, label in ((df, "4 partitions"), (df1, "1 partition")):
+            for setting in ("serial", "pipelined"):
+                ctx = (_runner_settings(**SERIAL) if setting == "serial"
+                       else contextlib.nullcontext())
+                with ctx:
+                    _, t, _, _ = counted(featurizer, frame)
+                rates.setdefault((label, setting), []).append(N_ROWS / t)
+    for (label, setting), r in rates.items():
+        print(f"[feed] {label}, {setting}: median {statistics.median(r):.1f} "
+              f"images/s (min {min(r):.1f}, max {max(r):.1f}, {TIME_REPS} "
+              f"transforms in turns); {card}")
+
+    # where the host time goes, per batch, serial then pipelined
+    for setting in ("serial", "pipelined"):
+        for frame, label, nb in ((df, "4 partitions", n_batches),
+                                 (df1, "1 partition", n1)):
+            if setting == "serial":
+                with _runner_settings(**SERIAL) as made:
+                    line = _host_split(featurizer, frame, nb,
+                                       lambda: list(made.values()))
+            else:
+                line = _host_split(featurizer, frame, nb, lambda: [runner])
+            print(f"[feed] {setting}, {label}, ms: {line}; {card}")
+
     print(f"[main] DeepImageFeaturizer(InceptionV3) over {N_ROWS}+1 rows in "
           f"{N_PARTS} partitions, batchSize {BATCH}: {N_ROWS / secs:.1f} images/s "
-          f"(steady state after a warm-up transform, host decode included); "
+          f"(default runner, steady state after a warm-up transform, host decode "
+          f"included; serial runner {N_ROWS / serial_secs:.1f}); "
           f"inception_stem_fused launches {launches} = batches {n_batches}; "
           f"8 rows vs plain-stem forward rel err {rel:.2e} (tol {NET_TOL}); "
           f"mean |feature| {np.abs(feats).mean():.3e}")
@@ -1388,7 +1590,7 @@ def main() -> int:
     decode = phase_flash_decode(card)
     dq, dkv, bert_fwd = phase_flash_attention_bwd(card)
     gemm = phase_fused_gemm_bn(card)
-    images_s = phase_main_path(stem)
+    images_s = phase_main_path(stem, card)
     tokens_s = phase_generate(card, attn, decode)
     examples_s = phase_train_bert(card, dq, dkv, bert_fwd)
     train_images_s = phase_train_resnet(card, gemm)

@@ -1,7 +1,8 @@
-"""Image decode and numpy <-> struct conversion (PIL decoder).
+"""Image decode and numpy <-> struct conversion.
 
 ``imageArrayToStruct`` / ``imageStructToArray`` round-trip numpy arrays
-through the Spark image struct, PIL decodes bytes, and
+through the Spark image struct, the native libjpeg/libpng decoder
+(``native/decode.py``) or PIL decodes bytes, and
 ``readImagesWithCustomFn`` builds an image DataFrame from files with a
 user decode function. Structs hold BGR; arrays handed to and from models
 are RGB unless stated otherwise.
@@ -88,14 +89,37 @@ def PIL_decode_bytes(raw: bytes, origin: str = "") -> dict | None:
     return imageArrayToStructBGR(arr, origin) if arr.ndim == 3 else imageArrayToStruct(arr, origin)
 
 
+def native_decode_bytes(raw: bytes, origin: str = "") -> dict | None:
+    """Like :func:`PIL_decode_bytes` but via the native libjpeg/libpng
+    decoder (``native.decode``): threaded C decode instead of PIL. Defers
+    to PIL when the native library is unavailable, for formats the native
+    path does not cover (e.g. GIF), and for grayscale sources (PIL keeps
+    them 1-channel CV_8UC1; the native decoder always emits RGB —
+    deferring keeps the struct schema independent of which decoder a host
+    happens to have)."""
+    from sparkdl_torch.native import decode as _native_decode
+
+    if _native_decode.available():
+        info = _native_decode.image_info(raw)
+        if info is not None and info[2] == 3:
+            # Pass the probed dims: skips a second header parse.
+            arr = _native_decode.decode_resize(raw, info[0], info[1])
+            if arr is not None:
+                return imageArrayToStructBGR(arr, origin)
+    return PIL_decode_bytes(raw, origin)
+
+
 def undefined_image(origin: str = "") -> dict:
     return image_struct(b"", -1, -1, UNDEFINED_MODE, -1, origin)
 
 
 def readImages(path: str | Sequence[str], numPartition: int | None = None):
-    """Read images with the PIL decoder into BGR structs (Spark's
-    ``ImageSchema.readImages``)."""
-    return readImagesWithCustomFn(path, PIL_decode_bytes, numPartition)
+    """Read images with the default decoder into BGR structs (Spark's
+    ``ImageSchema.readImages``): native libjpeg/libpng where the library
+    builds, PIL otherwise — the same structs either way
+    (:func:`native_decode_bytes` defers to PIL for anything the native
+    path would represent differently)."""
+    return readImagesWithCustomFn(path, native_decode_bytes, numPartition)
 
 
 def readImagesWithCustomFn(

@@ -164,3 +164,40 @@ def load_library(name: str) -> ctypes.CDLL:
 def stream_handle() -> int:
     """PyTorch's current CUDA stream, as the int a ctypes c_void_p takes."""
     return torch.cuda.current_stream().cuda_stream
+
+
+# -- launch counts ------------------------------------------------------------
+#
+# Each kernel wrapper counts its launches in attributes of its own
+# (``inception_stem_fused.launches``, ...), adding one where it launches
+# its kernel. A CUDA graph replay launches the captured kernels without
+# calling the wrappers, so the graph runner (runtime/dispatch.py) takes
+# back what the wrappers counted during a capture, where nothing ran, and
+# adds it again for every replay.
+
+_COUNTERS: "list[tuple[object, str]]" = []
+
+
+def count_launches(fn, *names: str) -> None:
+    """Register ``fn``'s launch-count attributes (each set to 0)."""
+    for name in names:
+        setattr(fn, name, 0)
+        _COUNTERS.append((fn, name))
+
+
+def launch_counts() -> "dict[tuple[object, str], int]":
+    """Every registered launch count, keyed by (wrapper, attribute)."""
+    return {key: getattr(*key) for key in _COUNTERS}
+
+
+def launch_delta(before: dict, after: dict) -> "dict[tuple[object, str], int]":
+    """What each count gained from ``before`` to ``after`` (a count
+    registered in between started at 0)."""
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+def add_launches(delta: dict, times: int = 1) -> None:
+    """Add ``times`` x ``delta`` to the counts (negative to take back)."""
+    for (fn, name), d in delta.items():
+        setattr(fn, name, getattr(fn, name) + d * times)

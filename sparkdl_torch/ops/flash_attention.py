@@ -25,7 +25,12 @@ import math
 
 import torch
 
-from sparkdl_torch.ops._dispatch import load_library, on_cuda, stream_handle
+from sparkdl_torch.ops._dispatch import (
+    count_launches,
+    load_library,
+    on_cuda,
+    stream_handle,
+)
 
 NEG_INF = -1e30  # the masked-score sentinel of both versions
 DEAD_LSE = -1e29  # an lse at or below this: the query row has no valid key
@@ -206,7 +211,7 @@ def flash_attention(q, k, v, kv_mask=None, *, causal=False, scale=None,
     return _forward(q, k, v, kv_mask, causal, scale, q_offset, return_lse)
 
 
-flash_attention.launches = 0
+count_launches(flash_attention, "launches")
 
 
 def flash_attention_bwd(q, k, v, kv_mask, o, lse, do, *, causal=False,
@@ -269,8 +274,7 @@ def flash_attention_bwd(q, k, v, kv_mask, o, lse, do, *, causal=False,
     return dq, dk, dv
 
 
-flash_attention_bwd.launches_dq = 0
-flash_attention_bwd.launches_dkv = 0
+count_launches(flash_attention_bwd, "launches_dq", "launches_dkv")
 
 
 def _entry():

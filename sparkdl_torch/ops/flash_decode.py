@@ -21,6 +21,7 @@ import math
 import torch
 
 from sparkdl_torch.ops._dispatch import (
+    count_launches,
     load_library,
     on_cuda,
     refuse_grad,
@@ -112,7 +113,7 @@ def flash_decode(q, ck, cv, idx, *, start=None):
     return out
 
 
-flash_decode.launches = 0
+count_launches(flash_decode, "launches")
 
 
 def _entry():

@@ -25,7 +25,12 @@ import ctypes
 
 import torch
 
-from sparkdl_torch.ops._dispatch import load_library, on_cuda, stream_handle
+from sparkdl_torch.ops._dispatch import (
+    count_launches,
+    load_library,
+    on_cuda,
+    stream_handle,
+)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -160,7 +165,7 @@ def gemm_bn_stats(x, w, scale=None, shift=None, bias=None, *, relu_in=False):
     return _forward(*inputs, bool(relu_in))
 
 
-gemm_bn_stats.launches = 0
+count_launches(gemm_bn_stats, "launches")
 
 
 def _prev_bn_affine(prev_bn):

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from sparkdl_torch.ops._dispatch import (
+    count_launches,
     load_library,
     on_cuda,
     refuse_grad,
@@ -134,7 +135,7 @@ def inception_stem_fused(x: torch.Tensor, folded: dict, *,
     return out
 
 
-inception_stem_fused.launches = 0
+count_launches(inception_stem_fused, "launches")
 
 
 def _entry():

@@ -13,6 +13,8 @@ from typing import Iterable, Iterator, Sequence
 
 import numpy as np
 
+from sparkdl_torch.observability.tracing import span
+
 
 def default_buckets(max_batch: int, min_bucket: int = 8) -> tuple[int, ...]:
     """Powers of two from min_bucket up to max_batch (inclusive)."""
@@ -100,8 +102,9 @@ def rebatch(
 def _stack(rows: list[dict[str, np.ndarray]], buckets: Sequence[int]) -> PaddedBatch:
     n = len(rows)
     bucket = pick_bucket(n, buckets)
-    arrays = {
-        k: _repeat_pad(np.stack([np.asarray(r[k]) for r in rows]), bucket)
-        for k in rows[0]
-    }
+    with span("batch.pack", rows=n, bucket=bucket):
+        arrays = {
+            k: _repeat_pad(np.stack([np.asarray(r[k]) for r in rows]), bucket)
+            for k in rows[0]
+        }
     return PaddedBatch(arrays, n, bucket)

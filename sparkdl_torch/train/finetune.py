@@ -7,11 +7,12 @@ place; the default optimizer is ``torch.optim.AdamW(lr, weight_decay=wd,
 eps=1e-8)`` over all parameters, the update ``optax.adamw`` makes
 (decoupled decay, eps outside the square root).
 
+Input readahead (``input_prefetch``, ``autotune``) runs the batch source
+through the ingest pipeline (sparkdl_torch/ingest), as the JAX loop does.
 The JAX loop's options that have no counterpart in the port yet keep
 their names and raise ``NotImplementedError`` naming their ROADMAP item:
 ``mesh``/``partitioner`` (A8 partition), ``checkpoint_dir`` (A8
-checkpoint), ``chain_steps`` other than 1 (A4 CUDA graphs), and input
-readahead (``input_prefetch`` > 0, ``autotune``; A4 ingest).
+checkpoint) and ``chain_steps`` other than 1 (A4 CUDA graphs).
 """
 
 from __future__ import annotations
@@ -85,6 +86,16 @@ def finetune_classifier(
     with each entry as it lands. ``step_time_s`` is host time from the
     batch's transfer to the step's metrics on the host (the read waits for
     the device).
+
+    ``input_prefetch`` is the input iterator's host-side readahead depth
+    (sparkdl_torch/ingest): a background producer keeps that many batches
+    ready ahead of the step loop, so a slow ``batches`` source overlaps
+    the device step instead of serializing with it. The batch stream —
+    order and values — is exactly the source's. None = auto
+    (``SPARKDL_TORCH_PREFETCH`` pin, else 2; a live autotuner knob when
+    ``autotune`` resolves on, ``SPARKDL_TORCH_AUTOTUNE`` deciding for
+    None); 0 disables readahead (strictly consumer-pulled); an explicit
+    depth pins.
     """
     if chain_steps is None or chain_steps != 1:
         if chain_steps is not None and chain_steps < 1:
@@ -100,28 +111,41 @@ def finetune_classifier(
         raise NotImplementedError(
             "checkpoint_dir (save and resume) is "
             + _NOT_PORTED.format(item="A8 checkpoint"))
-    if (input_prefetch is not None and input_prefetch > 0) or autotune:
-        raise NotImplementedError(
-            "input readahead (input_prefetch > 0, autotune) is "
-            + _NOT_PORTED.format(item="A4 ingest")
-            + "; input_prefetch=None or 0 runs without readahead")
+    from sparkdl_torch import ingest
+    from sparkdl_torch.ingest.pipeline import resolve_pin
+
+    feed_depth, feed_pinned, _ = resolve_pin(
+        input_prefetch, "SPARKDL_TORCH_PREFETCH", 2, what="input_prefetch")
     dev = _device_of(model)
     if optimizer is None:
         optimizer = torch.optim.AdamW(model.parameters(), lr=learning_rate,
                                       weight_decay=weight_decay, eps=1e-8)
     step_fn = classification_train_step(model, optimizer)
+    # host-side readahead between the batch source and the step loop;
+    # transfer=identity: the step loop puts each batch on the device
+    input_pipe = None
+    if feed_depth > 0:
+        input_pipe = ingest.Pipeline(batches, name="finetune").prefetch(
+            feed_depth, transfer=lambda b: b, pinned=feed_pinned)
+        if ingest.autotune_enabled(autotune):
+            input_pipe.autotune(True)
+        batches = input_pipe
     history: list[dict] = []
-    for i, batch in enumerate(batches):
-        t0 = time.perf_counter()
-        staged = {k: torch.as_tensor(v).to(dev, non_blocking=True)
-                  for k, v in batch.items()}
-        metrics = step_fn(staged)
-        entry = {k: float(v) for k, v in metrics.items()}
-        entry["step_time_s"] = time.perf_counter() - t0
-        entry["step"] = i + 1
-        history.append(entry)
-        if metrics_cb is not None:
-            metrics_cb(entry)
+    try:
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            staged = {k: torch.as_tensor(v).to(dev, non_blocking=True)
+                      for k, v in batch.items()}
+            metrics = step_fn(staged)
+            entry = {k: float(v) for k, v in metrics.items()}
+            entry["step_time_s"] = time.perf_counter() - t0
+            entry["step"] = i + 1
+            history.append(entry)
+            if metrics_cb is not None:
+                metrics_cb(entry)
+    finally:
+        if input_pipe is not None:
+            input_pipe.close()
     return model, history
 
 

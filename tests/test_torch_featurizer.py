@@ -192,6 +192,33 @@ def test_predictor_without_a_class_index_names_classes_by_index(
     assert all(d == f"class_{c}" for c, d, _ in top[0])
 
 
+@pytest.mark.parametrize("settings", [
+    dict(prefetch=0, chain_k=1, async_fetch=False),
+    dict(chain_k=2), dict(prefetch=1, async_fetch=False), dict(autotune=True)])
+def test_featurizer_through_every_feed_setting(jax_featurized, rows,
+                                               torch_loader, monkeypatch,
+                                               settings):
+    """The featurizer's runner under other feed settings (the serial
+    feed, a forced chain, no readahead, the autotuner): bitwise the
+    default runner's features, and so within tolerance of the JAX
+    featurizer's."""
+    import dataclasses
+
+    base = _torch_features(rows, DeepImageFeaturizer, 1, 1)
+    orig = torch_ni._named_model_runner
+    monkeypatch.setattr(torch_ni, "_named_model_runner",
+                        lambda *key: dataclasses.replace(orig(*key), **settings))
+    got = _torch_features(rows, DeepImageFeaturizer, 1, 1)
+    assert got[-1] is None
+    for i in (0, 1, 2):
+        np.testing.assert_array_equal(got[i], base[i])
+    _assert_rows_match(got, jax_featurized)
+    if settings.get("autotune"):
+        from sparkdl_torch.ingest import default_tuner
+
+        default_tuner().stop()
+
+
 def _write_pngs(root, r):
     from PIL import Image
 

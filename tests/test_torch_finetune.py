@@ -110,13 +110,28 @@ def test_custom_optimizer_updates_in_place(start):
     (dict(checkpoint_dir="ckpt"), "A8 checkpoint"),
     (dict(chain_steps=4), "A4 CUDA graphs"),
     (dict(chain_steps=None), "A4 CUDA graphs"),
-    (dict(input_prefetch=2), "A4 ingest"),
-    (dict(autotune=True), "A4 ingest"),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(start, kwargs, item):
     _, variables = start
     with pytest.raises(NotImplementedError, match=item):
         finetune_classifier(_port_model(variables), [], **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [dict(input_prefetch=2),
+                                    dict(input_prefetch=1, autotune=True),
+                                    dict(autotune=True)])
+def test_readahead_keeps_the_loss_history_bitwise(start, kwargs):
+    """Input readahead through the ingest pipeline (a producer thread
+    ahead of the step loop, the autotuner moving its depth) changes when
+    batches are made, never which: the loss history is bitwise that of
+    input_prefetch=0."""
+    data, variables = start
+    batches = list(batches_from_arrays(data, 16))
+    _, want = finetune_classifier(_port_model(variables), batches,
+                                  input_prefetch=0)
+    _, got = finetune_classifier(_port_model(variables), iter(batches), **kwargs)
+    assert [h["loss"] for h in got] == [h["loss"] for h in want]
+    assert [h["step"] for h in got] == [1, 2, 3, 4]
 
 
 def test_no_readahead_is_the_default(start):

@@ -26,6 +26,21 @@ out = DeepImageFeaturizer(inputCol="image", outputCol="f", modelName="InceptionV
                           weights="random", batchSize=1, device="cpu").transform(df)
 f = out.first()["f"]
 assert f.shape == (2048,) and np.isfinite(f).all()
+from sparkdl_torch.native.bridge import FEED_STATS
+assert FEED_STATS["ring_batches"] >= 1 and not FEED_STATS["fallback_streams"]
+from sparkdl_torch.transformers._inference import BatchedRunner
+runner = BatchedRunner(lambda b: b["x"] * 2, batch_size=4, device="cpu",
+                       async_fetch=True, autotune=True)
+got = list(runner.run({"x": np.full(3, i, np.float32)} for i in range(10)))
+assert len(got) == 10 and float(got[9][0]) == 18.0
+from sparkdl_torch.ingest import default_tuner
+default_tuner().stop()
+import io
+from PIL import Image
+from sparkdl_torch.image import native_decode_bytes
+buf = io.BytesIO()
+Image.fromarray(img).save(buf, format="PNG")
+assert native_decode_bytes(buf.getvalue())["height"] == 32
 from sparkdl_torch import DeepTextGenerator
 from sparkdl_torch.models.gpt import GPTConfig, GPTLMHeadModel, init_gpt_
 cfg = GPTConfig.tiny(attn_impl="flash", flash_decode=True)
@@ -40,7 +55,7 @@ bert = init_bert_(BertForSequenceClassification(BertConfig.tiny(attn_impl="flash
                                                 device="cpu"), seed=0)
 batch = {"input_ids": np.arange(16).reshape(2, 8) % 128, "attention_mask": np.ones((2, 8)),
          "labels": np.array([0, 1])}
-_, history = finetune_classifier(bert, [batch])
+_, history = finetune_classifier(bert, [batch], input_prefetch=2)
 assert len(history) == 1 and np.isfinite(history[0]["loss"])
 from sparkdl_torch.ops.fused_gemm_bn import conv1x1_bn_stats
 y, mean, var = conv1x1_bn_stats(torch.randn(2, 4, 4, 128), torch.randn(128, 8))
@@ -52,9 +67,12 @@ print("LOADED", loaded)
 
 
 def test_featurize_in_fresh_interpreter_loads_no_jax():
-    """One featurize and one text-generation transform, one BERT fine-tune
-    step and one fused 1x1-conv call in a fresh interpreter load no module
-    of JAX, Flax or sparkdl_tpu."""
+    """One featurize (over the staging ring, with async readback) and one
+    text-generation transform, an autotuned runner stream, a native
+    decode, one BERT fine-tune step with input readahead and one fused
+    1x1-conv call in a fresh interpreter load no module of JAX, Flax or
+    sparkdl_tpu: the copied observability, reliability and ingest modules
+    pull in nothing of it."""
     env = dict(os.environ)
     env.pop("PYTHONSTARTUP", None)
     proc = subprocess.run(
