@@ -12,13 +12,17 @@ each went through its kernels and agrees with a kernel-free run:
 - ``DeepImageFeaturizer(modelName="InceptionV3")`` over a LocalDataFrame
   of 256 random 299x299 images (the stem kernel);
 - ``DeepTextGenerator`` at GPT-2-small width over 64 random prompts
-  (the flash attention and flash decode kernels);
+  (the flash attention and flash decode kernels), each bucket's whole
+  ``generate`` one CUDA graph;
 - ``finetune_classifier`` over BERT-base, 20 batches of 32 x 128 tokens
-  (the flash attention forward and its two backward kernels);
+  (the flash attention forward and its two backward kernels), one CUDA
+  graph a step and, with ``chain_steps=4``, one of four steps;
 - the fused ResNet50 train step at 224 px, batch 64 (the fused 1x1-conv
-  GEMM + BN-stats kernel).
+  GEMM + BN-stats kernel), one CUDA graph a step.
 
-Each phase prints one line; any failure raises and exits non-zero. The
+The graphed paths are held bitwise to their eager form (the training
+ones under deterministic algorithms). Each phase prints its lines; any
+failure, a failed capture included, raises and exits non-zero. The
 last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``. Needs CUDA; imports nothing of JAX.
 """
@@ -125,6 +129,29 @@ def _device_ms(fn, calls: int = 20, reps: int = 5) -> float:
 def _rel_err(got, want) -> tuple[float, float]:
     err = (got.float() - want.float()).abs().max().item()
     return err, err / max(want.float().abs().max().item(), 1e-30)
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """PyTorch's deterministic algorithms for a bitwise comparison of two
+    runs (cuDNN's and the embedding's default backward sum with atomics,
+    in an order that changes from run to run); ops without a deterministic
+    version warn. The cuBLAS workspace is fixed in main()."""
+    import torch
+    import torch.utils.deterministic as det
+
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic = saved[2]
+        det.fill_uninitialized_memory = saved[3]
 
 
 def phase_card():
@@ -820,10 +847,36 @@ def _device_split(module, ids, profile_steps: int = 0):
         "kernels; " + "; ".join(f"{name[:60]} {us / total:.0%}" for name, us in top))
 
 
+def _wall_ms(fn, reps: int = 5) -> float:
+    """Median host wall ms of ``fn()`` to the device's completion (what the
+    host waits for), after one call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def _launch_names(launches: dict) -> str:
+    """'flash_attention 12, flash_decode 372' from a graph's launch delta."""
+    return ", ".join(f"{fn.__name__}{'' if name == 'launches' else '.' + name[9:]} {n}"
+                     for (fn, name), n in sorted(launches.items(),
+                                                 key=lambda kv: kv[0][0].__name__))
+
+
 def phase_generate(card: str, attn_entry: dict, decode_entry: dict) -> float:
     """DeepTextGenerator at GPT-2-small width through both attention
-    kernels, against the same transformer and weights with
-    attn_impl="full" (no kernel) on the card."""
+    kernels, each bucket's whole generate one CUDA graph: its tokens
+    against eager generate over the same buckets (bitwise) and against
+    attn_impl="full" (no kernel), a sampled bucket's replay against eager
+    generate with the same seed, and where a group's time goes, eager
+    and graphed."""
     import dataclasses
 
     import numpy as np
@@ -833,12 +886,20 @@ def phase_generate(card: str, attn_entry: dict, decode_entry: dict) -> float:
     from sparkdl_torch.models.gpt import (
         GPTConfig,
         GPTLMHeadModel,
+        generate,
         init_cache,
         init_gpt_,
     )
     from sparkdl_torch.ops.flash_attention import flash_attention
     from sparkdl_torch.ops.flash_decode import flash_decode
-    from sparkdl_torch.transformers.text_generator import _model
+    from sparkdl_torch.runtime.batching import default_buckets
+    from sparkdl_torch.transformers.text_generator import (
+        GENERATE_GRAPHS,
+        _group_generator,
+        _model,
+        graphed_generate,
+        left_pad_group,
+    )
 
     # GPT-2 small: GPTConfig's own widths with the learned position table
     cfg = GPTConfig(positions="learned", attn_impl="flash", flash_decode=True)
@@ -853,30 +914,53 @@ def phase_generate(card: str, attn_entry: dict, decode_entry: dict) -> float:
     rows = [{"id": i, "prompt": p} for i, p in enumerate(prompts)]
     rows.insert(GEN_ROWS // 3, {"id": -1, "prompt": []})  # bad row -> None
     df = LocalDataFrame.from_rows(rows, N_PARTS)
-    groups = sum(r["n"] for r in df.mapPartitions(
-        lambda part: [{"n": math.ceil(sum(r["id"] >= 0 for r in part) / GEN_BATCH)}]
-    ).collect())
+    # the groups DeepTextGenerator decodes: each partition's valid prompts,
+    # batchSize at a time, left-padded into their (rows, prompt_len) bucket
+    row_buckets = default_buckets(GEN_BATCH, min_bucket=4)
+    len_buckets = default_buckets(GEN_LEN, min_bucket=8)
+    parts = df.mapPartitions(lambda part: [
+        {"rows": [(r["id"], r["prompt"]) for r in part if r["id"] >= 0]}]).collect()
+    groups = []
+    for part in parts:
+        for i in range(0, len(part["rows"]), GEN_BATCH):
+            chunk = part["rows"][i:i + GEN_BATCH]
+            ids, mask = left_pad_group([p for _, p in chunk], row_buckets, len_buckets)
+            groups.append(([n for n, _ in chunk], torch.from_numpy(ids).cuda(),
+                           torch.from_numpy(mask).cuda()))
+    n_groups = len(groups)
+    buckets = sorted({tuple(ids.shape) for _, ids, _ in groups})
 
-    def transformer(c):
+    def transformer(c, **kw):
         return DeepTextGenerator(inputCol="prompt", outputCol="gen", model=(c, state),
                                  batchSize=GEN_BATCH, maxLength=GEN_LEN,
-                                 maxNewTokens=GEN_NEW)
+                                 maxNewTokens=GEN_NEW, **kw)
 
     gen = transformer(cfg)
-    gen.transform(df).collect()  # warm-up: module to the card, cuBLAS
+    GENERATE_GRAPHS.clear()
+    captures0 = GENERATE_GRAPHS.captures
+    t0 = time.perf_counter()
+    gen.transform(df).collect()  # first use of each bucket: eager, then captured
     torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    captured = GENERATE_GRAPHS.captures - captures0
+    if captured != len(buckets):
+        raise AssertionError(f"{captured} graphs captured for {len(buckets)} buckets")
     _zero_counts()
     t0 = time.perf_counter()
     out = gen.transform(df).collect()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     n_attn, n_decode = flash_attention.launches, flash_decode.launches
+    if GENERATE_GRAPHS.captures != captures0 + captured:
+        raise AssertionError("the second transform captured again instead of replaying")
     layers = cfg.num_layers
-    if n_attn != layers * groups or n_decode != layers * (GEN_NEW - 1) * groups:
+    if n_attn != layers * n_groups or n_decode != layers * (GEN_NEW - 1) * n_groups:
         raise AssertionError(
-            f"launches: flash_attention {n_attn} (want {layers * groups}), "
-            f"flash_decode {n_decode} (want {layers * (GEN_NEW - 1) * groups}) "
-            f"for {groups} groups")
+            f"launches: flash_attention {n_attn} (want {layers * n_groups}), "
+            f"flash_decode {n_decode} (want {layers * (GEN_NEW - 1) * n_groups}) "
+            f"for {n_groups} groups")
+    graph_stats = [(k[0][1][0][0], g) for k, g in zip(GENERATE_GRAPHS.keys(),
+                                                      GENERATE_GRAPHS.graphs())]
 
     by_id = {r["id"]: r["gen"] for r in out}
     if len(out) != GEN_ROWS + 1 or by_id[-1] is not None:
@@ -885,7 +969,32 @@ def phase_generate(card: str, attn_entry: dict, decode_entry: dict) -> float:
     if toks.shape != (GEN_ROWS, GEN_NEW) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
         raise AssertionError(f"generated ids: bad shape or range {toks.shape}")
 
+    # the same groups through eager generate (one launch an op) and through
+    # the graphs (replays): the same tokens, bitwise
+    mod, mod_full = _model(cfg, state, "cuda"), _model(full, state, "cuda")
+    runs = {}
+    for name, fn in (("eager", lambda ids, mask: generate(mod, ids, GEN_NEW,
+                                                          attention_mask=mask)),
+                     ("graphed", lambda ids, mask: graphed_generate(mod, ids, mask,
+                                                                    GEN_NEW))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [fn(ids, mask) for _, ids, mask in groups]
+        torch.cuda.synchronize()
+        runs[name] = (outs, time.perf_counter() - t0)
+    if GENERATE_GRAPHS.captures != captures0 + captured:
+        raise AssertionError("graphed_generate captured again instead of replaying")
+    same_groups = sum(torch.equal(a, b) for a, b in zip(*(runs[n][0] for n in runs)))
+    eager_rows = {n: o[j, -GEN_NEW:].tolist() for (ns, ids, _), o in zip(groups, runs["eager"][0])
+                  for j, n in enumerate(ns)}
+    same_rows = sum(by_id[i] == eager_rows[i] for i in range(GEN_ROWS))
+    if same_groups != n_groups or same_rows != GEN_ROWS:
+        raise AssertionError(f"graphed tokens differ from eager generate: {n_groups - same_groups} "
+                             f"groups, {GEN_ROWS - same_rows} transformer rows")
+
     gen_full = transformer(full)
+    gen_full.transform(df).collect()  # its own buckets' graphs
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     out_full = gen_full.transform(df).collect()
     torch.cuda.synchronize()
@@ -896,8 +1005,29 @@ def phase_generate(card: str, attn_entry: dict, decode_entry: dict) -> float:
         raise AssertionError(
             f"greedy tokens differ from attn_impl='full' in {GEN_ROWS - same} rows")
 
+    # a sampled bucket: the first transform runs it eagerly and captures
+    # it, the second replays it; both equal eager generate from the seed
+    sample_kw = dict(temperature=0.8, top_k=40, top_p=0.95)
+    sdf = LocalDataFrame.from_rows(
+        [{"id": i, "prompt": p} for i, p in enumerate(prompts[:GEN_BATCH])], 1)
+    sampler = transformer(cfg, temperature=0.8, topK=40, topP=0.95, seed=3)
+    c0 = GENERATE_GRAPHS.captures
+    sampled = [{r["id"]: r["gen"] for r in sampler.transform(sdf).collect()}
+               for _ in range(2)]
+    ids, mask = left_pad_group(prompts[:GEN_BATCH], row_buckets, len_buckets)
+    want_s = generate(mod, torch.from_numpy(ids).cuda(), GEN_NEW,
+                      attention_mask=torch.from_numpy(mask).cuda(),
+                      generator=_group_generator(3, 0, mod.wte.weight.device),
+                      **sample_kw)[:, -GEN_NEW:]
+    want_s = {i: want_s[i].tolist() for i in range(GEN_BATCH)}
+    if GENERATE_GRAPHS.captures != c0 + 1 or sampled[0] != want_s or sampled[1] != want_s:
+        raise AssertionError(
+            f"sampled bucket: {GENERATE_GRAPHS.captures - c0} captures (want 1); eager "
+            f"pass equal {sampled[0] == want_s}, replay equal {sampled[1] == want_s}")
+    greedy_share = float(np.mean([a == b for i in range(GEN_BATCH)
+                                  for a, b in zip(want_s[i], by_id[i])]))
+
     # first-step logits of 4 left-padded rows, kernels vs dense, on the card
-    mod, mod_full = _model(cfg, state, "cuda"), _model(full, state, "cuda")
     pick = [prompts[i] for i in (0, 1, 2, 3)]
     lp = max(map(len, pick))
     ids = torch.zeros((4, lp), dtype=torch.long)
@@ -917,7 +1047,9 @@ def phase_generate(card: str, attn_entry: dict, decode_entry: dict) -> float:
     if not torch.isfinite(logits["flash"]).all() or logit_rel > LOGIT_TOL:
         raise AssertionError(f"first-step logits vs full: rel err {logit_rel:.3e}")
 
-    # where a group's time goes: one full group of the longest bucket
+    # where a group's time goes: one full group of the longest bucket, eager
+    # (CUDA events around the host-driven call; device alone by replaying
+    # one forward) and graphed (host wall to completion; CUDA events)
     ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (GEN_BATCH, GEN_LEN))).cuda()
     mask = torch.ones_like(ids, dtype=torch.bool)
     times = {}
@@ -926,29 +1058,59 @@ def phase_generate(card: str, attn_entry: dict, decode_entry: dict) -> float:
         whole = _generate_ms(m, ids, mask, GEN_NEW)
         times[name] = (prefill, (whole - prefill) / (GEN_NEW - 1),
                        *_device_split(m, ids, profile_steps=5 * (m is mod)))
+    graphed = {}
+    for new in (1, GEN_NEW):
+        call = lambda new=new: graphed_generate(mod, ids, mask, new)  # noqa: E731
+        graphed[new] = (_wall_ms(call), _time_ms(call, warmup=1, reps=5))
+    g_host = (graphed[GEN_NEW][0] - graphed[1][0]) / (GEN_NEW - 1)
+    g_dev = (graphed[GEN_NEW][1] - graphed[1][1]) / (GEN_NEW - 1)
+    big = [g for shape, g in zip(GENERATE_GRAPHS.keys(), GENERATE_GRAPHS.graphs())
+           if shape[0][1][0][0] == (GEN_BATCH, GEN_LEN)
+           and shape[1][:3] == (cfg, GEN_NEW, 0.0)][0]
     tokens_s = GEN_ROWS * GEN_NEW / secs
+    eager_tok_s = GEN_ROWS * GEN_NEW / runs["eager"][1]
+    graphed_tok_s = GEN_ROWS * GEN_NEW / runs["graphed"][1]
     print(f"[generate] DeepTextGenerator GPT-2 small ({layers}x{cfg.hidden_size}, "
           f"vocab {cfg.vocab_size}, learned positions, float32, random init seed 0 "
           f"in {init_s:.1f} s) over "
           f"{GEN_ROWS}+1 prompts of 8..{GEN_LEN} tokens in {N_PARTS} partitions, "
-          f"batchSize {GEN_BATCH}, {GEN_NEW} new tokens greedy; {card}: "
-          f"{tokens_s:.1f} tokens/s with the kernels, "
-          f"{GEN_ROWS * GEN_NEW / secs_full:.1f} with attn_impl='full' (steady "
-          f"state, host included); one group B={GEN_BATCH} L={GEN_LEN}, as "
-          f"generate runs it (device alone, CUDA-graph replay): prefill "
-          f"{times['flash'][0]:.2f} ms ({times['flash'][2]:.2f}), decode "
-          f"{times['flash'][1]:.3f} ms/step ({times['flash'][3]:.3f}); full: "
-          f"{times['full'][0]:.2f} ms ({times['full'][2]:.2f}), "
-          f"{times['full'][1]:.3f} ms/step ({times['full'][3]:.3f}); "
-          f"launches flash_attention {n_attn} = {layers} x {groups} groups, "
-          f"flash_decode {n_decode} = {layers} x {GEN_NEW - 1} x {groups}; tokens "
-          f"equal to 'full' in "
-          f"{same}/{GEN_ROWS} rows; first-step logits rel err {logit_rel:.2e} "
-          f"(tol {LOGIT_TOL}); bad row None")
+          f"batchSize {GEN_BATCH}, {GEN_NEW} new tokens greedy, each bucket's whole "
+          f"generate one CUDA graph; {card}: {tokens_s:.1f} tokens/s with the kernels "
+          f"(replays, host and DataFrame included; {first_s:.2f} s for the first "
+          f"transform, which ran each bucket eagerly and captured it), "
+          f"{GEN_ROWS * GEN_NEW / secs_full:.1f} with attn_impl='full'; launches "
+          f"flash_attention {n_attn} = {layers} x {n_groups} groups, flash_decode "
+          f"{n_decode} = {layers} x {GEN_NEW - 1} x {n_groups}; tokens equal to eager "
+          f"generate in {same_rows}/{GEN_ROWS} rows and {same_groups}/{n_groups} groups "
+          f"(bitwise), equal to 'full' in {same}/{GEN_ROWS} rows; first-step logits rel "
+          f"err {logit_rel:.2e} (tol {LOGIT_TOL}); bad row None")
+    print(f"[generate] graphs: {captured} captured for the {len(buckets)} buckets (rows, "
+          f"prompt_len) " + ", ".join(
+              f"{shape[0]}x{shape[1]}: capture {g.capture_s * 1e3:.0f} ms, pool "
+              f"{g.pool_bytes / 2**20:.0f} MB" for shape, g in graph_stats)
+          + f"; per replay of a group: {_launch_names(big.launches)}; B={GEN_BATCH} "
+          f"{GEN_LEN}+{GEN_NEW}: capture {big.capture_s * 1e3:.0f} ms, pool "
+          f"{big.pool_bytes / 2**20:.0f} MB")
+    print(f"[generate] one group B={GEN_BATCH} L={GEN_LEN}: eager prefill "
+          f"{times['flash'][0]:.2f} ms host-driven ({times['flash'][2]:.2f} device), "
+          f"decode {times['flash'][1]:.3f} ms/step host-driven ({times['flash'][3]:.3f} "
+          f"device: one forward replayed); graphed whole generate "
+          f"{graphed[GEN_NEW][0]:.2f} ms host wall, {graphed[GEN_NEW][1]:.2f} ms CUDA "
+          f"events (1 token: {graphed[1][0]:.2f}, {graphed[1][1]:.2f}), decode "
+          f"{g_host:.3f} ms/step host-driven, {g_dev:.3f} device; 'full' eager "
+          f"{times['full'][0]:.2f} ms ({times['full'][2]:.2f}), {times['full'][1]:.3f} "
+          f"ms/step ({times['full'][3]:.3f}); over the {n_groups} groups without the "
+          f"DataFrame: eager {eager_tok_s:.1f} tokens/s, graphed {graphed_tok_s:.1f}")
+    print(f"[generate] sampled bucket (temperature 0.8, top-k 40, top-p 0.95, seed 3, "
+          f"{GEN_BATCH} prompts): 1 graph captured, the eager first pass and the replay "
+          f"both equal to eager generate from the same seed ({GEN_BATCH * GEN_NEW} "
+          f"tokens, {greedy_share:.0%} of them equal to the greedy ones)")
     print(f"[generate] profile of a decode forward with the kernels, B={GEN_BATCH} "
           f"at position {GEN_LEN}: {times['flash'][4]}")
     attn_entry["launches"] = n_attn
     decode_entry["launches"] = n_decode
+    GENERATE_GRAPHS.clear()
+    torch.cuda.empty_cache()
     return tokens_s
 
 
@@ -1392,6 +1554,7 @@ def phase_train_bert(card: str, dq_entry: dict, dkv_entry: dict, fwd: dict) -> f
         init_bert_,
     )
     from sparkdl_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from sparkdl_torch.runtime.dispatch import chain_carry, dispatch_count
     from sparkdl_torch.train import finetune_classifier
     from sparkdl_torch.train.finetune import classification_train_step
 
@@ -1436,56 +1599,138 @@ def phase_train_bert(card: str, dq_entry: dict, dkv_entry: dict, fwd: dict) -> f
                              f"(tol 1e-5), worst gradient rel {grad_rel:.3e} (tol 1e-4)")
     del grads
 
-    flash_model, full_model = model("flash"), model("full")
-    torch.cuda.synchronize()
-    _zero_counts()
-    t0 = time.perf_counter()
-    _, history = finetune_classifier(flash_model, batches, learning_rate=2e-5)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    counts = (flash_attention.launches, flash_attention_bwd.launches_dq,
-              flash_attention_bwd.launches_dkv)
-    want = cfg.num_hidden_layers * BERT_STEPS
-    if counts != (want, want, want):
-        raise AssertionError(f"BERT launches forward/dq/dkv {counts}, want {want} each "
-                             f"({cfg.num_hidden_layers} a step)")
+    # the eager reference: classification_train_step in a plain loop, with
+    # the optimizer finetune_classifier makes on the card
+    def adamw(m):
+        return torch.optim.AdamW(m.parameters(), lr=2e-5, weight_decay=0.01, eps=1e-8,
+                                 capturable=True)
+
+    staged = [{k: torch.as_tensor(v).cuda() for k, v in b.items()} for b in batches]
+
+    def eager_loop():
+        m = model("flash")
+        opt = adamw(m)
+        step = classification_train_step(m, opt)
+        metrics, step_ms = [], []
+        t0 = time.perf_counter()
+        for batch in staged:
+            t1 = time.perf_counter()
+            out = step(batch)
+            metrics.append((float(out["loss"]), float(out["accuracy"])))  # waits
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        return m, opt, step, metrics, step_ms, time.perf_counter() - t0
+
+    def finetune(k):
+        m = model("flash")
+        torch.cuda.synchronize()
+        _zero_counts()
+        d0 = dispatch_count("train")
+        t0 = time.perf_counter()
+        _, history = finetune_classifier(m, batches, learning_rate=2e-5, chain_steps=k)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = (flash_attention.launches, flash_attention_bwd.launches_dq,
+                  flash_attention_bwd.launches_dkv)
+        dispatches = int(dispatch_count("train") - d0)
+        want = cfg.num_hidden_layers * BERT_STEPS
+        if counts != (want, want, want) or dispatches != BERT_STEPS // k:
+            raise AssertionError(
+                f"chain_steps={k}: BERT launches forward/dq/dkv {counts}, want {want} "
+                f"each ({cfg.num_hidden_layers} a step); train dispatches {dispatches}, "
+                f"want {BERT_STEPS // k}")
+        return m, history, secs, counts, dispatches
+
+    # chain_steps 1 and 4 against the eager loop, under deterministic
+    # algorithms: history and final parameters bitwise
+    with _deterministic():
+        ref_model, _, _, ref, _, _ = eager_loop()
+        ref_params = [p.detach() for p in ref_model.parameters()]
+        for k in (1, 4):
+            m, history, _, _, _ = finetune(k)
+            got = [(h["loss"], h["accuracy"]) for h in history]
+            same_params = all(torch.equal(p.detach(), q)
+                              for p, q in zip(m.parameters(), ref_params))
+            if got != ref or not same_params:
+                raise AssertionError(
+                    f"chain_steps={k}: history equal to the eager loop {got == ref}, "
+                    f"final parameters equal {same_params} (want both bitwise)")
+            del m
+        del ref_model, ref_params
+        torch.cuda.empty_cache()
+
+    # the main path (default algorithms): chain_steps=1, then 4, timed
+    runs = {}
+    for k in (4, 1):
+        m, history, secs, counts, dispatches = finetune(k)
+        steady = [h["step_time_s"] * 1e3 for h in history[k:]]  # after the capture
+        runs[k] = (history, secs, counts, dispatches, float(np.median(steady)))
+        del m
+        torch.cuda.empty_cache()
+    history, secs, counts, _, step_ms = runs[1]
+
+    full_model = model("full")
     _, history_full = finetune_classifier(full_model, batches, learning_rate=2e-5)
     losses = np.array([h["loss"] for h in history])
     want_losses = np.array([h["loss"] for h in history_full])
     hist_rel = float(np.abs(losses - want_losses).max() / np.abs(want_losses).max())
     if not np.isfinite(losses).all() or hist_rel > 1e-3:
         raise AssertionError(f"BERT loss history vs full: rel {hist_rel:.3e} (tol 1e-3)")
-
-    step_ms = float(np.median([h["step_time_s"] for h in history[1:]])) * 1e3
     full_ms = float(np.median([h["step_time_s"] for h in history_full[1:]])) * 1e3
-    step = classification_train_step(flash_model, torch.optim.AdamW(
-        flash_model.parameters(), lr=2e-5, eps=1e-8))
-    batch = {k: torch.as_tensor(v).cuda() for k, v in batches[0].items()}
-    times = _kernel_times(lambda: step(batch), reps=1)
+    del full_model
+    torch.cuda.empty_cache()
+
+    # one step host-driven against the device: eager (host wall to its
+    # metrics; the profiler's kernel sum) and graphed (host wall to
+    # completion; CUDA events around the replay)
+    eager_model, eager_opt, eager_step, _, eager_ms, eager_secs = eager_loop()
+    eager_ms = float(np.median(eager_ms[1:]))
+    times = _kernel_times(lambda: eager_step(staged[0]), reps=1)
+    chained = chain_carry(eager_step)
+    chained(staged[:1])  # captured
+    graph_host = _wall_ms(lambda: chained(staged[:1]))
+    graph_dev = _time_ms(lambda: chained(staged[:1]), warmup=1, reps=10)
+    graph = chained.graphs.graphs()[0]
     prof_line = _breakdown(times, {
         "flash fwd": ("flash_fwd_kernel",), "flash bwd": ("flash_bwd_",),
         "GEMMs": ("gemm", "sgemm", "cutlass", "Kernel2")})
+    b = BERT_TRAIN_BATCH
     print(f"[train_bert] finetune_classifier BERT-base ({cfg.num_hidden_layers}x"
           f"{cfg.hidden_size}, {cfg.num_attention_heads} heads, MLP "
           f"{cfg.intermediate_size}, vocab {cfg.vocab_size}), float32, random init seed "
-          f"0 in {init_s:.1f} s, 2 labels, attn_impl='flash', AdamW 2e-5; "
+          f"0 in {init_s:.1f} s, 2 labels, attn_impl='flash', AdamW 2e-5 (capturable); "
           f"{BERT_STEPS} batches of B={b} L={length}, right-padded lengths 16..{length}; "
-          f"{card}: {BERT_STEPS * b / secs:.1f} examples/s over the run, step "
-          f"{step_ms:.2f} ms (median, host-driven; 'full' {full_ms:.2f} ms); launches "
+          f"{card}: chain_steps=1 {BERT_STEPS * b / secs:.1f} examples/s over the run "
+          f"(the first step's capture included), step {step_ms:.2f} ms (median after "
+          f"the capture, host wall to the device's completion; {b / step_ms * 1e3:.1f} "
+          f"examples/s), {runs[1][3]} train dispatches; chain_steps=4 "
+          f"{BERT_STEPS * b / runs[4][1]:.1f} examples/s over the run, step "
+          f"{runs[4][4]:.2f} ms ({b / runs[4][4] * 1e3:.1f} examples/s), {runs[4][3]} "
+          f"dispatches; eager loop {BERT_STEPS * b / eager_secs:.1f} examples/s, step "
+          f"{eager_ms:.2f} ms; 'full' {full_ms:.2f} ms; launches "
           f"forward/dq/dkv {counts[0]}/{counts[1]}/{counts[2]} = "
-          f"{cfg.num_hidden_layers} a step x {BERT_STEPS}; vs attn_impl='full': "
-          f"first-step loss rel {loss_rel:.1e} (tol 1e-5), worst gradient rel "
-          f"{grad_rel:.1e} (tol 1e-4, scale floored at 1e-3 of the largest), loss "
-          f"history rel {hist_rel:.1e} (tol 1e-3); loss {losses[0]:.4f} -> {losses[-1]:.4f}")
-    print(f"[train_bert] profile of one step with the kernels: {prof_line}")
+          f"{cfg.num_hidden_layers} a step x {BERT_STEPS} (chain_steps=4 the same); "
+          f"under deterministic algorithms the history and final parameters of both "
+          f"equal the eager loop's (bitwise); vs attn_impl='full': first-step loss rel "
+          f"{loss_rel:.1e} (tol 1e-5), worst gradient rel {grad_rel:.1e} (tol 1e-4, "
+          f"scale floored at 1e-3 of the largest), loss history rel {hist_rel:.1e} (tol "
+          f"1e-3); loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    print(f"[train_bert] one step B={b} L={length}: eager {eager_ms:.2f} ms host-driven, "
+          f"{sum(times.values()):.2f} ms of kernels (profiler); graphed {graph_host:.2f} "
+          f"ms host wall, {graph_dev:.2f} ms CUDA events (capture "
+          f"{graph.capture_s * 1e3:.0f} ms, pool {graph.pool_bytes / 2**20:.0f} MB; per "
+          f"replay: {_launch_names(graph.launches)})")
+    print(f"[train_bert] profile of one eager step with the kernels: {prof_line}")
     dq_entry["launches"], dkv_entry["launches"] = counts[1], counts[2]
     fwd["bert_launches"] = counts[0]
+    del chained, graph, eager_model, eager_opt, eager_step, staged
+    torch.cuda.empty_cache()
     return BERT_STEPS * b / secs
 
 
 def phase_train_resnet(card: str, gemm_entry: dict) -> float:
     """The fused ResNet50 train step (bench_train.py's recipe) at 224 px,
-    batch 64, against make_vision_train_step over the plain module."""
+    batch 64, as a CUDA graph: against the eager step (bitwise) and
+    against make_vision_train_step over the plain module."""
     import copy
 
     import numpy as np
@@ -1495,8 +1740,10 @@ def phase_train_resnet(card: str, gemm_entry: dict) -> float:
     from sparkdl_torch.models.resnet import ResNet50
     from sparkdl_torch.ops.fused_gemm_bn import gemm_bn_stats
     from sparkdl_torch.train.vision import (
+        _make_step,
         make_resnet50_fused_train_step,
         make_vision_train_step,
+        resnet50_fused_loss_fn,
     )
 
     base = init_zoo_(ResNet50(num_classes=1000), seed=0)  # built on the card
@@ -1505,24 +1752,35 @@ def phase_train_resnet(card: str, gemm_entry: dict) -> float:
                                     dtype=np.float32)).cuda()
     y = torch.from_numpy(rng.integers(0, 1000, RESNET_BATCH)).cuda()
 
-    def fresh(fused):
+    def fresh(kind):
         m = copy.deepcopy(base)
         opt = torch.optim.SGD(m.parameters(), lr=0.1, momentum=0.9)
-        step = (make_resnet50_fused_train_step(m, opt, num_classes=1000,
-                                               dtype=torch.float32)
-                if fused else make_vision_train_step(m, opt))
+        if kind == "fused":
+            step = make_resnet50_fused_train_step(m, opt, num_classes=1000,
+                                                  dtype=torch.float32)
+        elif kind == "eager":
+            step = _make_step(m, resnet50_fused_loss_fn(m, num_classes=1000,
+                                                        dtype=torch.float32), opt)
+        else:
+            step = make_vision_train_step(m, opt)
         return m, step
+
+    def state(m):
+        return ([p.detach().clone() for p in m.parameters()],
+                [b.clone() for b in m.buffers()])
 
     # fused against plain from the same start: losses, stats after step 1
     runs = {}
-    for fused in (True, False):
-        m, step = fresh(fused)
+    for kind in ("fused", "plain"):
+        m, step = fresh(kind)
         losses = [float(step(x, y))]
         stats = {n: (b.running_mean.clone(), b.running_var.clone())
                  for n, b in m.named_modules() if isinstance(b, torch.nn.BatchNorm2d)}
         losses += [float(step(x, y)) for _ in range(2)]
-        runs[fused] = (losses, stats)
-    (lf, sf), (lp, sp) = runs[True], runs[False]
+        runs[kind] = (losses, stats)
+        del m, step
+        torch.cuda.empty_cache()
+    (lf, sf), (lp, sp) = runs["fused"], runs["plain"]
     loss_rel = abs(lf[0] - lp[0]) / abs(lp[0])
     stat_err = max(float(((a - b).abs() - 1e-3 * b.abs()).max())
                    for n in sp for a, b in zip(sf[n], sp[n]))
@@ -1532,14 +1790,31 @@ def phase_train_resnet(card: str, gemm_entry: dict) -> float:
             f"fused vs plain ResNet50 step: first loss rel {loss_rel:.3e} (tol 1e-3), "
             f"stats |a-b| - 1e-3|b| {stat_err:.3e} (tol 1e-4), losses {lf} vs {lp}")
 
-    module, step = fresh(True)
-    step(x, y)  # warm-up: cuDNN plans, allocator
+    # the graphed step against the eager one over RESNET_STEPS steps, under
+    # deterministic algorithms: losses, parameters and BN statistics bitwise
+    with _deterministic():
+        runs = {}
+        for kind in ("eager", "fused"):
+            m, step = fresh(kind)
+            losses = [float(step(x, y)) for _ in range(RESNET_STEPS)]
+            runs[kind] = (losses, *state(m))
+            del m, step
+            torch.cuda.empty_cache()
+    (le, pe, be), (lg, pg, bg) = runs["eager"], runs["fused"]
+    same = (le == lg, all(map(torch.equal, pe, pg)), all(map(torch.equal, be, bg)))
+    if not all(same):
+        raise AssertionError(f"graphed fused step vs eager: losses, parameters, BN "
+                             f"statistics equal {same} (want all bitwise); {lg} vs {le}")
+    del runs, pe, pg, be, bg
+
+    # the main path: the graphed fused step, timed (default algorithms)
+    module, step = fresh("fused")
     torch.cuda.synchronize()
     _zero_counts()
     t0 = time.perf_counter()
-    losses = [step(x, y) for _ in range(RESNET_STEPS)]
+    losses = [step(x, y) for _ in range(RESNET_STEPS)]  # the first captures
     torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    first_secs = time.perf_counter() - t0
     launches = gemm_bn_stats.launches
     if launches != 25 * RESNET_STEPS:
         raise AssertionError(f"gemm_bn_stats launched {launches} times in "
@@ -1547,38 +1822,62 @@ def phase_train_resnet(card: str, gemm_entry: dict) -> float:
     losses = [float(t) for t in losses]
     if not np.isfinite(losses).all():
         raise AssertionError(f"ResNet50 losses not finite: {losses}")
-    plain_module, plain_step = fresh(False)
-    plain_step(x, y)
-    torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(RESNET_STEPS):
-        plain_step(x, y)
+        step(x, y)
     torch.cuda.synchronize()
-    plain_secs = time.perf_counter() - t0
+    secs = time.perf_counter() - t0
+    graph_dev = _time_ms(lambda: step(x, y), warmup=1, reps=5)
+    graph = step.graphs.graphs()[0]
+
+    timing = {}
+    for kind in ("eager", "plain"):
+        m, other = fresh(kind)
+        other(x, y)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RESNET_STEPS):
+            other(x, y)
+        torch.cuda.synchronize()
+        timing[kind] = (time.perf_counter() - t0) / RESNET_STEPS
+        if kind == "eager":
+            eager_step = other
+        else:
+            del m, other
+            torch.cuda.empty_cache()
 
     groups = {"fused 1x1 kernel": ("gemm_bn_kernel", "stats_reduce_kernel"),
               "cuDNN convs": ("cudnn", "conv", "implicit", "wgrad", "dgrad", "xmma",
                               "sm90", "sm80")}
-    lines = []
-    for name, fn in (("fused", lambda: step(x, y)), ("plain", lambda: plain_step(x, y))):
-        lines.append(f"{name}: {_breakdown(_kernel_times(fn, reps=1), groups)}")
+    eager_times = _kernel_times(lambda: eager_step(x, y), reps=1)
+    step_ms = secs / RESNET_STEPS * 1e3
     print(f"[train_resnet] make_resnet50_fused_train_step ResNet50 {RESNET_SIZE} px, "
           f"B={RESNET_BATCH}, 1000 classes, float32, SGD 0.1 momentum 0.9, random init "
-          f"seed 0; {card}: {RESNET_BATCH * RESNET_STEPS / secs:.1f} images/s, step "
-          f"{secs / RESNET_STEPS * 1e3:.2f} ms over {RESNET_STEPS} steps after a warm-up "
-          f"(plain step {plain_secs / RESNET_STEPS * 1e3:.2f} ms, "
-          f"{RESNET_BATCH * RESNET_STEPS / plain_secs:.1f} images/s); gemm_bn_stats "
-          f"launches {launches} = 25 x {RESNET_STEPS}; vs the plain step: first loss "
-          f"rel {loss_rel:.1e} (tol 1e-3), BN stats after step 1 within atol 1e-4 + "
-          f"rtol 1e-3 (worst excess {stat_err:.1e}), 3 losses {', '.join(f'{v:.4f}' for v in lf)} "
-          f"vs {', '.join(f'{v:.4f}' for v in lp)} (worst {track:.1%}, tol 15%); "
-          f"losses {losses[0]:.4f} -> {losses[-1]:.4f}")
-    print("[train_resnet] profile of one step: " + " | ".join(lines))
+          f"seed 0, one CUDA graph a step; {card}: {RESNET_BATCH * RESNET_STEPS / secs:.1f} "
+          f"images/s, step {step_ms:.2f} ms host-driven ({graph_dev:.2f} ms device, CUDA "
+          f"events around a replay; {first_secs:.2f} s for the first {RESNET_STEPS} "
+          f"steps, capture {graph.capture_s * 1e3:.0f} ms, pool "
+          f"{graph.pool_bytes / 2**20:.0f} MB); eager fused step {timing['eager'] * 1e3:.2f} "
+          f"ms host-driven ({sum(eager_times.values()):.2f} ms of kernels), plain step "
+          f"{timing['plain'] * 1e3:.2f} ms (graphed), "
+          f"{RESNET_BATCH / timing['plain']:.1f} images/s; gemm_bn_stats "
+          f"launches {launches} = 25 x {RESNET_STEPS} ({_launch_names(graph.launches)} "
+          f"a replay); graphed vs eager over {RESNET_STEPS} steps under deterministic "
+          f"algorithms: losses, parameters and BN statistics bitwise; vs the plain step: "
+          f"first loss rel {loss_rel:.1e} (tol 1e-3), BN stats after step 1 within atol "
+          f"1e-4 + rtol 1e-3 (worst excess {stat_err:.1e}), 3 losses "
+          f"{', '.join(f'{v:.4f}' for v in lf)} vs {', '.join(f'{v:.4f}' for v in lp)} "
+          f"(worst {track:.1%}, tol 15%); losses {losses[0]:.4f} -> {losses[-1]:.4f}")
+    print(f"[train_resnet] profile of one eager fused step: {_breakdown(eager_times, groups)}")
     gemm_entry["launches"] = launches
+    del module, step, graph, eager_step
+    torch.cuda.empty_cache()
     return RESNET_BATCH * RESNET_STEPS / secs
 
 
 def main() -> int:
+    # a fixed cuBLAS workspace, which deterministic algorithms need
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     card = phase_card()

@@ -432,6 +432,44 @@ def sample_logits(logits: torch.Tensor, generator=None, *,
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 
+def check_generate_args(config: GPTConfig, prompt_shape, max_new_tokens: int,
+                        *, temperature: float = 0.0,
+                        top_k: Optional[int] = None,
+                        top_p: Optional[float] = None,
+                        generator: Optional[torch.Generator] = None,
+                        max_len: Optional[int] = None) -> int:
+    """The checks :func:`generate` makes of its host arguments (shapes and
+    settings; no tensor is read). Returns the cache length ``max_len``
+    resolves to."""
+    lp = prompt_shape[1]
+    if max_new_tokens < 0:
+        raise ValueError(f"max_new_tokens must be >= 0, got {max_new_tokens}")
+    if max_len is None:
+        max_len = lp + max_new_tokens
+    elif max_len < lp + max_new_tokens:
+        raise ValueError(
+            f"max_len={max_len} < prompt_len {lp} + max_new_tokens "
+            f"{max_new_tokens}: cache writes would overflow"
+        )
+    if (config.positions == "learned"
+            and lp + max_new_tokens > config.max_seq_len):
+        raise ValueError(
+            f"prompt_len {lp} + max_new_tokens {max_new_tokens} exceeds the "
+            f"learned position table (max_seq_len={config.max_seq_len})"
+        )
+    if temperature > 0 and generator is None:
+        raise ValueError("sampling (temperature>0) requires a generator")
+    if temperature <= 0 and (top_k is not None or top_p is not None):
+        raise ValueError(
+            "top_k/top_p only apply when sampling (temperature > 0)"
+        )
+    if top_k is not None and top_k < 1:
+        raise ValueError(f"top_k must be >= 1, got {top_k}")
+    if top_p is not None and not (0.0 < top_p <= 1.0):
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    return max_len
+
+
 @torch.inference_mode()
 def generate(
     model: GPTLMHeadModel,
@@ -458,44 +496,23 @@ def generate(
 
     The last token needs no forward of its own, so this runs
     ``max_new_tokens - 1`` decode forwards after the prefill. The cache
-    position is a host int: the loop never waits for the device.
+    position is a host int: the loop never waits for the device. This is
+    the eager loop, one host launch per op; ``DeepTextGenerator`` runs the
+    same calls as one CUDA graph per bucket on the card.
     """
     b, lp = prompt_ids.shape
-    if max_new_tokens < 0:
-        raise ValueError(f"max_new_tokens must be >= 0, got {max_new_tokens}")
-    if max_len is None:
-        max_len = lp + max_new_tokens
-    elif max_len < lp + max_new_tokens:
-        raise ValueError(
-            f"max_len={max_len} < prompt_len {lp} + max_new_tokens "
-            f"{max_new_tokens}: cache writes would overflow"
-        )
-    if (model.config.positions == "learned"
-            and lp + max_new_tokens > model.config.max_seq_len):
-        raise ValueError(
-            f"prompt_len {lp} + max_new_tokens {max_new_tokens} exceeds the "
-            f"learned position table (max_seq_len={model.config.max_seq_len})"
-        )
-    if temperature > 0 and generator is None:
-        raise ValueError("sampling (temperature>0) requires a generator")
-    if temperature <= 0 and (top_k is not None or top_p is not None):
-        raise ValueError(
-            "top_k/top_p only apply when sampling (temperature > 0)"
-        )
-    if top_k is not None and top_k < 1:
-        raise ValueError(f"top_k must be >= 1, got {top_k}")
-    if top_p is not None and not (0.0 < top_p <= 1.0):
-        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
-
-    dev = prompt_ids.device
-    positions = key_valid = pad_len = None
+    max_len = check_generate_args(
+        model.config, prompt_ids.shape, max_new_tokens,
+        temperature=temperature, top_k=top_k, top_p=top_p,
+        generator=generator, max_len=max_len)
+    mask = None
     if attention_mask is not None:
         if tuple(attention_mask.shape) != (b, lp):
             raise ValueError(
                 f"attention_mask shape {tuple(attention_mask.shape)} != "
                 f"prompt shape {(b, lp)}"
             )
-        mask = attention_mask.to(device=dev, dtype=torch.bool)
+        mask = attention_mask.to(device=prompt_ids.device, dtype=torch.bool)
         if not bool((mask[:, 1:] >= mask[:, :-1]).all()):
             raise ValueError(
                 "attention_mask must be left-padded (each row 0...01...1); "
@@ -503,12 +520,36 @@ def generate(
             )
         if not bool(mask[:, -1].all()):
             raise ValueError("every row needs at least one real token")
-        pad_len = lp - mask.sum(dim=1)  # [B]
+    return generate_unchecked(
+        model, prompt_ids, max_new_tokens, max_len, attention_mask=mask,
+        temperature=temperature, top_k=top_k, top_p=top_p,
+        generator=generator)
+
+
+def generate_unchecked(model: GPTLMHeadModel, prompt_ids: torch.Tensor,
+                       max_new_tokens: int, max_len: int, *,
+                       attention_mask: Optional[torch.Tensor] = None,
+                       temperature: float = 0.0,
+                       top_k: Optional[int] = None,
+                       top_p: Optional[float] = None,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
+    """The device work of :func:`generate`, after its checks: no host
+    read of any tensor, so it can be captured in a CUDA graph (the KV
+    cache is allocated inside, from the graph's pool). ``attention_mask``
+    must be a left-padded bool [B, prompt_len] on the prompt's device,
+    with a real last column (:func:`generate` checks that on the host)."""
+    b, lp = prompt_ids.shape
+    dev = prompt_ids.device
+    positions = key_valid = pad_len = None
+    if attention_mask is not None:
+        pad_len = lp - attention_mask.sum(dim=1)  # [B]
         # logical positions: pads clamp to 0 (masked out of attention)
-        positions = (mask.cumsum(dim=1) - 1).clamp_min(0)
+        positions = (attention_mask.cumsum(dim=1) - 1).clamp_min(0)
         # buffer-column validity for the whole generation
         key_valid = torch.cat(
-            [mask, torch.ones((b, max_len - lp), dtype=torch.bool, device=dev)],
+            [attention_mask,
+             torch.ones((b, max_len - lp), dtype=torch.bool, device=dev)],
             dim=1)
     if max_new_tokens == 0:
         return prompt_ids.clone()

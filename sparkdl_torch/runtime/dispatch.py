@@ -7,7 +7,16 @@ slots as one graph per (input shapes, K), on first use, and replays it —
 one launch for K steps and every op in them. On the CPU it is a plain loop
 over the same ``step_fn``. Outputs are bitwise those of the eager steps.
 
-Three pieces:
+The graphs themselves are :class:`GraphCache`'s: an LRU of captured
+graphs keyed on the inputs' shapes, the settings a call bakes in and the
+storage of the state it updates, each captured after an eager warm-up on
+a side stream and replayed afterwards. Every graphed path of the port
+goes through it: the featurizer's chains (:class:`ScanChainer`),
+``DeepTextGenerator``'s whole ``generate`` per bucket, the train steps of
+``train/vision.py`` and the K-step training chain :func:`chain_carry`
+under ``finetune_classifier``.
+
+The rest:
 
 * :func:`calibrate_dispatch_gap` — the measured per-dispatch overhead on
   the device: a trivial launch timed to its completion (anything it
@@ -29,6 +38,7 @@ histogram, the per-dispatch device-time histogram
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 import os
@@ -44,16 +54,23 @@ from sparkdl_torch.reliability.faults import fault_point
 from sparkdl_torch.runtime.tree import tree_leaves, tree_map
 
 __all__ = [
+    "CapturedGraph",
+    "CarryChain",
     "ChainPolicy",
+    "GraphCache",
     "ScanChainer",
     "SpecPolicy",
     "calibrate_dispatch_gap",
     "chain_carry",
     "default_chain_k",
     "dispatch_metrics",
+    "graph_key",
+    "optimizer_settings",
     "overhead_share",
     "record_dispatch",
+    "require_capturable",
     "shape_key",
+    "storage_key",
 ]
 
 #: Chain-length histogram bounds: powers of two up to the largest K the
@@ -355,37 +372,181 @@ def _record_stream(tree: Any, stream) -> None:
             leaf.record_stream(stream)
 
 
-class _Graph:
-    """One captured (input shapes, K): K static input slots, the graph of
-    ``step_fn`` over them, its static outputs, and the kernel launches
-    one replay makes (what the wrappers counted during the capture)."""
+# -- CUDA graphs: the port's counterpart of jit ---------------------------------
 
-    __slots__ = ("inputs", "graph", "outputs", "launches")
 
-    def __init__(self, step_fn: Callable[[Any], Any], xs: "list[Any]"):
-        self.inputs = [tree_map(torch.Tensor.clone, x) for x in xs]
+def storage_key(*modules: torch.nn.Module) -> "tuple[int, ...]":
+    """The device addresses of every parameter and buffer of ``modules``.
+
+    A captured graph reads and writes those addresses, not the tensors
+    that later sit in the module: weights copied in place
+    (``load_state_dict``) keep the key and are seen by the next replay;
+    replaced parameters change it, so a graph cache keyed on it captures
+    anew instead of replaying against memory the module no longer uses."""
+    return tuple(t.data_ptr() for m in modules
+                 for t in (*m.parameters(), *m.buffers()))
+
+
+def optimizer_settings(optimizer: torch.optim.Optimizer) -> tuple:
+    """Each parameter group's hyperparameters (lr, betas, momentum, ...):
+    a captured ``optimizer.step()`` bakes in every Python number, so a
+    changed one needs a new capture."""
+    return tuple(
+        tuple((k, v if isinstance(v, (int, float, bool, str, tuple, type(None)))
+               else id(v)) for k, v in sorted(g.items()) if k != "params")
+        for g in optimizer.param_groups)
+
+
+def require_capturable(optimizer: torch.optim.Optimizer, path: str) -> None:
+    """Raise where ``optimizer`` cannot run inside a CUDA graph: an
+    optimizer with a ``capturable`` setting left False (Adam, AdamW, ...)
+    keeps its step count on the host, which a graph would bake in."""
+    if any(g.get("capturable") is False for g in optimizer.param_groups):
+        raise ValueError(
+            f"{path!r} runs its steps as CUDA graphs on the card, and "
+            f"{type(optimizer).__name__} with capturable=False cannot be "
+            "captured (its step count lives on the host); construct it "
+            "with capturable=True")
+
+
+class CapturedGraph:
+    """``fn(*inputs)`` captured as one CUDA graph over static copies of
+    ``inputs``, and the kernel launches one replay makes (what the
+    wrappers counted during the capture, where nothing ran).
+
+    ``generator``: a ``torch.Generator`` the call draws from. The graph
+    gets one of its own, registered with it; a replay starts from the
+    caller's generator state and hands the advanced state back, so it
+    draws the numbers an eager call would. ``capture_s`` and
+    ``pool_bytes`` (device memory reserved during the capture: the
+    graph's private pool) say what the capture cost."""
+
+    __slots__ = ("inputs", "graph", "outputs", "launches", "generator",
+                 "capture_s", "pool_bytes")
+
+    def __init__(self, fn: Callable, inputs: tuple, *, stream,
+                 generator: "torch.Generator | None" = None):
+        self.inputs = tree_map(torch.Tensor.clone, inputs)
         self.graph = torch.cuda.CUDAGraph()
+        self.generator = None
+        kwargs = {}
+        if generator is not None:
+            self.generator = torch.Generator(device=generator.device)
+            self.graph.register_generator_state(self.generator)
+            kwargs["generator"] = self.generator
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # as the capture does: the pool is what grows
+        reserved = torch.cuda.memory_reserved()
         before = _dispatch.launch_counts()
+        t0 = time.perf_counter()
         try:
-            # thread_local: the feed's threads keep copying (and the
-            # staging ring keeps registering memory) during the capture
-            with torch.cuda.graph(self.graph,
+            # thread_local: feed threads may keep copying (and registering
+            # host memory) while this thread captures
+            with torch.cuda.graph(self.graph, stream=stream,
                                   capture_error_mode="thread_local"):
-                self.outputs = [step_fn(x) for x in self.inputs]
+                self.outputs = fn(*self.inputs, **kwargs)
         finally:
             # the wrappers counted launches that were only captured
             self.launches = _dispatch.launch_delta(
                 before, _dispatch.launch_counts())
             _dispatch.add_launches(self.launches, -1)
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved() - reserved
 
-    def replay(self, xs: "list[Any]") -> "list[Any]":
-        for slot, x in zip(self.inputs, xs):
-            for s, v in zip(tree_leaves(slot), tree_leaves(x)):
-                s.copy_(v)
+    def replay(self, inputs: tuple,
+               generator: "torch.Generator | None" = None) -> Any:
+        for s, v in zip(tree_leaves(self.inputs), tree_leaves(inputs)):
+            s.copy_(v)
+        if self.generator is not None:
+            self.generator.set_state(generator.get_state())
         self.graph.replay()
+        if self.generator is not None:
+            generator.set_state(self.generator.get_state())
         _dispatch.add_launches(self.launches)
         # fresh outputs: the next replay overwrites the static ones
-        return [tree_map(_clone, y) for y in self.outputs]
+        return tree_map(_clone, self.outputs)
+
+
+class GraphCache:
+    """An LRU of :class:`CapturedGraph` for one path: ``cache(fn, inputs,
+    key)`` runs ``fn(*inputs)`` on the card as a graph replay.
+
+    The entry is chosen by the inputs' shapes and dtypes
+    (:func:`shape_key`) and ``key``: the settings the call bakes in and
+    the storage identity of the state it reads and writes
+    (:func:`storage_key`, :func:`optimizer_settings`). On a miss the call
+    runs eagerly on a side stream (the warm-up: kernel libraries load,
+    lazy state such as optimizer moments is created, and its outputs are
+    this call's), then the same call is captured on that stream, and the
+    least recently used graph beyond ``maxsize`` is dropped. A capture
+    that fails raises, naming the path: nothing falls back to eager
+    execution. ``fn`` must not read the device from the host; every leaf
+    of ``inputs`` must be a tensor (another value would be baked in)."""
+
+    def __init__(self, path: str, *, maxsize: int = 8):
+        if maxsize < 1:
+            raise ValueError(f"maxsize must be >= 1, got {maxsize}")
+        self.path = path
+        self.maxsize = maxsize
+        self._graphs: "collections.OrderedDict[Any, CapturedGraph]" = (
+            collections.OrderedDict())
+        self._stream = None  # warm-up and capture stream, made at first use
+        #: graphs captured so far (evicted ones included)
+        self.captures = 0
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def keys(self) -> "list[Any]":
+        """(shape key, key) of every cached graph, least recent first."""
+        return list(self._graphs)
+
+    def graphs(self) -> "list[CapturedGraph]":
+        return list(self._graphs.values())
+
+    def clear(self) -> None:
+        """Drop every graph (and, once its outputs are gone, its pool)."""
+        self._graphs.clear()
+
+    def __call__(self, fn: Callable, inputs: tuple, key: Any = (), *,
+                 generator: "torch.Generator | None" = None) -> Any:
+        if not all(isinstance(l, torch.Tensor) for l in tree_leaves(inputs)):
+            raise ValueError(
+                f"{self.path!r}: a CUDA graph takes tensor inputs only")
+        full = (shape_key(inputs), key)
+        g = self._graphs.get(full)
+        if g is not None:
+            self._graphs.move_to_end(full)
+            return g.replay(inputs, generator)
+        out = self._warm_up(fn, inputs, generator)
+        try:
+            g = self._capture(fn, inputs, generator)
+        except Exception as e:
+            raise RuntimeError(
+                f"capturing a CUDA graph of {self.path!r} failed "
+                f"({type(e).__name__}: {e})") from e
+        self.captures += 1
+        self._graphs[full] = g
+        while len(self._graphs) > self.maxsize:
+            self._graphs.popitem(last=False)
+        return out
+
+    def _warm_up(self, fn, inputs, generator):
+        kwargs = {} if generator is None else {"generator": generator}
+        cur = torch.cuda.current_stream()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream()
+        self._stream.wait_stream(cur)
+        with torch.cuda.stream(self._stream):
+            out = fn(*inputs, **kwargs)
+        cur.wait_stream(self._stream)
+        _record_stream(inputs, self._stream)
+        _record_stream(out, cur)
+        return out
+
+    def _capture(self, fn, inputs, generator) -> CapturedGraph:
+        return CapturedGraph(fn, inputs, stream=self._stream,
+                             generator=generator)
 
 
 class ScanChainer:
@@ -447,14 +608,13 @@ class ScanChainer:
             # 30-probe gap calibration ONCE here at construction, never
             # mid-stream on a production dispatch
             self.policy.gap_s = calibrate_dispatch_gap(device=device)
-        self._graphs: "dict[Any, _Graph]" = {}
-        self._side = None  # the warm-up stream, made at first capture
+        self._graphs = GraphCache(path, maxsize=16)
         self._timing: "list[tuple[Any, Any, int]]" = []  # (start, end, k)
 
     @property
     def graph_keys(self) -> "list[tuple[Any, int]]":
-        """(input shape key, K) of every graph captured so far."""
-        return list(self._graphs)
+        """(input shape key, K) of every graph cached."""
+        return [key for _, key in self._graphs.keys()]
 
     # -- running steps -------------------------------------------------------
     def run(self, xs: "list[Any]") -> "list[Any]":
@@ -463,35 +623,11 @@ class ScanChainer:
         a plain loop."""
         if not (self.graphs and _on_cuda(xs[0])):
             return [self.step_fn(x) for x in xs]
-        if not all(isinstance(l, torch.Tensor) for l in tree_leaves(xs[0])):
-            # a graph would bake the value of a non-tensor input in
-            raise ValueError(
-                f"{self.path!r}: a CUDA-graph step takes tensors only; pin "
-                "chain_k=1 to run a step with other inputs eagerly")
-        key = (shape_key(xs[0]), len(xs))
-        g = self._graphs.get(key)
-        if g is not None:
-            return g.replay(xs)
-        cur = torch.cuda.current_stream()
-        if self._side is None:
-            self._side = torch.cuda.Stream()
-        self._side.wait_stream(cur)
-        with torch.cuda.stream(self._side):
-            ys = [self.step_fn(x) for x in xs]
-        cur.wait_stream(self._side)
-        for x in xs:
-            _record_stream(x, self._side)
-        for y in ys:
-            _record_stream(y, cur)
-        try:
-            self._graphs[key] = _Graph(self.step_fn, xs)
-        except Exception as e:
-            raise RuntimeError(
-                f"capturing a CUDA graph of {self.path!r}'s step failed "
-                f"({type(e).__name__}: {e}); a step that waits for the "
-                "device cannot be captured — pin chain_k=1 to run it "
-                "eagerly") from e
-        return ys
+        return self._graphs(self._steps, tuple(xs),
+                            (shape_key(xs[0]), len(xs)))
+
+    def _steps(self, *xs: Any) -> "list[Any]":
+        return [self.step_fn(x) for x in xs]
 
     # -- dispatching ---------------------------------------------------------
     def target_chain_len(self) -> int:
@@ -576,11 +712,49 @@ class ScanChainer:
             yield self.dispatch_single(x)
 
 
-def chain_carry(step_fn: Callable[[Any, Any], "tuple[Any, Any]"], *,
-                donate: bool = True) -> Callable:
-    """The carried-state (training) chain of the reference: K optimizer
-    steps in one dispatch. Not ported yet: a graphed train step needs
-    static optimizer state and in-place parameter updates."""
-    raise NotImplementedError(
-        "chain_carry (K carried-state steps in one dispatch) is not ported "
-        "to sparkdl_torch yet (ROADMAP A4 CUDA graphs)")
+def graph_key(step_fn: Callable) -> Any:
+    """What a step's graphs depend on besides its inputs' shapes:
+    ``step_fn.graph_key()`` where the step defines it (the train steps of
+    ``train/``: optimizer settings and the model's storage), else ()."""
+    key = getattr(step_fn, "graph_key", None)
+    return () if key is None else key()
+
+
+class CarryChain:
+    """``chained(batches) -> [step_fn(b) for b in batches]``, K carried-
+    state steps as one dispatch: one CUDA graph per (K, batch shapes,
+    :func:`graph_key`) on the card, captured at first use after the same
+    K steps ran eagerly (they are that call's steps), then replayed; a
+    plain loop on the CPU. ``step_fn(batch) -> metrics`` updates its
+    model and optimizer in place, so a replay carries the state from step
+    to step through the same memory, as the reference's scan carries it
+    through its loop. Metrics come back per step, in order, bitwise those
+    of the eager steps."""
+
+    def __init__(self, step_fn: Callable[[Any], Any], *, path: str = "train"):
+        self.step_fn = step_fn
+        self.graphs = GraphCache(path)
+
+    def __call__(self, batches: "Iterable[Any]") -> "list[Any]":
+        batches = tuple(batches)
+        if not batches:
+            return []
+        if not _on_cuda(batches[0]):
+            return [self.step_fn(b) for b in batches]
+        return self.graphs(self._steps, batches, graph_key(self.step_fn))
+
+    def _steps(self, *batches: Any) -> "list[Any]":
+        return [self.step_fn(b) for b in batches]
+
+
+def chain_carry(step_fn: Callable[[Any], Any], *,
+                donate: bool = True) -> CarryChain:
+    """The carried-state (training) chain of the reference, in the port's
+    idiom: ``chained(batches) -> [metrics]`` runs ``step_fn(batch) ->
+    metrics`` (which updates its model and optimizer in place) over the K
+    batches as one dispatch — a CUDA graph per (K, batch shapes) on the
+    card, a plain loop on the CPU (:class:`CarryChain`). ``donate`` has no
+    counterpart: the state is updated in place, never copied, so there is
+    nothing to donate; it is accepted for the reference's signature."""
+    del donate
+    return CarryChain(step_fn)

@@ -11,6 +11,17 @@ state in place — PyTorch's idiom for the JAX package's pure step, whose
 ``donate`` option has no counterpart here. ``optax.sgd(lr, momentum=0.9)``
 is ``torch.optim.SGD(params, lr, momentum=0.9)``: both take the first
 gradient as the first momentum buffer.
+
+On the card the steps made here run as CUDA graphs, the counterpart of
+the reference's ``jax.jit``: the first call for each (x, y) shape runs
+the step eagerly (which creates the optimizer's state, e.g. SGD's
+momentum buffers) and captures it; later calls copy x and y into the
+graph's inputs and replay it. Parameters, running statistics and
+optimizer state are updated in place by every replay, so the graph
+carries them as the eager step does; a new capture follows a new shape,
+changed optimizer settings or replaced parameters
+(``runtime/dispatch.py``, :class:`GraphCache`). :func:`_make_step` is
+the eager step: what the CPU runs, and the parity reference on the card.
 """
 
 from __future__ import annotations
@@ -20,6 +31,12 @@ from typing import Callable
 import torch
 
 from sparkdl_torch.models.common import set_running_stats
+from sparkdl_torch.runtime.dispatch import (
+    GraphCache,
+    optimizer_settings,
+    require_capturable,
+    storage_key,
+)
 
 
 def _nll_from_probs(probs: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -44,7 +61,7 @@ def vision_loss_fn(model: torch.nn.Module) -> Callable:
 def _make_step(module: torch.nn.Module, loss_fn: Callable,
                optimizer: torch.optim.Optimizer) -> Callable:
     """One step definition for the plain and fused ResNet paths, so their
-    grad/update mechanics cannot drift apart."""
+    grad/update mechanics cannot drift apart: the eager step."""
 
     def step(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
@@ -55,7 +72,42 @@ def _make_step(module: torch.nn.Module, loss_fn: Callable,
             set_running_stats(getattr(module, name), stats)
         return loss.detach()
 
+    step.graph_key = lambda: (optimizer_settings(optimizer),
+                              storage_key(module))
     return step
+
+
+def _graphed(step: Callable, optimizer: torch.optim.Optimizer,
+             path: str) -> Callable:
+    """``step`` as a CUDA graph per (x, y) shape on the card, eager on the
+    CPU; ``graphed.graphs`` is its :class:`GraphCache`."""
+    graphs = GraphCache(path)
+
+    def graphed(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        if x.device.type != "cuda":
+            return step(x, y)
+        require_capturable(optimizer, path)
+        return graphs(step, (x, y), step.graph_key())
+
+    graphed.graphs = graphs
+    return graphed
+
+
+def resnet50_fused_loss_fn(module: torch.nn.Module, *,
+                           num_classes: int = 1000,
+                           dtype=torch.bfloat16) -> Callable:
+    """``loss_fn(x, y) -> (loss, new_batch_stats)`` through
+    :func:`models.resnet_fused.resnet50_fused_forward` (classification
+    head: the loss needs probabilities)."""
+    from sparkdl_torch.models.resnet_fused import resnet50_fused_forward
+
+    def loss_fn(x, y):
+        (_, probs), new_stats = resnet50_fused_forward(
+            module, x, train=True, num_classes=num_classes,
+            include_top=True, dtype=dtype)
+        return _nll_from_probs(probs, y), new_stats
+
+    return loss_fn
 
 
 def make_resnet50_fused_train_step(
@@ -67,19 +119,16 @@ def make_resnet50_fused_train_step(
     :func:`models.resnet_fused.resnet50_fused_forward`, whose 1x1 convs run
     the fused GEMM + BN-stats kernel. Always the classification head (the
     loss needs probabilities)."""
-    from sparkdl_torch.models.resnet_fused import resnet50_fused_forward
-
-    def loss_fn(x, y):
-        (_, probs), new_stats = resnet50_fused_forward(
-            module, x, train=True, num_classes=num_classes,
-            include_top=True, dtype=dtype)
-        return _nll_from_probs(probs, y), new_stats
-
-    return _make_step(module, loss_fn, optimizer)
+    loss_fn = resnet50_fused_loss_fn(module, num_classes=num_classes,
+                                     dtype=dtype)
+    return _graphed(_make_step(module, loss_fn, optimizer), optimizer,
+                    "train_resnet_fused")
 
 
 def make_vision_train_step(model: torch.nn.Module,
                            optimizer: torch.optim.Optimizer) -> Callable:
     """``step(x, y) -> loss`` for a BatchNorm CNN: one SGD (or any
-    ``optimizer``) step of ``model`` and its running statistics, in place."""
-    return _make_step(model, vision_loss_fn(model), optimizer)
+    ``optimizer``) step of ``model`` and its running statistics, in place;
+    a CUDA graph per (x, y) shape on the card."""
+    return _graphed(_make_step(model, vision_loss_fn(model), optimizer),
+                    optimizer, "train_vision")

@@ -12,6 +12,13 @@ shapes. The model is a ``GPTLMHeadModel`` on ``device`` (``cuda`` unless
 the caller passes ``device="cpu"``), built once per process for each
 (weights, config, device). Tokenization is upstream (bring your own
 tokenizer).
+
+On the card each bucket's whole ``generate`` call — the prefill, every
+cached decode step and the sampling — runs as one CUDA graph, captured at
+the bucket's first use and replayed afterwards (:func:`graphed_generate`):
+the counterpart of the reference's ``jax.jit(generate)`` per bucket, in
+an LRU of 8 graphs as the reference's jit cache. On the CPU ``generate``
+runs eagerly.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from sparkdl_torch.param import (
     Transformer,
 )
 from sparkdl_torch.runtime.batching import default_buckets, pick_bucket
+from sparkdl_torch.runtime.dispatch import GraphCache, storage_key
 from sparkdl_torch.transformers._inference import (
     run_partition_with_passthrough,
 )
@@ -38,6 +46,9 @@ from sparkdl_torch.transformers.text import _fingerprint, _LruCache
 
 #: per-process model cache (key: weights fingerprint + config + device)
 _MODEL_CACHE: _LruCache = _LruCache(maxsize=8)
+#: per-process CUDA graphs of whole generate calls, one per (rows,
+#: prompt_len) bucket, decode settings and model storage
+GENERATE_GRAPHS = GraphCache("generate", maxsize=8)
 
 
 def _to_bundle(value):
@@ -68,6 +79,62 @@ def _model(cfg, state_dict, device: str):
         module.load_state_dict(state_dict)
         module = _MODEL_CACHE[key] = module.eval()
     return module
+
+
+def left_pad_group(group, row_buckets, len_buckets):
+    """A group of prompts as the (rows, prompt_len) bucket it decodes in:
+    int64 ids and a bool mask, each prompt left-padded into its row; the
+    bucket's spare rows get one real token (id 0) in the last column."""
+    nb = pick_bucket(len(group), row_buckets)
+    lp = pick_bucket(max(len(g) for g in group), len_buckets)
+    ids = np.zeros((nb, lp), np.int64)
+    mask = np.zeros((nb, lp), np.bool_)
+    for i, g in enumerate(group):
+        ids[i, lp - len(g):] = g
+        mask[i, lp - len(g):] = True
+    mask[len(group):, -1] = True  # pad rows: 1 real token
+    return ids, mask
+
+
+def graphed_generate(module, ids: torch.Tensor, mask: torch.Tensor,
+                     max_new_tokens: int, *, temperature: float = 0.0,
+                     top_k=None, top_p=None,
+                     generator: "torch.Generator | None" = None
+                     ) -> torch.Tensor:
+    """``generate(module, ids, max_new_tokens, attention_mask=mask, ...)``
+    as :class:`DeepTextGenerator` runs it. On the card: one CUDA graph of
+    the whole call per (rows, prompt_len) bucket and settings
+    (``GENERATE_GRAPHS``), captured at first use after the call ran
+    eagerly, replayed afterwards; a sampling ``generator`` is registered
+    with the graph, so a replay draws what the eager call would from the
+    same state. ``mask`` is not read back: it must be left-padded with a
+    real last column, as the transformer builds it. On the CPU: the eager
+    ``generate``."""
+    from sparkdl_torch.models.gpt import (
+        check_generate_args,
+        generate,
+        generate_unchecked,
+    )
+
+    if ids.device.type != "cuda":
+        return generate(module, ids, max_new_tokens, attention_mask=mask,
+                        temperature=temperature, top_k=top_k, top_p=top_p,
+                        generator=generator)
+    max_len = check_generate_args(
+        module.config, ids.shape, max_new_tokens, temperature=temperature,
+        top_k=top_k, top_p=top_p, generator=generator)
+
+    def run(ids, mask, generator=None):
+        return generate_unchecked(
+            module, ids, max_new_tokens, max_len, attention_mask=mask,
+            temperature=temperature, top_k=top_k, top_p=top_p,
+            generator=generator)
+
+    key = (module.config, max_new_tokens, temperature, top_k, top_p,
+           storage_key(module))
+    with torch.inference_mode():
+        return GENERATE_GRAPHS(run, (ids, mask.bool()), key,
+                               generator=generator)
 
 
 def _group_generator(seed: int, counter: int, device) -> torch.Generator:
@@ -123,8 +190,6 @@ class DeepTextGenerator(Transformer, HasInputCol, HasOutputCol, HasBatchSize):
         return self._set(model=value)
 
     def _transform(self, dataset):
-        from sparkdl_torch.models.gpt import generate
-
         cfg, state_dict = self.getOrDefault("model")
         max_new = self.getOrDefault("maxNewTokens")
         max_len = self.getOrDefault("maxLength")
@@ -175,21 +240,16 @@ class DeepTextGenerator(Transformer, HasInputCol, HasOutputCol, HasBatchSize):
                 for counter, first in enumerate(
                         range(0, len(valid), batch_size)):
                     group = valid[first:first + batch_size]
-                    nb = pick_bucket(len(group), row_buckets)
-                    lp = pick_bucket(max(len(g) for g in group), len_buckets)
-                    ids = np.zeros((nb, lp), np.int64)
-                    mask = np.zeros((nb, lp), np.bool_)
-                    for i, g in enumerate(group):
-                        ids[i, lp - len(g):] = g
-                        mask[i, lp - len(g):] = True
-                    mask[len(group):, -1] = True  # pad rows: 1 real token
+                    ids, mask = left_pad_group(group, row_buckets,
+                                               len_buckets)
+                    lp = ids.shape[1]
                     gen = (_group_generator(seed, counter, self._device)
                            if temperature > 0 else None)
-                    out = generate(
+                    out = graphed_generate(
                         self._module,
                         torch.from_numpy(ids).to(self._device),
+                        torch.from_numpy(mask).to(self._device),
                         max_new,
-                        attention_mask=torch.from_numpy(mask).to(self._device),
                         temperature=temperature, top_k=top_k, top_p=top_p,
                         generator=gen,
                     )[:len(group), lp:].cpu().numpy()

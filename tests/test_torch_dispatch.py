@@ -15,14 +15,19 @@ from sparkdl_torch.observability.registry import registry
 from sparkdl_torch.ops import _dispatch
 from sparkdl_torch.runtime.dispatch import (
     ChainPolicy,
+    GraphCache,
     ScanChainer,
     SpecPolicy,
     calibrate_dispatch_gap,
     chain_carry,
     dispatch_count,
+    optimizer_settings,
     overhead_share,
+    require_capturable,
     shape_key,
+    storage_key,
 )
+from sparkdl_torch.train.finetune import classification_train_step
 from sparkdl_tpu.runtime import dispatch as jax_dispatch
 
 W = torch.from_numpy(
@@ -222,11 +227,6 @@ def test_launch_counts_add_and_take_back():
     inception_stem_fused.launches = 0
 
 
-def test_chain_carry_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A4 CUDA graphs"):
-        chain_carry(lambda s, b: (s, b))
-
-
 def test_env_chain_k_rejects_values_below_one(monkeypatch):
     from sparkdl_torch.runtime.dispatch import default_chain_k
 
@@ -259,3 +259,149 @@ def test_overhead_share():
     assert overhead_share(10, 1.0, gap_s=0.01) == pytest.approx(0.1)
     assert overhead_share(0, 1.0, gap_s=0.01) is None
     assert overhead_share(1000, 1.0, gap_s=0.01) == 1.0  # clamped
+
+
+def test_chain_carry_matches_sequential_steps():
+    """K carried-state steps through chain_carry equal the same steps one
+    by one, bitwise: the state after every chain and each step's metric
+    (the reference's scan test, in the port's in-place idiom)."""
+
+    def make():
+        state = {"w": torch.ones(4, 4)}
+
+        def step(batch):
+            state["w"].add_(batch["x"].sum() * 1e-3)
+            return {"norm": state["w"].sum()}
+
+        return state, step
+
+    items = _items(6, rows=2, seed=3)
+    s_ref, step = make()
+    norms_ref = [step(x)["norm"].clone() for x in items]
+    s_got, step = make()
+    chained = chain_carry(step, donate=False)
+    got = chained(items[:4]) + chained(items[4:]) + chained([])
+    assert torch.equal(s_got["w"], s_ref["w"])
+    assert [m["norm"] for m in got] == norms_ref
+    assert all(torch.equal(m["norm"], w) for m, w in zip(got, norms_ref))
+
+
+class _EagerGraph:
+    """Stands in for a CapturedGraph where there is no card: a replay
+    runs the function eagerly."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.replays = 0
+
+    def replay(self, inputs, generator=None):
+        self.replays += 1
+        return self.fn(*inputs)
+
+
+class _RecordingCache(GraphCache):
+    """GraphCache with the warm-up and the capture replaced (no card
+    here): what is left is the key, the LRU and the error path."""
+
+    def __init__(self, *args, fail=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.captured = []
+        self.fail = fail
+
+    def _warm_up(self, fn, inputs, generator):
+        return fn(*inputs)
+
+    def _capture(self, fn, inputs, generator):
+        if self.fail is not None:
+            raise self.fail
+        self.captured.append(shape_key(inputs))
+        return _EagerGraph(fn)
+
+
+def _add(x, y):
+    return x + y
+
+
+def test_graph_cache_captures_once_per_shape_and_dtype():
+    cache = _RecordingCache("t_shape")
+    a, b = torch.ones(4, 2), torch.ones(4, 2)
+    for _ in range(3):
+        assert torch.equal(cache(_add, (a, b)), a + b)
+    assert cache.captures == 1 and len(cache) == 1
+    assert cache.graphs()[0].replays == 2  # the first call was the warm-up
+    cache(_add, (torch.ones(8, 2), torch.ones(8, 2)))  # new rows
+    cache(_add, (a.double(), b.double()))  # new dtype
+    cache(_add, (a, b))  # the first entry again: a replay
+    assert cache.captures == 3 and len(cache) == 3
+    assert [k for k, _ in cache.keys()][-1] == shape_key((a, b))
+
+
+def test_graph_cache_new_entry_for_replaced_parameters_or_settings():
+    """The key of a train step: replaced parameters (new storage) and a
+    changed learning rate each mean a new capture; weights copied in
+    place keep the graph."""
+    model = torch.nn.Linear(16, 3)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    step = classification_train_step(model, opt)
+    batch = {"input": torch.ones(4, 16),
+             "labels": torch.zeros(4, dtype=torch.long)}
+    cache = _RecordingCache("t_key")
+
+    def run():
+        cache(lambda b: step(b), (batch,), step.graph_key())
+
+    run()
+    run()
+    assert cache.captures == 1
+    with torch.no_grad():
+        model.weight.copy_(torch.zeros_like(model.weight))  # in place
+    run()
+    assert cache.captures == 1
+    before = storage_key(model)
+    model.weight = torch.nn.Parameter(torch.zeros(3, 16))
+    assert storage_key(model) != before
+    opt.param_groups[0]["params"][0] = model.weight
+    run()
+    assert cache.captures == 2
+    opt.param_groups[0]["lr"] = 0.05
+    assert optimizer_settings(opt) != optimizer_settings(
+        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9))
+    run()
+    assert cache.captures == 3
+
+
+def test_graph_cache_lru_bound_evicts_the_least_recent():
+    cache = _RecordingCache("t_lru", maxsize=2)
+    shapes = [(1,), (2,), (3,)]
+    for n in (1, 2, 1, 3):  # 1 is used again before 3 arrives: 2 goes
+        cache(_add, (torch.ones(n), torch.ones(n)))
+    assert len(cache) == 2 and cache.captures == 3
+    assert [k[0][1][0][0] for k in cache.keys()] == [shapes[0], shapes[2]]
+    cache(_add, (torch.ones(2), torch.ones(2)))  # evicted: captured anew
+    assert cache.captures == 4 and len(cache) == 2
+    with pytest.raises(ValueError, match="maxsize"):
+        GraphCache("t_lru", maxsize=0)
+
+
+def test_graph_cache_refuses_non_tensor_inputs():
+    cache = _RecordingCache("t_scalar")
+    with pytest.raises(ValueError, match="t_scalar.*tensor inputs only"):
+        cache(_add, (torch.ones(2), 3.0))
+    assert cache.captures == 0
+
+
+def test_failed_capture_raises_naming_the_path_and_keeps_nothing():
+    cache = _RecordingCache("t_fail", fail=RuntimeError("operation not "
+                                                        "permitted"))
+    with pytest.raises(RuntimeError,
+                       match="CUDA graph of 't_fail' failed.*not permitted"):
+        cache(_add, (torch.ones(2), torch.ones(2)))
+    assert len(cache) == 0 and cache.captures == 0
+
+
+def test_require_capturable_names_the_optimizer_and_the_path():
+    params = [torch.nn.Parameter(torch.ones(2))]
+    with pytest.raises(ValueError, match="'train'.*AdamW.*capturable=True"):
+        require_capturable(torch.optim.AdamW(params), "train")
+    require_capturable(torch.optim.AdamW(params, capturable=True), "train")
+    require_capturable(torch.optim.SGD(params, lr=0.1, momentum=0.9), "train")

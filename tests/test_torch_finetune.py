@@ -108,8 +108,6 @@ def test_custom_optimizer_updates_in_place(start):
     (dict(mesh=object()), "A8 partition"),
     (dict(partitioner=object()), "A8 partition"),
     (dict(checkpoint_dir="ckpt"), "A8 checkpoint"),
-    (dict(chain_steps=4), "A4 CUDA graphs"),
-    (dict(chain_steps=None), "A4 CUDA graphs"),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(start, kwargs, item):
     _, variables = start

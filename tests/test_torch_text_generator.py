@@ -125,3 +125,33 @@ def test_param_errors_match_jax(bundles):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DeepTextGenerator(inputCol="prompt", outputCol="g", model=tb,
                           ).transform(LocalDataFrame([rows])).collect()
+
+
+@pytest.mark.parametrize("sampled", [False, True])
+def test_the_graphed_call_is_generate_bitwise(bundles, sampled):
+    """What DeepTextGenerator captures as one CUDA graph a bucket
+    (``graphed_generate``, on the CPU the eager ``generate``) and the
+    capturable body ``generate_unchecked`` give generate's tokens bitwise,
+    sampled ones included from generators of the same seed; the pad rows'
+    last column is real, as the transformer builds it."""
+    from sparkdl_torch.transformers.text_generator import graphed_generate
+
+    _, (cfg, sd) = bundles
+    module = tgpt.GPTLMHeadModel(cfg, device="cpu")
+    module.load_state_dict(sd)
+    ids = torch.tensor([[0, 0, 5, 3, 9], [1, 4, 6, 8, 6], [0, 0, 0, 0, 2]])
+    mask = ids != 0
+    mask[2, -1] = True
+    kw = dict(temperature=0.9, top_k=20, top_p=0.9) if sampled else {}
+
+    def gen():
+        return torch.Generator().manual_seed(11) if sampled else None
+
+    want = tgpt.generate(module, ids, 6, attention_mask=mask, generator=gen(),
+                         **kw)
+    got = graphed_generate(module, ids, mask, 6, generator=gen(), **kw)
+    with torch.inference_mode():
+        body = tgpt.generate_unchecked(module, ids, 6, 11, attention_mask=mask,
+                                       generator=gen(), **kw)
+    assert torch.equal(got, want) and torch.equal(body, want)
+    assert want.shape == (3, 11)
