@@ -6,8 +6,8 @@
 Builds every CUDA kernel of the port from ``sparkdl_torch/csrc/`` (into
 ``sparkdl_torch/_build/``), holds each kernel against its plain PyTorch
 version at the shapes of the paths that run it, then drives the port's
-four paths, each on random weights from a fixed seed, and checks that
-each went through its kernels and agrees with a kernel-free run:
+paths, each on random weights from a fixed seed, and checks that each
+went through its kernels and agrees with a kernel-free run:
 
 - ``DeepImageFeaturizer(modelName="InceptionV3")`` over a LocalDataFrame
   of 256 random 299x299 images (the stem kernel);
@@ -18,7 +18,17 @@ each went through its kernels and agrees with a kernel-free run:
   (the flash attention forward and its two backward kernels), one CUDA
   graph a step and, with ``chain_steps=4``, one of four steps;
 - the fused ResNet50 train step at 224 px, batch 64 (the fused 1x1-conv
-  GEMM + BN-stats kernel), one CUDA graph a step.
+  GEMM + BN-stats kernel), one CUDA graph a step;
+- ``DeepImageFeaturizer``/``DeepImagePredictor`` over ResNet50, Xception,
+  VGG16, VGG19 and ViT-B/16 (cuDNN/cuBLAS: no kernel of the port), each
+  held against the same module on the CPU;
+- ViT-B/16 with ``attn_impl="flash"`` (the flash attention forward at
+  L=197) against ``"full"``;
+- ``DeepTextFeaturizer`` over BERT-base (the flash attention forward with
+  a key mask, under no grad, inside the runner's CUDA graphs) against
+  ``attn_impl="full"``, every pooling;
+- ``hpo.fmin`` over two BERT-base fine-tuning trials (the flash forward
+  and backward kernels).
 
 The graphed paths are held bitwise to their eager form (the training
 ones under deterministic algorithms). Each phase prints its lines; any
@@ -629,6 +639,24 @@ def _bound(flops: float, nbytes: float, peak: float = H100_F32_FLOPS) -> tuple[f
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
+def _attention_work(b: int, lq: int, lk: int, mask, causal: bool = False,
+                    q_offset: int = 0, heads: int = HEADS,
+                    head_dim: int = HEAD_DIM) -> tuple[float, float]:
+    """(flops, bytes) that an f32 attention forward needs on this run's
+    mask: QK and PV (2 per MAC) over the (query, key) pairs a row may
+    attend, and Q and O, the K and V rows of the keys some query attends,
+    and the mask, each moved once."""
+    from sparkdl_torch.ops.flash_attention import _keep_mask
+
+    device = "cpu" if mask is None else mask.device
+    keep = _keep_mask(b, lq, lk, mask, causal, q_offset, device)[:, 0]
+    pairs, keys = int(keep.sum()), int(keep.any(dim=1).sum())
+    flops = 4.0 * heads * head_dim * pairs
+    nbytes = (4.0 * heads * head_dim * (2 * b * lq + 2 * keys)
+              + (0 if mask is None else b * lk))
+    return flops, nbytes
+
+
 def phase_flash_attention(card: str) -> dict:
     """The kernel against flash_attention_reference on the card, f32 and
     bf16 (output and lse), at the GPT-2 prefill, the cached prefill and
@@ -688,10 +716,7 @@ def phase_flash_attention(card: str) -> dict:
         plain_ms = _device_ms(lambda: flash_attention_reference(q, k, v, mask, **kw))
         library_ms = _device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=keep))
-        n_keys = (sum(min(q_offset + i + 1, lk) for i in range(lq)) if causal
-                  else lq * lk)
-        flops = 4.0 * b * HEADS * HEAD_DIM * n_keys  # QK and PV, 2 per MAC
-        nbytes = 4.0 * HEADS * HEAD_DIM * b * (2 * lq + 2 * lk) + b * lk
+        flops, nbytes = _attention_work(b, lq, lk, mask, causal, q_offset)
         # on the tensor cores as 3xTF32 (three TF32 passes a product); the
         # CUDA cores' f32 bound beside it
         bound_ms, bound_by = _bound(3 * flops, nbytes, H100_TF32_FLOPS)
@@ -1379,18 +1404,24 @@ def phase_flash_attention_bwd(card: str) -> tuple[dict, dict, dict]:
     sdpa_kernel = max(sdpa_times, key=sdpa_times.get).split("(")[0]
     fwd_library_ms = _device_ms(lambda: F.scaled_dot_product_attention(
         qt.detach(), kt.detach(), vt.detach(), attn_mask=keep))
-    prod = 2.0 * b * HEADS * length * length * HEAD_DIM  # one L x L x D product
+    # the work this mask needs: products over the (query, key) pairs a row
+    # attends; K and V read for the keys some query attends, every other
+    # tensor moved once (dk and dv are written for every key)
+    fwd_flops, fwd_bytes = _attention_work(b, length, length, bert_mask)
+    prod = fwd_flops / 2  # one Lq x (attended keys) x D product
     tensor = 4.0 * b * length * HEADS * HEAD_DIM
+    kv_read = fwd_bytes - 2 * tensor - b * length  # the attended keys' K and V
     rows = 2 * 4.0 * b * HEADS * length  # lse and delta
-    dq_bytes, dkv_bytes = 4 * tensor + rows + tensor, 4 * tensor + rows + 2 * tensor
+    dq_bytes = 2 * tensor + kv_read + rows + tensor
+    dkv_bytes = 2 * tensor + kv_read + rows + 2 * tensor
     # on the CUDA cores in float32, and on the tensor cores as 3xTF32 (three
     # TF32 passes a product): the kernels' bound is the latter
     dq_f32_bound, dq_f32_by = _bound(3 * prod, dq_bytes)
     dkv_f32_bound, dkv_f32_by = _bound(4 * prod, dkv_bytes)
     dq_bound, dq_by = _bound(3 * 3 * prod, dq_bytes, H100_TF32_FLOPS)
     dkv_bound, dkv_by = _bound(3 * 4 * prod, dkv_bytes, H100_TF32_FLOPS)
-    fwd_bound, _ = _bound(3 * 2 * prod, 4 * tensor + b * length, H100_TF32_FLOPS)
-    fwd_core_bound, _ = _bound(2 * prod, 4 * tensor + b * length)
+    fwd_bound, _ = _bound(3 * fwd_flops, fwd_bytes, H100_TF32_FLOPS)
+    fwd_core_bound, _ = _bound(fwd_flops, fwd_bytes)
     print(f"[flash_attention_bwd] builds: {builds}")
     print(f"[flash_attention_bwd] H={HEADS}, tol f32 {BWD_TOL} bf16 {BWD_BF16_TOL} x "
           f"max|ref|, each case bitwise equal across two calls and to autograd; {card}: "
@@ -1875,6 +1906,448 @@ def phase_train_resnet(card: str, gemm_entry: dict) -> float:
     return RESNET_BATCH * RESNET_STEPS / secs
 
 
+ZOO_MODELS = ("ResNet50", "Xception", "VGG16", "VGG19", "ViTB16")
+ZOO_TOL = 1e-4        # card vs CPU, the same module: cuDNN's and oneDNN's algorithms differ
+VIT_TOL = 1e-4        # 12 layers of f32 on both sides, attention sums reordered
+TEXT_TOL = 1e-4
+TEXT_ROWS, TEXT_LEN, TEXT_BATCH = 256, 128, 64
+HPO_STEPS, HPO_BATCH = 5, 32
+
+
+def _release_cached_paths() -> str:
+    """Drop the per-process caches of models, runners and CUDA graphs that
+    the transformers keep (named-image runners, the generator's graphs,
+    the text featurizer's runners), collect their reference cycles and
+    return the memory to the card; then reset the peak. Says what was
+    reserved before and after."""
+    import gc
+
+    import torch
+
+    from sparkdl_torch.transformers import named_image, text, text_generator
+
+    before = torch.cuda.memory_reserved()
+    named_image._named_model_runner.cache_clear()
+    named_image._load_named_model.cache_clear()
+    text_generator.GENERATE_GRAPHS.clear()
+    text_generator._MODEL_CACHE.clear()
+    text._RUNNER_CACHE.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    free, total = torch.cuda.mem_get_info()
+    return (f"{before / 2**30:.1f} -> {torch.cuda.memory_reserved() / 2**30:.1f} GiB "
+            f"reserved, {free / 2**30:.1f} of {total / 2**30:.1f} GiB free")
+
+
+def _image_rows(rng, size: int):
+    """(uint8 images [N_ROWS, size, size, 3], their BGR structs)."""
+    import numpy as np
+
+    from sparkdl_torch.image import imageArrayToStructBGR
+
+    images = rng.integers(0, 256, (N_ROWS, size, size, 3), dtype=np.uint8)
+    return images, [{"id": i, "image": imageArrayToStructBGR(images[i])}
+                    for i in range(N_ROWS)]
+
+
+def phase_zoo(card: str) -> dict:
+    """DeepImageFeaturizer and DeepImagePredictor over every other zoo model
+    at full width and depth (random weights, seed 0), batch 64, over 256
+    random rows at the model's input size in 4 partitions: two rows'
+    features against the same module on the CPU, the probabilities'
+    shape and sums, images/s (median of TIME_REPS transforms after a
+    warm-up) and the forward's device ms a batch (CUDA events). The
+    convolutions and dense layers are cuDNN/cuBLAS: no kernel of the
+    port runs here (ViTB16's registry entry attends with attn_impl
+    "full")."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from sparkdl_torch import DeepImageFeaturizer, DeepImagePredictor, LocalDataFrame
+    from sparkdl_torch.models.registry import get_entry
+    from sparkdl_torch.ops.preprocess import PREPROCESSORS
+    from sparkdl_torch.transformers import named_image
+
+    held = _release_cached_paths()
+    rng = np.random.default_rng(3)
+    by_size, rates, report = {}, {}, []
+    for name in ZOO_MODELS:
+        entry = get_entry(name)
+        size = entry.input_size[0]
+        if size not in by_size:
+            by_size.clear()
+            by_size[size] = _image_rows(rng, size)
+        images, rows = by_size[size]
+        df = LocalDataFrame.from_rows(rows, N_PARTS)
+        kw = dict(inputCol="image", outputCol="out", modelName=name, weights="random",
+                  batchSize=BATCH)
+        featurizer, predictor = DeepImageFeaturizer(**kw), DeepImagePredictor(**kw)
+
+        t0 = time.perf_counter()
+        featurizer.transform(df).collect()  # warm-up: the model, graphs, cuDNN plans
+        first_s = time.perf_counter() - t0
+        secs = []
+        for _ in range(TIME_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = featurizer.transform(df).collect()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        feats = np.stack([r["out"] for r in sorted(out, key=lambda r: r["id"])])
+        if feats.shape != (N_ROWS, entry.feature_dim) or not np.isfinite(feats).all():
+            raise AssertionError(f"[zoo] {name}: bad features {feats.shape}")
+        predictor.transform(df).collect()
+        probs = np.stack([r["out"] for r in predictor.transform(df).collect()])
+        sums = probs.sum(axis=1)
+        if probs.shape != (N_ROWS, 1000) or np.abs(sums - 1).max() > 1e-4:
+            raise AssertionError(f"[zoo] {name}: probabilities {probs.shape}, sums "
+                                 f"{sums.min():.6f}..{sums.max():.6f}")
+
+        # two rows against the same module on the CPU
+        top = entry.features_need_top
+        module = named_image._load_named_model(name, "random", top, "cuda")
+        preprocess = PREPROCESSORS[entry.preprocess]
+        x = torch.from_numpy(images[:2].astype(np.float32))
+        with torch.inference_mode():
+            want, _ = copy.deepcopy(module).cpu()(preprocess(x))
+            xd = preprocess(torch.from_numpy(images[:BATCH].astype(np.float32)).cuda())
+            fwd_ms = _time_ms(lambda: module(xd), warmup=2, reps=5)
+        abs_err, rel = _rel_err(torch.from_numpy(feats[:2]), want)
+        if rel > ZOO_TOL:
+            raise AssertionError(f"[zoo] {name}: card vs CPU rel err {rel:.3e} "
+                                 f"(tol {ZOO_TOL})")
+        rates[name] = N_ROWS / statistics.median(secs)
+        report.append(
+            f"{name} {size} px: {rates[name]:.1f} images/s (median of {TIME_REPS}; "
+            f"min {N_ROWS / max(secs):.1f}, max {N_ROWS / min(secs):.1f}; first "
+            f"transform {first_s:.1f} s), forward {fwd_ms:.2f} ms a batch of {BATCH} "
+            f"(CUDA events), features {entry.feature_dim} vs CPU rel err {rel:.1e}, "
+            f"probs sum 1 within {np.abs(sums - 1).max():.1e}")
+        report[-1] += f", peak {torch.cuda.max_memory_reserved() / 2**30:.1f} GiB reserved"
+        del module, xd, featurizer, predictor
+        _release_cached_paths()
+    print(f"[zoo] DeepImageFeaturizer / DeepImagePredictor, random init seed 0, "
+          f"{N_ROWS} rows in {N_PARTS} partitions, batchSize {BATCH}, features vs "
+          f"the same module on the CPU for 2 rows (tol {ZOO_TOL}); the earlier "
+          f"paths' cached models and graphs released first ({held}); {card}: "
+          + "; ".join(report))
+    return rates
+
+
+def _attention_times(q, k, v, mask) -> dict:
+    """The flash forward (no grad) against its plain version, SDPA and its
+    3xTF32 bound on the same inputs (the work this mask needs:
+    _attention_work): device ms from CUDA-graph replays."""
+    import torch.nn.functional as F
+
+    from sparkdl_torch.ops.flash_attention import (
+        _keep_mask,
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    keep = None if mask is None else _keep_mask(b, lq, lk, mask, False, 0, q.device)
+    card_flops, nbytes = _attention_work(b, lq, lk, mask, heads=h, head_dim=d)
+    bound_ms, bound_by = _bound(3 * card_flops, nbytes, H100_TF32_FLOPS)
+    return {
+        "ms": _device_ms(lambda: flash_attention(q, k, v, mask)),
+        "host_ms": _time_ms(lambda: flash_attention(q, k, v, mask)),
+        "plain_ms": _device_ms(lambda: flash_attention_reference(q, k, v, mask)),
+        "library_ms": _device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=keep)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "gflop": card_flops / 1e9, "mb": nbytes / 1e6,
+    }
+
+
+def _times_text(t: dict) -> str:
+    return (f"kernel {t['ms']:.4f} ms ({t['host_ms']:.4f} per call from the host), "
+            f"plain {t['plain_ms']:.4f}, sdpa {t['library_ms']:.4f} (kernel/sdpa "
+            f"{t['ms'] / t['library_ms']:.2f}), bound {t['bound_ms']:.4f} "
+            f"({t['bound_by']}; {t['gflop']:.3f} GFLOP as 3xTF32 at 495 TFLOP/s, "
+            f"{t['mb']:.1f} MB)")
+
+
+def phase_vit(card: str, attn_entry: dict) -> float:
+    """ViT-B/16 (224 px, 12 layers, L=197) with attn_impl="flash" against
+    "full" on the card, the same random weights (seed 0), B=64: features
+    within VIT_TOL, the flash forward's launches a forward, the forward's
+    device ms each way, and the kernel at B=64 L=197 (no mask) against
+    its plain version, SDPA and its bound."""
+    import numpy as np
+    import torch
+
+    from sparkdl_torch.models.registry import build_torch_model
+    from sparkdl_torch.models.vit import ViTConfig, ViTModel
+    from sparkdl_torch.ops.flash_attention import flash_attention, flash_attention_reference
+    from sparkdl_torch.ops.preprocess import preprocess_tf
+
+    full = build_torch_model("ViTB16", "random", include_top=False, seed=0)
+    cfg = ViTConfig.b16(attn_impl="flash")
+    flash = ViTModel(cfg, include_top=False)
+    flash.load_state_dict(full.state_dict())
+    flash = flash.cuda().eval()
+    rng = np.random.default_rng(6)
+    size = cfg.image_size
+    x = preprocess_tf(torch.from_numpy(rng.integers(
+        0, 256, (BATCH, size, size, 3)).astype(np.float32)).cuda())
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        _zero_counts()
+        got, _ = flash(x)
+        torch.cuda.synchronize()
+        launches = flash_attention.launches
+        want, _ = full(x)
+        flash_ms = _time_ms(lambda: flash(x), warmup=1, reps=5)
+        full_ms = _time_ms(lambda: full(x), warmup=1, reps=5)
+    if launches != cfg.num_layers:
+        raise AssertionError(f"[vit] flash_attention launched {launches} times in one "
+                             f"forward, want {cfg.num_layers}")
+    abs_err, rel = _rel_err(got, want)
+    if not torch.isfinite(got).all() or rel > VIT_TOL:
+        raise AssertionError(f"[vit] flash vs full features: rel err {rel:.3e} "
+                             f"(tol {VIT_TOL})")
+
+    length = cfg.num_patches + 1
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (BATCH, length, HEADS, HEAD_DIM), dtype=np.float32)).cuda() for _ in "qkv")
+    kernel_err = _rel_err(flash_attention(q, k, v), flash_attention_reference(q, k, v))
+    if kernel_err[1] > ATTN_TOL:
+        raise AssertionError(f"[vit] kernel vs plain at L={length}: rel err "
+                             f"{kernel_err[1]:.3e} (tol {ATTN_TOL})")
+    times = _attention_times(q, k, v, None)
+    print(f"[vit] ViT-B/16 {cfg.image_size} px ({cfg.num_layers}x{cfg.hidden_size}, "
+          f"L={length}), random init seed 0, B={BATCH}, attn_impl='flash' vs 'full' on "
+          f"the same weights: features rel err {rel:.1e} (tol {VIT_TOL}); flash_attention "
+          f"launches {launches} a forward; forward {flash_ms:.2f} ms flash, {full_ms:.2f} "
+          f"ms full (CUDA events); kernel at B={BATCH} L={length} H={HEADS} D={HEAD_DIM} "
+          f"no mask: rel err vs plain {kernel_err[1]:.1e} (tol {ATTN_TOL}), "
+          f"{_times_text(times)}; {card}")
+    attn_entry.update({f"vit_{k}": times[k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+    attn_entry["vit_launches"] = launches
+    del full, flash, x, q, k, v
+    torch.cuda.empty_cache()
+    return times["ms"]
+
+
+def phase_text(card: str, attn_entry: dict) -> float:
+    """DeepTextFeaturizer over BERT-base (random init seed 0) with
+    attn_impl="flash": 256 rows of 16..128 tokens and one empty row in
+    4 partitions, batch 64, maxLength 128, each pooling against
+    attn_impl="full" on real rows (the empty row finite) and, on the first,
+    middle and last real row of each partition, against an eager BertModel
+    forward outside the runner (no graph: a baked-in or stale mask shows
+    there, not against "full", which replays graphs too), the flash
+    forward's launches per batch through the runner's graph replays,
+    examples/s, and the kernel at B=64 L=128 with a right-padded key
+    mask against its plain version, SDPA and its bound."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sparkdl_torch import DeepTextFeaturizer, LocalDataFrame
+    from sparkdl_torch.models.bert import BertConfig, BertModel, init_bert_
+    from sparkdl_torch.ops.flash_attention import flash_attention, flash_attention_reference
+    from sparkdl_torch.transformers import text
+
+    cfg = BertConfig.base(attn_impl="flash")
+    state = init_bert_(BertModel(cfg, device="cpu"), seed=0).state_dict()
+    rng = np.random.default_rng(7)
+    lengths = list(rng.integers(16, TEXT_LEN + 1, TEXT_ROWS))
+    lengths.insert(TEXT_ROWS // 2, 0)  # an empty row: no valid key
+    rows = [{"id": i, "tokens": rng.integers(1, cfg.vocab_size, n).tolist()}
+            for i, n in enumerate(lengths)]
+    empty = lengths.index(0)
+    df = LocalDataFrame.from_rows(rows, N_PARTS)
+    n_batches = sum(r["n"] for r in df.mapPartitions(
+        lambda part: [{"n": math.ceil(len(list(part)) / TEXT_BATCH)}]).collect())
+
+    def featurizer(attn_impl, pooling):
+        return DeepTextFeaturizer(
+            inputCol="tokens", outputCol="f", pooling=pooling, maxLength=TEXT_LEN,
+            batchSize=TEXT_BATCH,
+            model=(dataclasses.replace(cfg, attn_impl=attn_impl), state))
+
+    def features(t):
+        out = t.transform(df).collect()
+        return np.stack([r["f"] for r in sorted(out, key=lambda r: r["id"])])
+
+    errs, eager_errs, launches, secs = {}, {}, {}, []
+    real = [i for i, n in enumerate(lengths) if n]
+    probe = []  # the first, middle and last real row of each partition
+    for part in df.mapPartitions(lambda p: [{"ids": [r["id"] for r in p]}]).collect():
+        ids = [i for i in part["ids"] if lengths[i]]
+        probe += sorted({ids[0], ids[len(ids) // 2], ids[-1]})
+    eager = BertModel(dataclasses.replace(cfg, attn_impl="full"), device="cuda").eval()
+    eager.load_state_dict(state)
+    ids, keep = (np.zeros((len(probe), TEXT_LEN), np.int64) for _ in "ik")
+    for j, i in enumerate(probe):
+        tokens = rows[i]["tokens"][:TEXT_LEN]
+        ids[j, :len(tokens)], keep[j, :len(tokens)] = tokens, 1
+    with torch.inference_mode():
+        ids, keep = torch.from_numpy(ids).cuda(), torch.from_numpy(keep).cuda()
+        seq, pooled = eager(ids, keep)
+        weight = keep[:, :, None].float()
+        eager_out = {"cls": seq[:, 0], "mean": (seq * weight).sum(1) / weight.sum(1),
+                     "pooler": pooled}
+        eager_out = {p: t.float().cpu() for p, t in eager_out.items()}
+    del eager, ids, keep, seq, pooled
+    for pooling in ("cls", "mean", "pooler"):
+        flash = featurizer("flash", pooling)
+        features(flash)  # warm-up: the model, one graph a bucket
+        torch.cuda.synchronize()
+        _zero_counts()
+        got = features(flash)
+        torch.cuda.synchronize()
+        launches[pooling] = flash_attention.launches
+        if pooling == "mean":  # the default pooling: timed
+            for _ in range(TIME_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                features(flash)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+        want = features(featurizer("full", pooling))
+        if got.shape != (len(rows), cfg.hidden_size) or not np.isfinite(got).all():
+            raise AssertionError(f"[text] {pooling}: bad features {got.shape} "
+                                 f"(empty row finite: {np.isfinite(got[empty]).all()})")
+        errs[pooling] = _rel_err(torch.from_numpy(got[real]), torch.from_numpy(want[real]))
+        if errs[pooling][1] > TEXT_TOL:
+            raise AssertionError(f"[text] {pooling}: flash vs full rel err "
+                                 f"{errs[pooling][1]:.3e} (tol {TEXT_TOL})")
+        eager_errs[pooling] = _rel_err(torch.from_numpy(got[probe]), eager_out[pooling])
+        if eager_errs[pooling][1] > TEXT_TOL:
+            raise AssertionError(f"[text] {pooling}: graphed flash vs an eager full "
+                                 f"forward, rows {probe}: rel err "
+                                 f"{eager_errs[pooling][1]:.3e} (tol {TEXT_TOL})")
+        if launches[pooling] != cfg.num_hidden_layers * n_batches:
+            raise AssertionError(
+                f"[text] {pooling}: flash_attention launched {launches[pooling]} times "
+                f"for {n_batches} batches, want {cfg.num_hidden_layers} a batch")
+        text._RUNNER_CACHE.clear()
+        torch.cuda.empty_cache()
+
+    # the kernel at the featurizer's shape: a right-padded key mask of
+    # 16..128 keys, and a row without a valid key (finite)
+    b, length = TEXT_BATCH, TEXT_LEN
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (b, length, HEADS, HEAD_DIM), dtype=np.float32)).cuda() for _ in "qkv")
+    mask = _right_padded_mask(rng, b, length)
+    dead = mask.clone()
+    dead[-1] = False
+    got = flash_attention(q, k, v, dead)
+    kernel_err = _rel_err(got[:-1], flash_attention_reference(q, k, v, dead)[:-1])
+    if kernel_err[1] > ATTN_TOL or not torch.isfinite(got).all():
+        raise AssertionError(f"[text] kernel vs plain at L={length} with the mask: rel "
+                             f"err {kernel_err[1]:.3e} (tol {ATTN_TOL})")
+    valid_keys = int(mask.sum())
+    times = _attention_times(q, k, v, mask)
+    rate = len(rows) / statistics.median(secs)
+    print(f"[text] DeepTextFeaturizer BERT-base ({cfg.num_hidden_layers}x"
+          f"{cfg.hidden_size}), random init seed 0, attn_impl='flash', {len(rows)} rows "
+          f"(16..{TEXT_LEN} tokens, one empty) in {N_PARTS} partitions, batchSize "
+          f"{TEXT_BATCH}, maxLength {TEXT_LEN}; {card}: {rate:.1f} examples/s (mean "
+          f"pooling, median of {TIME_REPS}; min {len(rows) / max(secs):.1f}, max "
+          f"{len(rows) / min(secs):.1f}); flash_attention launches "
+          + ", ".join(f"{p} {n}" for p, n in launches.items())
+          + f" = {cfg.num_hidden_layers} a batch x {n_batches} batches (graph replays); "
+          f"vs attn_impl='full' on real rows: "
+          + ", ".join(f"{p} rel err {e[1]:.1e}" for p, e in errs.items())
+          + f" (tol {TEXT_TOL}), empty row finite; vs an eager attn_impl='full' "
+          f"BertModel forward outside the runner on {len(probe)} rows (first, middle, "
+          f"last real row of each partition): "
+          + ", ".join(f"{p} rel err {e[1]:.1e}" for p, e in eager_errs.items())
+          + f" (tol {TEXT_TOL}); kernel at B={b} L={length} "
+          f"H={HEADS} D={HEAD_DIM} with the key mask ({valid_keys} valid keys): rel err "
+          f"vs plain {kernel_err[1]:.1e} (tol {ATTN_TOL}; a row without a valid key "
+          f"finite), {_times_text(times)}")
+    attn_entry.update({f"text_{k}": times[k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+    attn_entry["text_launches"] = launches["mean"]
+    del q, k, v
+    torch.cuda.empty_cache()
+    return rate
+
+
+def phase_hpo(card: str) -> dict:
+    """hpo.fmin with trial_runner="threads": two trials over two
+    learning rates, each HPO_STEPS finetune_classifier steps of BERT-base
+    (flash attention, forward and backward kernels) at B=32 L=128; the
+    best is the trial with the lower final loss."""
+    import numpy as np
+    import torch
+
+    from sparkdl_torch.hpo import Trials, fmin, hp
+    from sparkdl_torch.models.bert import (
+        BertConfig,
+        BertForSequenceClassification,
+        init_bert_,
+    )
+    from sparkdl_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from sparkdl_torch.train import finetune_classifier
+
+    cfg = BertConfig.base(attn_impl="flash")
+    state = init_bert_(BertForSequenceClassification(cfg, num_labels=2, device="cpu"),
+                       seed=0).state_dict()
+    rng = np.random.default_rng(10)
+    batches = []
+    for _ in range(HPO_STEPS):
+        mask = _right_padded_mask(rng, HPO_BATCH, BERT_TRAIN_LEN).cpu().numpy()
+        batches.append({
+            "input_ids": rng.integers(0, cfg.vocab_size, (HPO_BATCH, BERT_TRAIN_LEN)) * mask,
+            "attention_mask": mask, "labels": rng.integers(0, 2, HPO_BATCH)})
+
+    def objective(params):
+        model = BertForSequenceClassification(cfg, num_labels=2, device="cuda")
+        model.load_state_dict(state)
+        t0 = time.perf_counter()
+        _, history = finetune_classifier(model, batches, learning_rate=params["lr"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        del model
+        torch.cuda.empty_cache()
+        return {"loss": history[-1]["loss"], "seconds": secs,
+                "first_loss": history[0]["loss"]}
+
+    trials = Trials()
+    torch.cuda.synchronize()
+    _zero_counts()
+    best = fmin(objective, {"lr": hp.loguniform("lr", math.log(1e-5), math.log(1e-3))},
+                max_evals=2, seed=0, trials=trials, trial_runner="threads",
+                use_hyperopt=False)
+    counts = (flash_attention.launches, flash_attention_bwd.launches_dq,
+              flash_attention_bwd.launches_dkv)
+    ok = [t for t in trials.trials if t["status"] == "ok"]
+    if len(ok) != 2:
+        raise AssertionError(f"[hpo] trials failed: {trials.trials}")
+    lower = min(ok, key=lambda t: t["loss"])
+    if best != lower["params"] or not all(np.isfinite(t["loss"]) for t in ok):
+        raise AssertionError(f"[hpo] best {best} is not the trial with the lower final "
+                             f"loss: {[(t['params'], t['loss']) for t in ok]}")
+    want = cfg.num_hidden_layers * HPO_STEPS * len(ok)
+    if counts != (want, want, want):
+        raise AssertionError(f"[hpo] flash launches forward/dq/dkv {counts}, want {want} "
+                             "each")
+    print(f"[hpo] fmin(trial_runner='threads'), {len(ok)} trials over lr "
+          f"loguniform(1e-5, 1e-3), each finetune_classifier BERT-base (attn_impl="
+          f"'flash') {HPO_STEPS} steps of B={HPO_BATCH} L={BERT_TRAIN_LEN}; {card}: "
+          + "; ".join(f"lr {t['params']['lr']:.2e}: loss {t['first_loss']:.4f} -> "
+                      f"{t['loss']:.4f} in {t['seconds']:.1f} s" for t in ok)
+          + f"; best lr {best['lr']:.2e} (the lower final loss); flash launches "
+          f"forward/dq/dkv {counts[0]}/{counts[1]}/{counts[2]} = {cfg.num_hidden_layers} "
+          f"a step x {HPO_STEPS} x {len(ok)}")
+    return {"seconds": [t["seconds"] for t in ok], "best": best}
+
+
 def main() -> int:
     # a fixed cuBLAS workspace, which deterministic algorithms need
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -1893,7 +2366,20 @@ def main() -> int:
     tokens_s = phase_generate(card, attn, decode)
     examples_s = phase_train_bert(card, dq, dkv, bert_fwd)
     train_images_s = phase_train_resnet(card, gemm)
+    zoo_rates = phase_zoo(card)
+    phase_vit(card, attn)
+    text_rate = phase_text(card, attn)
+    hpo = phase_hpo(card)
     kernels = [stem, attn, dq, dkv, decode, gemm]
+    print(f"[summary] {card}: zoo featurizer images/s "
+          + ", ".join(f"{n} {r:.1f}" for n, r in zoo_rates.items())
+          + f"; DeepTextFeaturizer BERT-base {text_rate:.1f} examples/s; flash_attention "
+          f"at ViT-B/16 B={BATCH} L=197 {attn['vit_ms']:.4f} ms (plain "
+          f"{attn['vit_plain_ms']:.4f}, SDPA {attn['vit_library_ms']:.4f}, bound "
+          f"{attn['vit_bound_ms']:.4f}), at BERT-base inference B={TEXT_BATCH} "
+          f"L={TEXT_LEN} masked {attn['text_ms']:.4f} ms (plain {attn['text_plain_ms']:.4f}, "
+          f"SDPA {attn['text_library_ms']:.4f}, bound {attn['text_bound_ms']:.4f}); HPO "
+          f"trials {', '.join(f'{s:.1f}' for s in hpo['seconds'])} s")
     print(f"[summary] {card}: featurizer {images_s:.1f} images/s; generator "
           f"{tokens_s:.1f} tokens/s; BERT-base fine-tune {examples_s:.1f} examples/s; "
           f"ResNet50 training {train_images_s:.1f} images/s; flash_attention at the "

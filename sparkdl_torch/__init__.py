@@ -13,8 +13,11 @@ _LAZY = {
     # name -> module path
     "DeepImageFeaturizer": "sparkdl_torch.transformers.named_image",
     "DeepImagePredictor": "sparkdl_torch.transformers.named_image",
+    "DeepTextFeaturizer": "sparkdl_torch.transformers.text",
     "DeepTextGenerator": "sparkdl_torch.transformers.text_generator",
     "LocalDataFrame": "sparkdl_torch.dataframe.local",
+    "Pipeline": "sparkdl_torch.param.shared_params",
+    "PipelineModel": "sparkdl_torch.param.shared_params",
     "readImages": "sparkdl_torch.image.imageIO",
     "readImagesWithCustomFn": "sparkdl_torch.image.imageIO",
 }

@@ -38,6 +38,12 @@ class Namer:
     def dense(self) -> str:
         return self.next("dense")
 
+    def sepdw(self) -> str:
+        return self.next("sepdw")
+
+    def seppw(self) -> str:
+        return self.next("seppw")
+
 
 def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
     """TF "SAME" padding (before, after) along one axis. At stride 2 it is
@@ -48,19 +54,41 @@ def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def conv2d_tf(x: torch.Tensor, weight: torch.Tensor, bias=None,
-              stride: int = 1, padding: str = "SAME") -> torch.Tensor:
-    """``F.conv2d`` with TF padding semantics ("SAME" or "VALID")."""
-    if padding == "VALID":
-        return F.conv2d(x, weight, bias, stride)
-    if padding != "SAME":
-        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
-    kh, kw = weight.shape[-2:]
+def _same_pads(x: torch.Tensor, kh: int, kw: int, stride: int):
+    """(left, right, top, bottom) TF "SAME" padding of an NCHW tensor."""
     top, bottom = same_padding(x.shape[-2], kh, stride)
     left, right = same_padding(x.shape[-1], kw, stride)
+    return left, right, top, bottom
+
+
+def conv2d_tf(x: torch.Tensor, weight: torch.Tensor, bias=None,
+              stride: int = 1, padding: str = "SAME",
+              groups: int = 1) -> torch.Tensor:
+    """``F.conv2d`` with TF padding semantics ("SAME" or "VALID")."""
+    if padding == "VALID":
+        return F.conv2d(x, weight, bias, stride, groups=groups)
+    if padding != "SAME":
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+    left, right, top, bottom = _same_pads(x, *weight.shape[-2:], stride)
     if top == bottom and left == right:
-        return F.conv2d(x, weight, bias, stride, padding=(top, left))
-    return F.conv2d(F.pad(x, (left, right, top, bottom)), weight, bias, stride)
+        return F.conv2d(x, weight, bias, stride, padding=(top, left),
+                        groups=groups)
+    return F.conv2d(F.pad(x, (left, right, top, bottom)), weight, bias, stride,
+                    groups=groups)
+
+
+def make_sep_conv(c_in: int, c_out: int, kernel: int = 3):
+    """A Keras SeparableConv2D as its two bias-free convs: the depthwise
+    ``kernel`` x ``kernel`` (one filter a channel) and the 1x1 pointwise."""
+    return (nn.Conv2d(c_in, c_in, kernel, groups=c_in, bias=False),
+            nn.Conv2d(c_in, c_out, 1, bias=False))
+
+
+def sep_conv(x, dw: nn.Conv2d, pw: nn.Conv2d, stride: int = 1,
+             padding: str = "SAME"):
+    """Depthwise conv (TF padding) then the pointwise 1x1."""
+    x = conv2d_tf(x, dw.weight, None, stride, padding, groups=dw.groups)
+    return F.conv2d(x, pw.weight, pw.bias)
 
 
 def make_conv_bn(c_in: int, c_out: int, kernel: tuple[int, int]):
@@ -82,8 +110,16 @@ def conv_bn_relu(x, conv: nn.Conv2d, bn: nn.BatchNorm2d, stride: int = 1,
 
 
 def max_pool(x, window: int = 3, strides: int = 2, padding: str = "VALID"):
-    if padding != "VALID":
-        raise ValueError("only VALID max-pooling is used by the zoo")
+    """Max pool with TF padding semantics. "SAME" pads with -inf, more on
+    the bottom/right where the total is odd, so a pad cell never wins
+    (zero padding, or torch's symmetric ``padding=``, changes edge rows)."""
+    if padding == "VALID":
+        return F.max_pool2d(x, window, strides)
+    if padding != "SAME":
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+    pads = _same_pads(x, window, window, strides)
+    if any(pads):
+        x = F.pad(x, pads, value=float("-inf"))
     return F.max_pool2d(x, window, strides)
 
 
@@ -98,6 +134,11 @@ def avg_pool_keras(x, window: int = 3, strides: int = 1, padding: str = "SAME"):
 
 def global_avg_pool(x):
     return x.mean(dim=(2, 3))
+
+
+def zero_pad(x, pad: int):
+    """``pad`` zero rows and columns on every side of an NCHW tensor."""
+    return F.pad(x, (pad, pad, pad, pad))
 
 
 def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:

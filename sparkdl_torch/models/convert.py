@@ -4,7 +4,10 @@ Both zoos name their layers in construction order (``conv000``,
 ``bn000``, ``dense000``; models/common.py ``Namer``), so conversion is a
 per-type map with no name table:
 
-  - conv  ``kernel`` HWIO -> ``weight`` OIHW, ``bias`` as is;
+  - conv  ``kernel`` HWIO -> ``weight`` OIHW, ``bias`` as is; the same
+          for a separable conv's two halves (``sepdw``, ``seppw``): the
+          depthwise kernel ``(kh, kw, 1, C)`` becomes ``(C, 1, kh, kw)``,
+          torch's grouped-conv layout;
   - BN    ``bias`` -> ``bias``, ``batch_stats`` ``mean``/``var`` ->
           ``running_mean``/``running_var``, ``scale`` -> ``weight`` (a unit
           ``weight`` when the BN has no scale, as the zoo's Keras BNs);
@@ -21,7 +24,8 @@ import re
 import numpy as np
 import torch
 
-_LAYER = re.compile(r"^(conv|bn|dense)\d{3}$")
+_LAYER = re.compile(r"^(conv|sepdw|seppw|bn|dense)\d{3}$")
+_CONVS = ("conv", "sepdw", "seppw")
 
 
 def flax_to_torch(variables: dict, module: "torch.nn.Module | None" = None) -> dict:
@@ -63,7 +67,7 @@ def flax_to_torch(variables: dict, module: "torch.nn.Module | None" = None) -> d
             if "kernel" not in p:
                 raise ValueError(f"{name}: no kernel")
             k = np.asarray(p.pop("kernel"))
-            out[f"{name}.weight"] = t(k.transpose(3, 2, 0, 1) if kind == "conv"
+            out[f"{name}.weight"] = t(k.transpose(3, 2, 0, 1) if kind in _CONVS
                                       else k.T)
             if "bias" in p:
                 out[f"{name}.bias"] = t(p.pop("bias"))
@@ -106,7 +110,7 @@ def torch_to_flax(state_dict: dict) -> dict:
                 params.setdefault(name, {})[field] = a
         elif field == "weight":
             params.setdefault(name, {})["kernel"] = (
-                a.transpose(2, 3, 1, 0) if kind == "conv" else a.T)
+                a.transpose(2, 3, 1, 0) if kind in _CONVS else a.T)
         else:
             params.setdefault(name, {})[field] = a
     return {"params": params, "batch_stats": stats}
@@ -291,6 +295,102 @@ def bert_torch_to_flax(state_dict: dict) -> dict:
             name = "scale"
         else:
             name, a = "kernel", a.T
+        node = params
+        for part in path.split("/"):
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(a)
+    return {"params": params}
+
+
+# ---------------------------------------------------------------------------
+# ViT (models/vit.py): Flax ViTModel variables <-> torch state_dict
+# ---------------------------------------------------------------------------
+#
+# Flax path (params/...)                          torch key
+#   patch_embed / kernel HWIO | bias                patch_embed.weight OIHW | .bias
+#   cls_token, pos_embed                            cls_token, pos_embed
+#   layernorm, layer_{i} / layernorm_before|after / scale|bias
+#                                                   <same, layer.{i}.>.weight|bias
+#   layer_{i} / attention / {query,key,value,output_dense}
+#   layer_{i} / intermediate|output, classifier     <same>
+#     kernel [in, out] | bias                         .weight [out, in] | .bias
+
+_VIT_MODULE = re.compile(
+    r"^(patch_embed|layernorm|classifier|layer_\d+/(layernorm_before|"
+    r"layernorm_after|attention/(query|key|value|output_dense)|intermediate|"
+    r"output))$")
+_VIT_FIELDS = {"scale": ("weight", "bias"), "kernel": ("weight", "bias")}
+
+
+def vit_flax_to_torch(variables: dict,
+                      module: "torch.nn.Module | None" = None) -> dict:
+    """``{'params': ...}`` numpy tree of the JAX ``ViTModel`` -> a
+    state_dict for ``sparkdl_torch.models.vit.ViTModel``.
+
+    Raises on any leaf it does not consume, on a layer whose fields are
+    incomplete, and, with ``module`` given, on any key of
+    ``module.state_dict()`` the variables do not provide (or the reverse).
+    """
+    extra = set(variables) - {"params"}
+    if extra:
+        raise ValueError(f"unexpected variable collections {sorted(extra)}")
+    params = dict(variables.get("params", {}))
+    out: dict[str, torch.Tensor] = {}
+
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+
+    for name in ("cls_token", "pos_embed"):
+        if name not in params:
+            raise ValueError(f"ViT variables have no {name!r}")
+        out[name] = t(params.pop(name))
+    by_module: dict[str, dict] = {}
+    for path, leaf in _flatten(params).items():
+        mod, _, field = path.rpartition("/")
+        if not _VIT_MODULE.match(mod):
+            raise ValueError(f"unknown ViT parameter {path!r}")
+        by_module.setdefault(mod, {})[field] = leaf
+    for mod, fields in sorted(by_module.items()):
+        kind = next((f for f in _VIT_FIELDS if f in fields), None)
+        if kind is None or set(fields) != {kind, "bias"}:
+            raise ValueError(f"{mod}: fields {sorted(fields)} are not one of "
+                             "{scale, bias}, {kernel, bias}")
+        key = re.sub(r"^layer_(\d+)", r"layer.\1", mod).replace("/", ".")
+        w = np.asarray(fields[kind], dtype=np.float32)
+        if kind == "kernel":
+            w = w.transpose(3, 2, 0, 1) if w.ndim == 4 else w.T
+        out[f"{key}.weight"] = t(w)
+        out[f"{key}.bias"] = t(fields["bias"])
+    if module is not None:
+        want = set(module.state_dict())
+        missing, unexpected = sorted(want - set(out)), sorted(set(out) - want)
+        if missing or unexpected:
+            raise ValueError(
+                f"variables do not match {type(module).__name__}: missing "
+                f"{missing[:8]}, unexpected {unexpected[:8]}"
+            )
+    return out
+
+
+def vit_torch_to_flax(state_dict: dict) -> dict:
+    """The inverse of :func:`vit_flax_to_torch`: a ViT state_dict -> the
+    numpy ``{'params': ...}`` tree of the JAX module."""
+    params: dict = {}
+    for key, v in state_dict.items():
+        a = v.detach().cpu().float().numpy()
+        if key in ("cls_token", "pos_embed"):
+            params[key] = a
+            continue
+        mod, _, field = key.rpartition(".")
+        path = re.sub(r"^layer\.(\d+)", r"layer_\1", mod).replace(".", "/")
+        if not _VIT_MODULE.match(path) or field not in ("weight", "bias"):
+            raise ValueError(f"unknown ViT parameter {key!r}")
+        if field == "bias":
+            name = "bias"
+        elif "layernorm" in path:
+            name = "scale"
+        else:
+            name, a = "kernel", (a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T)
         node = params
         for part in path.split("/"):
             node = node.setdefault(part, {})

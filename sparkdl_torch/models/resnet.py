@@ -36,6 +36,7 @@ from sparkdl_torch.models.common import (
     moved_running_stats,
     nhwc_to_nchw,
     set_running_stats,
+    zero_pad,
 )
 from sparkdl_torch.ops._dispatch import resolve_device
 
@@ -91,9 +92,9 @@ class ResNet50(nn.Module):
             scale, shift = bn_scale_shift(m, mean, var)
             return y * scale[:, None, None] + shift[:, None, None]
 
-        y = F.pad(nhwc_to_nchw(x), (3, 3, 3, 3))
+        y = zero_pad(nhwc_to_nchw(x), 3)
         y = torch.relu(bn(conv(y, 2, "VALID")))
-        y = max_pool(F.pad(y, (1, 1, 1, 1)), 3, 2)
+        y = max_pool(zero_pad(y, 1), 3, 2)
         for filters, blocks, stride in STAGES:
             for i in range(blocks):
                 s = stride if i == 0 else 1

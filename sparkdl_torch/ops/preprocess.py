@@ -8,6 +8,8 @@ outputs are what each model family expects.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 _CAFFE_MEAN_BGR = (103.939, 116.779, 123.68)
@@ -20,15 +22,23 @@ def preprocess_tf(x: torch.Tensor) -> torch.Tensor:
     return x / 127.5 - 1.0
 
 
+@functools.lru_cache(maxsize=None)
+def _constant(values: tuple, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``values`` as a tensor, made once per (device, dtype). A new one
+    would be a host->device copy, which a CUDA-graph capture refuses; the
+    runner's eager warm-up makes it before its capture."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
+
+
 def preprocess_caffe(x: torch.Tensor) -> torch.Tensor:
     """RGB -> BGR, subtract ImageNet channel means (no scaling)."""
-    mean = torch.tensor(_CAFFE_MEAN_BGR, dtype=x.dtype, device=x.device)
-    return x.flip(-1) - mean
+    return x.flip(-1) - _constant(_CAFFE_MEAN_BGR, x.device, x.dtype)
 
 
 def preprocess_torch(x: torch.Tensor) -> torch.Tensor:
-    mean = torch.tensor(_TORCH_MEAN, dtype=x.dtype, device=x.device)
-    std = torch.tensor(_TORCH_STD, dtype=x.dtype, device=x.device)
+    mean = _constant(_TORCH_MEAN, x.device, x.dtype)
+    std = _constant(_TORCH_STD, x.device, x.dtype)
     return (x / 255.0 - mean) / std
 
 

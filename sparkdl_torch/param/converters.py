@@ -1,9 +1,10 @@
 """Type converters for Params: validating conversion of user-supplied
-values with clear errors at set-time rather than failures deep inside
-transform()."""
+values (model files, column name maps, channel orders) with clear errors
+at set-time rather than failures deep inside transform()."""
 
 from __future__ import annotations
 
+import os
 from typing import Any
 
 
@@ -45,3 +46,54 @@ class SparkDLTypeConverters:
         if name not in ("cuda", "cpu"):
             raise ValueError(f"device must be 'cuda' or 'cpu', got {name!r}")
         return name
+
+    @staticmethod
+    def toExistingFilePath(value: Any) -> str:
+        path = SparkDLTypeConverters.toString(value)
+        if not os.path.isfile(path):
+            raise ValueError(f"model file does not exist: {path}")
+        return path
+
+    @staticmethod
+    def toColumnToTensorNameMap(value: Any) -> dict[str, str]:
+        return SparkDLTypeConverters._toStrStrMap(value, "column -> tensor name")
+
+    @staticmethod
+    def toTensorNameToColumnMap(value: Any) -> dict[str, str]:
+        return SparkDLTypeConverters._toStrStrMap(value, "tensor name -> column")
+
+    @staticmethod
+    def _toStrStrMap(value: Any, what: str) -> dict[str, str]:
+        if not isinstance(value, dict) or not value:
+            raise TypeError(f"expected a non-empty dict for {what}, got {value!r}")
+        out = {}
+        for k, v in value.items():
+            if not isinstance(k, str) or not isinstance(v, str):
+                raise TypeError(f"{what} entries must be str->str, got {k!r}: {v!r}")
+            out[k] = v
+        return out
+
+    @staticmethod
+    def toChannelOrder(value: Any) -> str:
+        v = SparkDLTypeConverters.toString(value)
+        if v not in ("RGB", "BGR", "L"):
+            raise ValueError(f"channel order must be RGB, BGR or L, got {v!r}")
+        return v
+
+    @staticmethod
+    def supportedNameConverter(supported: list[str]):
+        def convert(value: Any) -> str:
+            v = SparkDLTypeConverters.toString(value)
+            if v not in supported:
+                raise ValueError(f"{v!r} not in supported set {sorted(supported)}")
+            return v
+
+        return convert
+
+    @staticmethod
+    def toKerasLoss(value: Any) -> str:
+        return SparkDLTypeConverters.toString(value)
+
+    @staticmethod
+    def toKerasOptimizer(value: Any) -> str:
+        return SparkDLTypeConverters.toString(value)

@@ -3,8 +3,9 @@
 Typed ``Param`` descriptors on ``Params`` objects with defaults, setters,
 ``extractParamMap`` and ``copy(extra)`` semantics, as pyspark.ml.param
 has them — so Spark-ML-style code
-(``DeepImageFeaturizer(inputCol=..., modelName=...)``) works verbatim
-without a pyspark dependency. Params match across instances and
+(``DeepImageFeaturizer(inputCol=..., modelName=...)``,
+``Pipeline(stages=[...]).fit(df)``) works verbatim without a pyspark
+dependency. Params match across instances and
 implementations by name.
 """
 
@@ -165,6 +166,16 @@ class HasOutputCol(Params):
         return self.getOrDefault("outputCol")
 
 
+class HasLabelCol(Params):
+    labelCol = Param(None, "labelCol", "label column name")
+
+    def setLabelCol(self, value: str):
+        return self._set(labelCol=value)
+
+    def getLabelCol(self) -> str:
+        return self.getOrDefault("labelCol")
+
+
 class HasBatchSize(Params):
     batchSize = Param(None, "batchSize", "rows per device batch")
 
@@ -185,3 +196,71 @@ class Transformer(Params):
 
     def _transform(self, dataset):  # pragma: no cover - abstract
         raise NotImplementedError
+
+
+class Estimator(Params):
+    """Spark-ML Estimator shape: ``fit(df[, params]) -> Model(s)``."""
+
+    def fit(self, dataset, params: "dict | list[dict] | None" = None):
+        if isinstance(params, (list, tuple)):
+            return self.fitMultiple(dataset, list(params))
+        if params:
+            return self.copy(params)._fit(dataset)
+        return self._fit(dataset)
+
+    def fitMultiple(self, dataset, paramMaps: list[dict]):
+        """Default: sequential fits; estimators override to parallelize."""
+        return [self.copy(pm)._fit(dataset) for pm in paramMaps]
+
+    def _fit(self, dataset):  # pragma: no cover - abstract
+        raise NotImplementedError
+
+
+class Pipeline(Estimator):
+    """Minimal Spark-ML Pipeline: chain of Transformers/Estimators."""
+
+    def __init__(self, stages: list | None = None):
+        super().__init__()
+        self._stages = list(stages or [])
+
+    def setStages(self, stages: list) -> "Pipeline":
+        self._stages = list(stages)
+        return self
+
+    def getStages(self) -> list:
+        return self._stages
+
+    def _fit(self, dataset):
+        def is_estimator(s):
+            return isinstance(s, Estimator) or (
+                hasattr(s, "fit") and not isinstance(s, Transformer)
+            )
+
+        last_est = max(
+            (i for i, s in enumerate(self._stages) if is_estimator(s)),
+            default=-1,
+        )
+        transformers = []
+        df = dataset
+        for i, stage in enumerate(self._stages):
+            model = stage.fit(df) if is_estimator(stage) else stage
+            transformers.append(model)
+            # Only materialize intermediate data while a later stage still
+            # needs it for fitting (pyspark.ml.Pipeline semantics).
+            if i < last_est:
+                df = model.transform(df)
+        return PipelineModel(transformers)
+
+
+class PipelineModel(Transformer):
+    """A fitted Pipeline: its stages' transforms in order."""
+
+    def __init__(self, stages: list):
+        super().__init__()
+        self._stages = list(stages)
+
+    def _transform(self, dataset):
+        df = dataset
+        for stage in self._stages:
+            df = stage.transform(df)
+        return df

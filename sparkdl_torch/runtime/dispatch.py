@@ -39,9 +39,12 @@ histogram, the per-dispatch device-time histogram
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import gc
 import math
 import os
+import threading
 import time
 from typing import Any, Callable, Iterable, Iterator
 
@@ -409,6 +412,36 @@ def require_capturable(optimizer: torch.optim.Optimizer, path: str) -> None:
             "with capturable=True")
 
 
+_NO_GC_LOCK = threading.Lock()
+_NO_GC = {"depth": 0, "was_enabled": False}
+
+
+@contextlib.contextmanager
+def no_gc():
+    """Python's cyclic garbage collector off inside the block. A
+    collection during a CUDA-graph capture can finalize a dropped runner
+    (its staging ring, pinned buffers, events), whose CUDA calls
+    invalidate the capture; PyTorch's ``torch.cuda.graph`` no longer
+    collects before a capture, so such garbage may still be waiting.
+
+    The collector is process-wide and captures may overlap across threads
+    (HPO trials in threads), so the blocks share one depth count: the
+    first to enter turns the collector off, the last to leave restores
+    the state the first found."""
+    with _NO_GC_LOCK:
+        if _NO_GC["depth"] == 0:
+            _NO_GC["was_enabled"] = gc.isenabled()
+            gc.disable()
+        _NO_GC["depth"] += 1
+    try:
+        yield
+    finally:
+        with _NO_GC_LOCK:
+            _NO_GC["depth"] -= 1
+            if _NO_GC["depth"] == 0 and _NO_GC["was_enabled"]:
+                gc.enable()
+
+
 class CapturedGraph:
     """``fn(*inputs)`` captured as one CUDA graph over static copies of
     ``inputs``, and the kernel launches one replay makes (what the
@@ -441,9 +474,10 @@ class CapturedGraph:
         t0 = time.perf_counter()
         try:
             # thread_local: feed threads may keep copying (and registering
-            # host memory) while this thread captures
-            with torch.cuda.graph(self.graph, stream=stream,
-                                  capture_error_mode="thread_local"):
+            # host memory) while this thread captures; no collection may
+            # finalize garbage mid-capture (no_gc)
+            with no_gc(), torch.cuda.graph(self.graph, stream=stream,
+                                           capture_error_mode="thread_local"):
                 self.outputs = fn(*self.inputs, **kwargs)
         finally:
             # the wrappers counted launches that were only captured

@@ -2,9 +2,12 @@
 
 Apply a named ImageNet model to an image column: the Predictor emits
 class probabilities (optionally top-K decoded), the Featurizer emits
-penultimate-layer features for transfer learning. The model is a torch
-module on ``device`` (``cuda`` unless the caller passes ``device="cpu"``),
-fed by the shared bucketed runner.
+penultimate-layer features for transfer learning (fc2 for VGG, the
+final-LayerNorm CLS token for ViT-B/16). The model is any of the
+registry's (``models/registry.py``), a torch module on ``device``
+(``cuda`` unless the caller passes ``device="cpu"``), fed by the shared
+bucketed runner. Models whose features need the classifier head (VGG)
+are built with it (``build_torch_model``).
 
 InceptionV3 featurization runs the branch-merged forward
 (models/inception_fused.py) with the 'tf' preprocess folded into the stem
@@ -53,6 +56,8 @@ def _named_model_runner(model_name: str, weights: "str | None",
                         device: str) -> BatchedRunner:
     """Per-process runner cache: one runner (and one set of prepared
     weights) per (model, head, batch size, device)."""
+    # a model whose features need its head (VGG) is one model for both
+    include_top = include_top or get_entry(model_name).features_need_top
     module = _load_named_model(model_name, weights, include_top, device)
 
     if model_name == "InceptionV3" and head == "features":
@@ -115,7 +120,7 @@ def _image_to_rgb_array(value: Any) -> np.ndarray:
 
 def _model_name(value: Any) -> str:
     name = SparkDLTypeConverters.toString(value)
-    get_entry(name)  # raises for unknown and not-yet-ported models
+    get_entry(name)  # raises for unknown models
     return name
 
 
@@ -126,8 +131,10 @@ class _NamedImageTransformer(Transformer, HasInputCol, HasOutputCol, HasBatchSiz
                       _model_name)
     weights = Param(
         None, "weights",
-        "'random' for random init ('imagenet' and weight files are not "
-        "ported yet; None in the constructor means unset -> default)",
+        "'random' for random init ('imagenet' and Keras weight files "
+        "wait for the Keras side of ROADMAP A3 and raise; HF-sourced "
+        "ViTB16 takes only 'random'; None in the constructor means unset "
+        "-> default)",
     )
     device = Param(None, "device", "'cuda' (default) or 'cpu'",
                    SparkDLTypeConverters.toDevice)

@@ -405,3 +405,63 @@ def test_require_capturable_names_the_optimizer_and_the_path():
         require_capturable(torch.optim.AdamW(params), "train")
     require_capturable(torch.optim.AdamW(params, capturable=True), "train")
     require_capturable(torch.optim.SGD(params, lr=0.1, momentum=0.9), "train")
+
+
+def test_no_gc_holds_the_collector_off_and_restores_it():
+    """A graph capture runs with the cyclic collector off (a collection
+    mid-capture can finalize a dropped runner whose CUDA calls invalidate
+    the capture), and the collector's state is restored after, on an
+    error too."""
+    import gc
+
+    from sparkdl_torch.runtime.dispatch import no_gc
+
+    assert gc.isenabled()
+    with no_gc():
+        assert not gc.isenabled()
+    assert gc.isenabled()
+    with pytest.raises(KeyError):
+        with no_gc():
+            raise KeyError("boom")
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with no_gc():
+            pass
+        assert not gc.isenabled()  # left as the caller had it
+    finally:
+        gc.enable()
+
+
+def test_no_gc_blocks_overlapping_across_threads_share_one_count():
+    """Two threads' captures overlap: the collector stays off until the
+    last block leaves, whichever entered first, then is restored."""
+    import gc
+    import threading
+
+    from sparkdl_torch.runtime.dispatch import no_gc
+
+    entered, second_entered, first_left = (threading.Event() for _ in range(3))
+    seen = []
+
+    def first():
+        with no_gc():
+            entered.set()
+            assert second_entered.wait(10)
+        first_left.set()
+
+    def second():
+        assert entered.wait(10)
+        with no_gc():
+            second_entered.set()
+            assert first_left.wait(10)
+            seen.append(gc.isenabled())  # the first has left; this one still captures
+
+    assert gc.isenabled()
+    threads = [threading.Thread(target=f) for f in (first, second)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(20)
+    assert seen == [False]
+    assert gc.isenabled()

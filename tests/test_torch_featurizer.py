@@ -268,8 +268,9 @@ def test_featurizer_defaults_and_device_param():
     assert t.getOrDefault("device") == "cuda"
     with pytest.raises(ValueError):
         DeepImageFeaturizer(modelName="InceptionV3", device="tpu")
-    with pytest.raises(NotImplementedError):
-        DeepImageFeaturizer(modelName="ResNet50")
+    assert DeepImageFeaturizer(modelName="ResNet50").getModelName() == "ResNet50"
+    with pytest.raises(ValueError):
+        DeepImageFeaturizer(modelName="NoSuchNet")
     assert t.copy({"batchSize": 8}).getBatchSize() == 8
 
 

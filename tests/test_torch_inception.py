@@ -202,8 +202,8 @@ def test_random_init_follows_flax_defaults():
 
 
 @pytest.mark.parametrize("name,weights,exc", [
-    ("ResNet50", "random", NotImplementedError),
-    ("Xception", None, NotImplementedError),
+    ("ResNet50", "/some/file.h5", NotImplementedError),
+    ("ViTB16", "imagenet", ValueError),
     ("NoSuchNet", None, ValueError),
     ("InceptionV3", "imagenet", NotImplementedError),
     ("InceptionV3", "/some/file.h5", NotImplementedError),

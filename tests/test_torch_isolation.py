@@ -60,6 +60,16 @@ assert len(history) == 1 and np.isfinite(history[0]["loss"])
 from sparkdl_torch.ops.fused_gemm_bn import conv1x1_bn_stats
 y, mean, var = conv1x1_bn_stats(torch.randn(2, 4, 4, 128), torch.randn(128, 8))
 assert y.shape == (2, 4, 4, 8) and mean.shape == var.shape == (8,)
+from sparkdl_torch import DeepTextFeaturizer, Pipeline
+from sparkdl_torch.models.bert import BertModel
+tcfg = BertConfig.tiny()
+tsd = init_bert_(BertModel(tcfg, device="cpu"), seed=0).state_dict()
+feat = DeepTextFeaturizer(inputCol="p", outputCol="f", model=(tcfg, tsd), maxLength=8,
+                          device="cpu")
+rows = Pipeline(stages=[feat]).fit(df).transform(df).collect()
+assert rows[0]["f"].shape == (32,) and np.isfinite(rows[2]["f"]).all()
+from sparkdl_torch.hpo import fmin, hp
+assert 0 <= fmin(lambda p: p["x"], {"x": hp.uniform("x", 0, 1)}, max_evals=3)["x"] <= 1
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in FORBIDDEN)
 print("LOADED", loaded)
@@ -86,6 +96,14 @@ def _port_files():
     files = sorted((REPO / "sparkdl_torch").rglob("*.py"))
     assert len(files) > 20
     return files + [REPO / "chip_smoke.py"]
+
+
+def test_the_scan_covers_the_package_root():
+    """Modules at the package root (the HPO search and its worker) are
+    scanned like the subpackages'."""
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    assert {"sparkdl_torch/hpo.py", "sparkdl_torch/_trial_worker.py",
+            "sparkdl_torch/__init__.py", "chip_smoke.py"} <= names
 
 
 def _imported_roots(path: Path):

@@ -41,9 +41,11 @@ def zoo_variables(model, seed, size, gamma=None):
     init, with numpy values drawn from ``seed`` (see
     :func:`inception_variables`); ``gamma`` = (mean, std) draws the BN
     scales around ``mean`` instead of around 0."""
-    shapes = jax.eval_shape(
+    import flax
+
+    shapes = flax.core.meta.unbox(jax.eval_shape(
         model.init, jax.random.PRNGKey(0),
-        jnp.zeros((1, size, size, 3), jnp.float32))
+        jnp.zeros((1, size, size, 3), jnp.float32)))
     r = np.random.default_rng(seed)
 
     def draw(path, leaf):
@@ -61,9 +63,9 @@ def zoo_variables(model, seed, size, gamma=None):
     return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
-def without_top(variables):
-    params = {k: v for k, v in variables["params"].items() if k != "dense000"}
-    return {"params": params, "batch_stats": variables["batch_stats"]}
+def without_top(variables, head="dense000"):
+    params = {k: v for k, v in variables["params"].items() if k != head}
+    return {**variables, "params": params}
 
 
 def to_jax(tree):
@@ -118,3 +120,106 @@ def left_pad(prompts):
         ids[i, lp - len(p):] = p
         mask[i, lp - len(p):] = 1
     return ids, mask
+
+
+# ---------------------------------------------------------------------------
+# the image zoo: both packages' modules on the same weights
+# ---------------------------------------------------------------------------
+
+def zoo_jax_builder(name):
+    from sparkdl_tpu.models.registry import get_entry
+
+    return get_entry(name).flax_builder
+
+
+def zoo_torch_module(name, variables, include_top):
+    """The port's module for the zoo model ``name`` on the CPU, loaded
+    with the Flax ``variables`` (the head dropped without the top)."""
+    from sparkdl_torch.models import convert
+    from sparkdl_torch.models.registry import get_entry
+
+    module = get_entry(name).builder(include_top=include_top, num_classes=1000)
+    if name == "ViTB16":
+        v = variables if include_top else without_top(variables, "classifier")
+        module.load_state_dict(convert.vit_flax_to_torch(v, module=module))
+    else:
+        head = "dense002" if name.startswith("VGG") else "dense000"
+        v = variables if include_top else without_top(variables, head)
+        module.load_state_dict(convert.flax_to_torch(v, module=module))
+    return module.eval()
+
+
+_SERVED = {}
+
+
+def _served(name):
+    """One model's numpy variables at a time (VGG19 alone is 0.57 GB)."""
+    if name not in _SERVED:
+        from sparkdl_torch.models.registry import get_entry
+
+        _SERVED.clear()
+        size = get_entry(name).input_size[0]
+        _SERVED[name] = zoo_variables(zoo_jax_builder(name)(include_top=True), 8,
+                                      size, gamma=(1.0, 0.1))
+    return _SERVED[name]
+
+
+def zoo_rows(size):
+    """Three random image structs (one at another size, so the host resize
+    runs) and one undefined row (id -1)."""
+    from sparkdl_torch.image import imageArrayToStructBGR, undefined_image
+
+    r = np.random.default_rng(size)
+    shapes = [(size, size), (size - 40, size + 30), (size, size)]
+    out = [{"id": i, "image": imageArrayToStructBGR(
+        r.integers(0, 256, (h, w, 3), dtype=np.uint8), origin=f"img{i}")}
+        for i, (h, w) in enumerate(shapes)]
+    out.insert(1, {"id": -1, "image": undefined_image("broken")})
+    return out
+
+
+def named_image_parity(monkeypatch, name, cls_name, tol=NET_TOL):
+    """``cls_name`` (DeepImageFeaturizer or DeepImagePredictor) of both
+    packages over :func:`zoo_rows` at the model's input size, both
+    loaders serving the same numpy weights; the port on the CPU over two
+    partitions. Rows agree within ``tol`` and the undefined row is None."""
+    from sparkdl_torch import LocalDataFrame
+    from sparkdl_torch.models.registry import get_entry
+    from sparkdl_torch.transformers import named_image as torch_ni
+    from sparkdl_tpu.dataframe import LocalDataFrame as JaxFrame
+    from sparkdl_tpu.transformers import named_image as jax_ni
+
+    def jax_load(model_name, weights, include_top, weights_token=0.0):
+        top = include_top or get_entry(model_name).features_need_top
+        return (zoo_jax_builder(model_name)(include_top=top),
+                to_jax(_served(model_name)))
+
+    def torch_load(model_name, weights, include_top, device):
+        assert device == "cpu"
+        top = include_top or get_entry(model_name).features_need_top
+        return zoo_torch_module(model_name, _served(model_name), top)
+
+    entry = get_entry(name)
+    rows = zoo_rows(entry.input_size[0])
+    kw = dict(inputCol="image", outputCol="out", modelName=name, weights="random",
+              batchSize=4)
+    jax_ni._named_model_runner.cache_clear()
+    torch_ni._named_model_runner.cache_clear()
+    monkeypatch.setattr(jax_ni, "_load_named_model", jax_load)
+    monkeypatch.setattr(torch_ni, "_load_named_model", torch_load)
+    try:
+        want = {r["id"]: r["out"] for r in getattr(jax_ni, cls_name)(**kw)
+                .transform(JaxFrame.from_rows(rows, 1)).collect()}
+        out = getattr(torch_ni, cls_name)(device="cpu", **kw).transform(
+            LocalDataFrame.from_rows(rows, 2)).collect()
+    finally:
+        jax_ni._named_model_runner.cache_clear()
+        torch_ni._named_model_runner.cache_clear()
+    assert [r["id"] for r in out] == [r["id"] for r in rows]
+    got = {r["id"]: r["out"] for r in out}
+    assert got[-1] is None and want[-1] is None
+    ids = [0, 1, 2]
+    width = entry.feature_dim if cls_name == "DeepImageFeaturizer" else 1000
+    assert all(got[i].dtype == np.float32 and got[i].shape == (width,) for i in ids)
+    assert_close(np.stack([got[i] for i in ids]),
+                 np.stack([np.asarray(want[i]) for i in ids]), tol)
