@@ -2347,6 +2347,376 @@ def phase_hpo(card: str) -> dict:
           f"a step x {HPO_STEPS} x {len(ok)}")
     return {"seconds": [t["seconds"] for t in ok], "best": best}
 
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_BLOCK, SERVE_CHUNK = 16, 512, 16, 256
+SERVE_REQS, SERVE_NEW, SERVE_SHARED, SERVE_PREFIX = 64, 32, 16, 128
+SERVE_THREADS, SERVE_WAIT_S = 8, 0.004
+SERVE_QUANT_AGREE = 0.8  # tests/serving/test_kv_quant.py's "near the oracle" bar
+SERVE_TICK_NEW = 200     # the timed decode ticks: 16 rows of 256 + up to 200 tokens
+
+
+def _serve_prompts(vocab: int, seed: int) -> list:
+    """SERVE_REQS prompts of 8..256 tokens from ``seed``; every fourth
+    one (SERVE_SHARED of them) opens with one SERVE_PREFIX-token prefix
+    and an 8-token stem, half of those with a short tail (the prompt's
+    last block partial: a later sharer copies it on write)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, SERVE_PREFIX)
+    stem = rng.integers(0, vocab, 8)
+    prompts = []
+    for i in range(SERVE_REQS):
+        if i % (SERVE_REQS // SERVE_SHARED):
+            prompts.append(rng.integers(0, vocab, int(rng.integers(8, 257))))
+            continue
+        n_tail = int(rng.integers(1, 16) if (i // 4) % 2 else rng.integers(16, 129))
+        tail = np.concatenate([stem, rng.integers(0, vocab, n_tail)])[:n_tail]
+        prompts.append(np.concatenate([prefix, tail]))
+    return prompts
+
+
+def _serve_engine(cfg, model, **kw):
+    from sparkdl_torch.serving import ContinuousGPTEngine
+
+    return ContinuousGPTEngine(
+        cfg, model, n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+        kv_block_size=SERVE_BLOCK, prefill_chunk=SERVE_CHUNK, auto_start=False, **kw)
+
+
+def _burst(eng, prompts) -> dict:
+    """All prompts submitted at once (on a fresh engine before its daemon
+    loop starts), each for SERVE_NEW tokens: the tokens, wall seconds,
+    per-request TTFT and ms per output token after the first, and the
+    engine's snapshot."""
+    import numpy as np
+
+    sent, done, futs = [], {}, []
+    for i, p in enumerate(prompts):
+        sent.append(time.monotonic())
+        futs.append(eng.submit(p, SERVE_NEW))
+        futs[-1].add_done_callback(lambda f, i=i: done.__setitem__(i, time.monotonic()))
+    t0 = time.perf_counter()
+    eng.start()
+    outs = [np.asarray(f.result(timeout=600)) for f in futs]
+    secs = time.perf_counter() - t0
+    ttft = [f.ttft_s for f in futs]
+    tpot = [(done[i] - sent[i] - ttft[i]) / (len(outs[i]) - 1) for i in range(len(outs))]
+    return {"outs": outs, "secs": secs, "ttft": ttft, "tpot": tpot,
+            "snap": eng.snapshot()}
+
+
+def _serve_runs(cfg, model, bursts, **kw) -> list:
+    """One engine, the bursts in turn: the first cold (each program's
+    first call runs eagerly and is captured), the later ones replaying
+    its CUDA graphs. Closes the engine (which frees its graphs)."""
+    import torch
+
+    eng = _serve_engine(cfg, model, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for prompts in bursts:
+        captured = eng.graphs.captures
+        runs.append(_burst(eng, prompts))
+        runs[-1]["captured"] = eng.graphs.captures - captured
+    runs[-1]["peak_gib"] = torch.cuda.max_memory_reserved() / 2**30
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+    return runs
+
+
+def _first_difference(model, prompt, got, want) -> str:
+    """Where two greedy streams of one prompt part: the first step that
+    differs, and at that step the oracle's top-2 logit gap and the largest
+    logit difference between the two contexts' next-token logits."""
+    import torch
+
+    j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+             min(len(got), len(want)))
+    if j >= min(len(got), len(want)):
+        return f"lengths {len(got)} vs {len(want)}"
+    dev = next(model.parameters()).device
+    with torch.no_grad():
+        lw = model(torch.as_tensor([list(prompt) + want[:j]], device=dev))[0][0, -1]
+        lg = model(torch.as_tensor([list(prompt) + got[:j]], device=dev))[0][0, -1]
+    top2 = torch.topk(lw, 2).values
+    return (f"first difference at step {j} ({got[j]} vs {want[j]}), top-2 logit gap "
+            f"{(top2[0] - top2[1]).item():.3e}, max logit diff "
+            f"{(lw - lg).abs().max().item():.3e}")
+
+
+def _same_tokens(name, model, prompts, got, want) -> int:
+    """How many streams of ``got`` equal ``want``; raises at the first
+    that differs, with where and by how much."""
+    for p, a, b in zip(prompts, got, want):
+        if len(a) != len(b) or (a != b).any():
+            raise AssertionError(f"[serve] {name}: tokens differ: "
+                                 + _first_difference(model, p, a.tolist(), b.tolist()))
+    return len(got)
+
+
+def _decode_tick(cfg, model) -> str:
+    """One decode tick at S=16 live rows, each past 256 tokens (the gather
+    covers nb=32 blocks = 512 columns): host wall of tick() against the
+    device time of its CUDA graph (replayed between CUDA events), the
+    share of an eager step's device time that the paged gather takes
+    (torch.profiler), and the bytes bound of the step."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(12)
+    eng = _serve_engine(cfg, model)
+    futs = [eng.submit(rng.integers(0, cfg.vocab_size, SERVE_CHUNK), SERVE_TICK_NEW)
+            for _ in range(SERVE_SLOTS)]
+    while eng.active_slots < SERVE_SLOTS:
+        eng.tick()
+    for _ in range(3):  # the first tick at this depth captures its graph
+        eng.tick()
+    host = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        eng.tick()
+        host.append((time.perf_counter() - t0) * 1e3)
+    nb = eng._gather_depth(1)
+    graph = [g for key, g in zip(eng.graphs.keys(), eng.graphs.graphs())
+             if key[1][:2] == ("paged_step", (1, nb))]
+    if len(graph) != 1:
+        raise AssertionError(f"[serve] {len(graph)} graphs for a decode step at nb={nb}")
+    dev = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            graph[0].graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        dev.append(start.elapsed_time(end) / 10)
+    table, idx, tok = eng._dev(eng._table), eng._dev(eng._pidx), eng._dev(eng._last_tok)
+    with torch.no_grad():
+        step = _kernel_times(lambda: eng._paged_step(table, idx, tok, k=1, nb=nb), reps=5)
+        gather_ms = _time_ms(lambda: eng._virtual_cache(table[:, :nb]), reps=10)
+    index_ms = sum(ms for n, ms in step.items() if "index" in n)
+    c = cfg
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    cache = 2 * c.num_layers * SERVE_SLOTS * nb * SERVE_BLOCK * c.hidden_size * 4
+    bound = (weights + 3 * cache) / H100_BYTES_S * 1e3
+    eng.close(drain=False)
+    for f in futs:
+        if not f.done() or not isinstance(f.exception(), Exception):
+            raise AssertionError("[serve] a timed request was not failed by close(drain=False)")
+    del eng
+    torch.cuda.empty_cache()
+    return (f"decode tick at S={SERVE_SLOTS} live rows, depth {SERVE_CHUNK}+ (gather "
+            f"nb={nb} blocks = {nb * SERVE_BLOCK} columns): {statistics.median(host):.3f} ms "
+            f"host-driven (tick(): table/idx upload, graph replay, token readback, "
+            f"bookkeeping), {statistics.median(dev):.3f} ms device (its CUDA graph between "
+            f"CUDA events); the paged gather alone {gather_ms:.3f} ms (CUDA events) = "
+            f"{gather_ms / statistics.median(dev):.0%} of the step; eager step's device "
+            f"time {sum(step.values()):.3f} ms (torch.profiler), of it index kernels "
+            f"(the gather, the column writes and the scatter) {index_ms:.3f} ms = "
+            f"{index_ms / max(sum(step.values()), 1e-9):.0%}; "
+            f"bytes bound {bound:.3f} ms (weights {weights / 1e9:.2f} GB + the virtual "
+            f"cache {cache / 1e9:.2f} GB gathered, written and read by attention); top "
+            f"kernels: {_breakdown(step, {}, top=4).split('; top: ')[1]}")
+
+
+def phase_serve(card: str) -> dict:
+    """The serving core: ContinuousGPTEngine at GPT-2-small width (paged
+    pool, prefix cache, chunked prefill; dense, chained, speculative,
+    bf16 and int8 variants) against batch-1 generate, and ServingEngine
+    over DeepImageFeaturizer(InceptionV3)'s runner against the
+    featurizer's rows."""
+    import threading
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from sparkdl_torch import DeepImageFeaturizer, LocalDataFrame
+    from sparkdl_torch.models.gpt import GPTConfig, GPTLMHeadModel, generate, init_gpt_
+    from sparkdl_torch.models.registry import get_entry
+    from sparkdl_torch.ops.stem_fused import inception_stem_fused
+    from sparkdl_torch.serving import ServingEngine
+    from sparkdl_torch.transformers.named_image import (
+        _image_to_rgb_array,
+        _named_model_runner,
+        _resize_host,
+    )
+
+    t_phase = time.perf_counter()
+    # GPT-2 small: GPTConfig's widths, the learned position table, dense
+    # attention (the continuous engine's per-slot steps are always dense)
+    cfg = GPTConfig(positions="learned")
+    model = GPTLMHeadModel(cfg, device="cuda")
+    model.load_state_dict(init_gpt_(GPTLMHeadModel(cfg, device="cpu"), seed=0).state_dict())
+    model.eval()
+    bursts = [_serve_prompts(cfg.vocab_size, seed) for seed in (0, 1)]
+
+    phase_s = {}
+    t0 = time.perf_counter()
+    _zero_counts()
+    main = _serve_runs(cfg, model, bursts)
+    launched = _launch_counts()
+    if any(launched.values()):
+        raise AssertionError(f"[serve] the continuous engine launched kernels: {launched}")
+    phase_s["paged"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the oracle for the warm burst, whose every program is a graph replay
+    # (eager batch-1 generate is host-bound: ~0.7 s a request); the cold
+    # burst is held to the dense engine's below
+    dev = model.wte.weight.device
+    with torch.inference_mode():
+        oracle = [generate(model, torch.as_tensor(p[None], device=dev).long(),
+                           SERVE_NEW)[0, len(p):].cpu().numpy() for p in bursts[1]]
+    _same_tokens("paged engine, warm burst vs batch-1 generate", model, bursts[1],
+                 main[1]["outs"], oracle)
+    phase_s["generate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runs = {}
+    for name, kw in (("dense", dict(kv_layout="dense")), ("chain8", dict(chain_tokens=8)),
+                     ("spec4", dict(spec_k=4))):
+        runs[name] = _serve_runs(cfg, model, bursts, **kw)
+        for b, (prompts, run, ref) in enumerate(zip(bursts, runs[name], main)):
+            _same_tokens(f"{name} burst {b} vs paged", model, prompts, run["outs"],
+                         ref["outs"])
+    quant = {}
+    for dt in ("bf16", "int8"):
+        a = _serve_runs(cfg, model, bursts, kv_dtype=dt)
+        b = _serve_runs(cfg, model, bursts, kv_dtype=dt)
+        if any((x != y).any() for ra, rb in zip(a, b)
+               for x, y in zip(ra["outs"], rb["outs"])):
+            raise AssertionError(f"[serve] kv_dtype={dt}: two runs differ")
+        agree = np.mean(np.concatenate([x == y for x, y in zip(a[1]["outs"], oracle)]))
+        quant[dt] = (agree, a)
+    phase_s["variants"] = time.perf_counter() - t0
+    warm, kv = main[1], main[1]["snap"]["kv"]
+    gs, spec = warm["snap"]["graphs"], runs["spec4"][1]["snap"]["spec"]
+    total = SERVE_REQS * SERVE_NEW
+    pct = lambda xs, q: float(np.percentile(xs, q))  # noqa: E731
+    hits0 = main[0]["snap"]["kv"]["prefix_hits"]
+    print(f"[serve] ContinuousGPTEngine GPT-2 small ({cfg.num_layers}x{cfg.hidden_size}, "
+          f"learned positions, float32, TF32 off, random init seed 0), n_slots "
+          f"{SERVE_SLOTS}, max_len {SERVE_MAX_LEN}, paged pool of {kv['blocks_total']} "
+          f"blocks x {SERVE_BLOCK} tokens "
+          f"({kv['blocks_total'] * SERVE_BLOCK * kv['bytes_per_token'] / 1e6:.0f} MB), "
+          f"prefill_chunk {SERVE_CHUNK}; bursts of {SERVE_REQS} requests of 8..256 "
+          f"prompt tokens through the daemon loop ({SERVE_SHARED} share a "
+          f"{SERVE_PREFIX}-token prefix), {SERVE_NEW} greedy tokens each, the first burst "
+          f"cold (each program's first call eager, then captured), the second (new "
+          f"prompts, seed 1) on the captured graphs; {card}: warm "
+          f"{total / warm['secs']:.1f} tokens/s ({warm['secs']:.2f} s; cold "
+          f"{total / main[0]['secs']:.1f}), TTFT p50 {pct(warm['ttft'], 50) * 1e3:.1f} ms "
+          f"p99 {pct(warm['ttft'], 99) * 1e3:.1f} ms, {np.median(warm['tpot']) * 1e3:.2f} "
+          f"ms per output token after the first (median over requests), prefix-hit "
+          f"tokens {hits0} cold + {kv['prefix_hits'] - hits0} warm, {kv['prefill_chunks']} "
+          f"prefill chunks, graphs {gs['captured']} captured in {gs['capture_s']:.2f} s "
+          f"({gs['cached']} cached, pools {gs['pool_bytes'] / 2**20:.0f} MB), peak "
+          f"reserved {main[1]['peak_gib']:.2f} GiB; kernel launches 0 (the per-slot "
+          f"steps are the dense masked path)")
+    print(f"[serve] tokens equal to batch-1 generate in {SERVE_REQS}/{SERVE_REQS} "
+          f"requests of the warm burst; dense layout, chain_tokens=8 and spec_k=4 each "
+          f"equal to the paged run's in {2 * SERVE_REQS}/{2 * SERVE_REQS} (both bursts); warm "
+          + ", ".join(f"{n} {total / r[1]['secs']:.1f} tokens/s" for n, r in runs.items())
+          + f" (graphs captured during the warm burst: " + ", ".join(
+              f"{n} {r[1]['captured']}" for n, r in (("paged", main), *runs.items()))
+          + f"); spec acceptance {spec['acceptance_rate']} ({spec['accepted']}/"
+          f"{spec['proposed']} drafts, {spec['tokens_per_dispatch']} tokens a verify); "
+          + "; ".join(f"kv_dtype={dt}: two engines' runs bitwise equal, {agree:.1%} of "
+                      f"the warm burst's tokens equal to generate's (bar "
+                      f"{SERVE_QUANT_AGREE:.0%}), warm "
+                      f"{total / r[1]['secs']:.1f} tokens/s" for dt, (agree, r) in quant.items()))
+    for dt, (agree, _) in quant.items():
+        if agree < SERVE_QUANT_AGREE:
+            raise AssertionError(f"[serve] kv_dtype={dt}: {agree:.1%} of tokens equal "
+                                 f"to generate's, under {SERVE_QUANT_AGREE:.0%}")
+    t0 = time.perf_counter()
+    print(f"[serve] {_decode_tick(cfg, model)}")
+    phase_s["tick"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    del model
+    torch.cuda.empty_cache()
+
+    # ServingEngine over the featurizer's own runner, 8 closed-loop clients
+    rng = np.random.default_rng(11)
+    images, rows = _image_rows(rng, SIZE)
+    want = DeepImageFeaturizer(inputCol="image", outputCol="f", modelName="InceptionV3",
+                               weights="random", batchSize=BATCH).transform(
+        LocalDataFrame.from_rows(rows, N_PARTS)).collect()
+    want = {r["id"]: r["f"] for r in want}
+    runner = _named_model_runner("InceptionV3", "random", False, "features", BATCH,
+                                 "cuda")
+    sizes = []
+
+    class _Counted:
+        """The runner, counting the rows of each batch it is handed."""
+        chunk_size = runner.chunk_size
+        max_inflight_batches = runner.max_inflight_batches
+
+        @staticmethod
+        def run_batch_async(arrays):
+            sizes.append(len(arrays["img"]))
+            return runner.run_batch_async(arrays)
+
+    size = get_entry("InceptionV3").input_size  # the featurizer's own extract
+    eng = ServingEngine(_Counted(), max_wait_s=SERVE_WAIT_S, extract=lambda s: {
+        "img": _resize_host(_image_to_rgb_array(s), size)})
+    got, errs = {}, []
+
+    def client(ids):
+        try:
+            for i in ids:
+                got[i] = eng.submit(rows[i]["image"]).result(timeout=120)
+        except Exception as e:  # reported below: a client must not die silently
+            errs.append(e)
+
+    _zero_counts()
+    threads = [threading.Thread(target=client, args=(range(j, N_ROWS, SERVE_THREADS),))
+               for j in range(SERVE_THREADS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    secs = time.perf_counter() - t0
+    stem_launches = inception_stem_fused.launches
+    esnap = eng.snapshot()
+    eng.close()
+    if errs or len(got) != N_ROWS or any(th.is_alive() for th in threads):
+        raise AssertionError(f"[serve] ServingEngine: {len(got)}/{N_ROWS} answers, {errs[:3]}")
+    worst = max(_rel_err(torch.as_tensor(got[i]), torch.as_tensor(want[i]))[1]
+                for i in range(N_ROWS))
+    if worst > NET_TOL:
+        raise AssertionError(f"[serve] ServingEngine answers vs the featurizer's rows: "
+                             f"rel err {worst:.2e} > {NET_TOL}")
+    if stem_launches != len(sizes):
+        raise AssertionError(f"[serve] stem launches {stem_launches} for {len(sizes)} batches")
+    lat = esnap["latency_s"]
+    print(f"[serve] ServingEngine over DeepImageFeaturizer(InceptionV3)'s runner, "
+          f"{N_ROWS} single-image requests from {SERVE_THREADS} closed-loop client "
+          f"threads, max_wait_s {SERVE_WAIT_S}; {card}: {N_ROWS / secs:.1f} requests/s, "
+          f"latency p50 {lat['p50'] * 1e3:.1f} ms p99 {lat['p99'] * 1e3:.1f} ms; "
+          f"{len(sizes)} batches of sizes {dict(sorted(Counter(sizes).items()))}; "
+          f"inception_stem_fused launches {stem_launches} (one a batch); answers vs the "
+          f"featurizer's rows rel err {worst:.2e} (tol {NET_TOL})")
+    phase_s["serving_engine"] = time.perf_counter() - t0
+    print(f"[serve] phase {time.perf_counter() - t_phase:.1f} s: " + ", ".join(
+        f"{n} {s:.1f} s" for n, s in phase_s.items()))
+    return {"tokens_s": total / warm["secs"], "requests_s": N_ROWS / secs}
+
+
+def _launch_counts() -> dict:
+    from sparkdl_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from sparkdl_torch.ops.flash_decode import flash_decode
+    from sparkdl_torch.ops.fused_gemm_bn import gemm_bn_stats
+    from sparkdl_torch.ops.stem_fused import inception_stem_fused
+
+    return {"inception_stem_fused": inception_stem_fused.launches,
+            "flash_attention": flash_attention.launches,
+            "flash_attention_bwd_dq": flash_attention_bwd.launches_dq,
+            "flash_attention_bwd_dkv": flash_attention_bwd.launches_dkv,
+            "flash_decode": flash_decode.launches, "gemm_bn_stats": gemm_bn_stats.launches}
+
 
 def main() -> int:
     # a fixed cuBLAS workspace, which deterministic algorithms need
@@ -2370,6 +2740,7 @@ def main() -> int:
     phase_vit(card, attn)
     text_rate = phase_text(card, attn)
     hpo = phase_hpo(card)
+    serve = phase_serve(card)
     kernels = [stem, attn, dq, dkv, decode, gemm]
     print(f"[summary] {card}: zoo featurizer images/s "
           + ", ".join(f"{n} {r:.1f}" for n, r in zoo_rates.items())
@@ -2379,7 +2750,9 @@ def main() -> int:
           f"{attn['vit_bound_ms']:.4f}), at BERT-base inference B={TEXT_BATCH} "
           f"L={TEXT_LEN} masked {attn['text_ms']:.4f} ms (plain {attn['text_plain_ms']:.4f}, "
           f"SDPA {attn['text_library_ms']:.4f}, bound {attn['text_bound_ms']:.4f}); HPO "
-          f"trials {', '.join(f'{s:.1f}' for s in hpo['seconds'])} s")
+          f"trials {', '.join(f'{s:.1f}' for s in hpo['seconds'])} s; ContinuousGPTEngine "
+          f"GPT-2 small {serve['tokens_s']:.1f} tokens/s; ServingEngine InceptionV3 "
+          f"{serve['requests_s']:.1f} requests/s")
     print(f"[summary] {card}: featurizer {images_s:.1f} images/s; generator "
           f"{tokens_s:.1f} tokens/s; BERT-base fine-tune {examples_s:.1f} examples/s; "
           f"ResNet50 training {train_images_s:.1f} images/s; flash_attention at the "

@@ -15,13 +15,19 @@ head with float32 logits, and attention dispatched on
   ``ops/flash_decode``.
 
 The KV cache is a dict of preallocated buffers ``k``/``v``
-``[layers, B, max_len, H, D]`` written in place, and a host int ``idx``
-(the number of positions written), so no step reads anything back from
-the device. The forward is the JAX module's deterministic one
-(``train=False``): dropout belongs to training, which is not ported yet
-(ROADMAP A8). Not ported yet either, and raising where asked for: ring
-attention and mixture-of-experts MLPs (A8), per-slot caches and block
-pools (A7), ``return_kv`` and ``sp_prefill`` (A8).
+``[layers, B, max_len, H, D]`` written in place, and ``idx``: a host int
+(the number of positions written) on the lockstep path, so no step reads
+anything back from the device, or (``init_cache(per_slot=True)``, the
+continuous-batching engine of ``serving/continuous.py``) an int32 ``[B]``
+tensor on the device, every row at its own depth. A per-slot step writes
+its L columns at ``[idx[b], idx[b] + L)`` of each row, dropping the ones
+past the buffer, and attends with the dense masked path under a per-row
+causal mask. :func:`init_block_pool`, :func:`quantize_kv` and
+:func:`dequantize_kv` are the paged pool's storage. The forward is the
+JAX module's deterministic one (``train=False``): dropout belongs to
+training, which is not ported yet (ROADMAP A8). Not ported yet either,
+and raising where asked for: ring attention and mixture-of-experts MLPs,
+``return_kv`` and ``sp_prefill`` (A8).
 """
 
 from __future__ import annotations
@@ -102,30 +108,111 @@ def init_cache(config: GPTConfig, batch: int, max_len: int,
                per_slot: bool = False, *, device="cuda") -> dict:
     """Zeroed KV cache for :func:`generate` / incremental decode:
     ``k``/``v`` ``[num_layers, B, max_len, H, D]`` on ``device`` and
-    ``idx`` = 0, the number of positions written (a host int). Forward
-    calls write their keys/values in place and advance ``idx``."""
-    if per_slot:
-        raise NotImplementedError(
-            "per-slot caches (continuous batching) are "
-            + _NOT_PORTED.format(item="A7"))
+    ``idx``, the number of positions written: a host int 0, or with
+    ``per_slot=True`` an int32 ``[B]`` tensor of zeros on ``device``
+    (continuous batching: every row, a serving slot, decodes at its own
+    depth). Forward calls write their keys/values in place and advance
+    ``idx`` (the tensor in place)."""
     hd = config.hidden_size // config.num_heads
     shape = (config.num_layers, batch, max_len, config.num_heads, hd)
     dev = resolve_device(device)
     return {
         "k": torch.zeros(shape, dtype=config.dtype, device=dev),
         "v": torch.zeros(shape, dtype=config.dtype, device=dev),
-        "idx": 0,
+        "idx": (torch.zeros((batch,), dtype=torch.int32, device=dev)
+                if per_slot else 0),
     }
 
 
-def init_block_pool(*args, **kwargs):
-    raise NotImplementedError("the paged KV block pool is "
-                              + _NOT_PORTED.format(item="A7"))
+#: the paged pool's compressed storage layouts (``serving.kv_blocks``)
+_POOL_STORE = {"bf16": torch.bfloat16, "int8": torch.int8}
+
+
+def init_block_pool(config: GPTConfig, n_blocks: int, block_size: int,
+                    dtype: str = "fp32", *, device="cuda") -> dict:
+    """Zeroed block-paged KV pool for continuous serving: ``k``/``v``
+    ``[num_layers, n_blocks, block_size, H, D]`` on ``device``, shared by
+    every slot through per-slot block tables (the bookkeeping lives in
+    ``serving.kv_blocks.KVBlockPool``).
+
+    ``dtype`` is the storage layout: ``"fp32"`` stores at the model's
+    compute dtype (``config.dtype``); ``"bf16"`` stores bfloat16;
+    ``"int8"`` stores int8 codes plus one float32 scale per written
+    column (``k_scale``/``v_scale``, ``[num_layers, n_blocks,
+    block_size]``; :func:`quantize_kv`). Compute always runs at
+    ``config.dtype``: only the resident pool is compressed."""
+    hd = config.hidden_size // config.num_heads
+    shape = (config.num_layers, n_blocks, block_size, config.num_heads, hd)
+    if dtype == "fp32":
+        store = config.dtype
+    elif dtype in _POOL_STORE:
+        store = _POOL_STORE[dtype]
+    else:
+        raise ValueError(
+            f"unknown KV pool dtype {dtype!r} (fp32 | bf16 | int8)")
+    dev = resolve_device(device)
+    pool = {"k": torch.zeros(shape, dtype=store, device=dev),
+            "v": torch.zeros(shape, dtype=store, device=dev)}
+    if dtype == "int8":
+        pool["k_scale"] = torch.zeros(shape[:3], dtype=torch.float32,
+                                      device=dev)
+        pool["v_scale"] = torch.zeros(shape[:3], dtype=torch.float32,
+                                      device=dev)
+    return pool
+
+
+def quantize_kv(x: torch.Tensor) -> "tuple[torch.Tensor, torch.Tensor]":
+    """Symmetric per-column int8 quantization of K/V columns ``[..., H,
+    D]``: returns (int8 codes, float32 scales ``[...]``). The absmax maps
+    to ±127, so quantizing a dequantized column gives back the same codes
+    and scale (a copy-on-write block re-installs bit-identical to its
+    donor); ``torch.round`` rounds half to even, as the reference's
+    ``jnp.round`` does. Zero columns get a tiny floor scale."""
+    amax = x.abs().amax(dim=(-2, -1))
+    scale = (amax.clamp_min(1e-30) / 127.0).to(torch.float32)
+    q = torch.round(x.to(torch.float32) / scale[..., None, None])
+    return q.clamp(-127, 127).to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype=torch.float32) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv`: int8 ``[..., H, D]`` columns and
+    their per-column scales back to ``dtype``."""
+    return (q.to(torch.float32) * scale[..., None, None]).to(dtype)
+
+
+def write_columns(buf: torch.Tensor, new: torch.Tensor,
+                  idx: torch.Tensor) -> None:
+    """Per-row in-place write of ``new`` [B, L, ...] at columns ``[idx[b],
+    idx[b] + L)`` of ``buf`` [B, W, ...], dropping the columns at or past
+    W (the reference's ``mode="drop"`` scatter: a torch index out of
+    range is a device-side assert on CUDA). A dropped column is written
+    back with the value it holds: its index is taken modulo W, which
+    keeps a row's L targets distinct (L <= W), so every column of the
+    write is touched once and only the kept ones change."""
+    b, l = new.shape[:2]
+    w = buf.shape[1]
+    if l > w:
+        raise ValueError(f"{l} new columns do not fit a buffer of {w}")
+    cols = idx.to(torch.long)[:, None] + torch.arange(l, device=buf.device)
+    keep = (cols < w).view(b, l, *([1] * (new.dim() - 2)))
+    cols = cols % w
+    rows = torch.arange(b, device=buf.device)[:, None].expand(b, l)
+    buf[rows, cols] = torch.where(keep, new.to(buf.dtype), buf[rows, cols])
 
 
 def sp_prefill(*args, **kwargs):
     raise NotImplementedError("sequence-parallel prefill is "
                               + _NOT_PORTED.format(item="A8"))
+
+
+def _default_positions(idx, b: int, l: int, device) -> torch.Tensor:
+    """[B, L] positions counting from the cache depth: a host int shared
+    by every row, or each row's own (a per-slot ``[B]`` tensor)."""
+    ar = torch.arange(l, device=device)
+    if isinstance(idx, torch.Tensor):
+        return idx.to(torch.long)[:, None] + ar[None, :]
+    return (idx + ar).expand(b, l)
 
 
 def first_valid_column(key_valid: torch.Tensor) -> torch.Tensor:
@@ -167,13 +254,29 @@ class GPTAttention(nn.Module):
         q, k, v = (p(x).view(b, l, nh, hd)
                    for p in (self.q_proj, self.k_proj, self.v_proj))
         idx = cache["idx"] if cache is not None else 0
+        per_slot = isinstance(idx, torch.Tensor)
         if c.positions == "rope":
             if positions is None:
-                positions = (idx + torch.arange(l, device=x.device)).expand(b, l)
+                positions = _default_positions(idx, b, l, x.device)
             q = apply_rope(q, positions, c.rope_base)
             k = apply_rope(k, positions, c.rope_base)
 
-        if cache is not None:
+        if per_slot:
+            # every row at its own depth: write this call's L columns at
+            # [idx[b], idx[b] + L) (past the buffer: dropped), then the
+            # dense masked path with a per-row causal mask; L=1 decodes,
+            # L=k verifies a speculative span
+            ck, cv = cache["k"][self.layer_idx], cache["v"][self.layer_idx]
+            write_columns(ck, k, idx)
+            write_columns(cv, v, idx)
+            q_pos = idx.to(torch.long)[:, None] + torch.arange(
+                l, device=x.device)
+            k_pos = torch.arange(ck.shape[1], device=x.device)
+            keep = (k_pos[None, None, :] <= q_pos[:, :, None])[:, None]
+            if attention_mask is not None:
+                keep = keep & attention_mask[:, None, None, :]
+            ctx = _dense_attention(q, ck, cv, keep)
+        elif cache is not None:
             ck, cv = cache["k"][self.layer_idx], cache["v"][self.layer_idx]
             max_len = ck.shape[1]
             if idx + l > max_len:
@@ -241,7 +344,9 @@ class GPTLMHeadModel(nn.Module):
 
     Without a cache: the full causal forward. With a cache from
     :func:`init_cache`: writes K/V at ``cache['idx']`` in place, advances
-    ``idx`` and returns the same cache. ``positions``: optional [B, L]
+    ``idx`` and returns the same cache. A per-slot cache (``idx`` a [B]
+    tensor) decodes every row at its own depth, always on the dense
+    masked path, whatever ``attn_impl`` says. ``positions``: optional [B, L]
     token positions (RoPE or the learned table). ``attention_mask``:
     optional key validity (False = masked), [B, L] on the uncached
     forward, [B, max_len] over buffer columns on the cached path.
@@ -284,15 +389,21 @@ class GPTLMHeadModel(nn.Module):
         b, l = input_ids.shape
         x = self.wte(input_ids)
         if self.wpe is not None:
+            idx = cache["idx"] if cache is not None else 0
             pos = positions
             if pos is None:
-                idx = cache["idx"] if cache is not None else 0
-                pos = (idx + torch.arange(l, device=x.device)).expand(b, l)
+                pos = _default_positions(idx, b, l, x.device)
+            if isinstance(idx, torch.Tensor):
+                # per-slot: an idle row's position may run past the table
+                # (the reference's gather fills it; here it is clamped).
+                # Admission keeps every live row inside it.
+                pos = pos.clamp(0, c.max_seq_len - 1)
             x = x + self.wpe(pos)
 
         start = None
         if (cache is not None and l == 1 and c.attn_impl == "flash"
-                and c.flash_decode and attention_mask is not None):
+                and c.flash_decode and attention_mask is not None
+                and not isinstance(cache["idx"], torch.Tensor)):
             start = cache.get("start")
             if start is None:
                 start = first_valid_column(attention_mask)

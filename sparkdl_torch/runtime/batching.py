@@ -44,6 +44,17 @@ class PaddedBatch:
         return out[: self.n_valid]
 
 
+def pow2_bucket(n: int, lo: int = 8, hi: "int | None" = None) -> int:
+    """Smallest power-of-two-from-``lo`` bucket covering ``n``, capped at
+    ``hi``: the one bucketing policy of prompt lengths, prefill-chunk
+    widths and block-table gather depths, so the serving engine captures
+    one CUDA graph per bucket and not one per length."""
+    b = lo
+    while b < n:
+        b *= 2
+    return b if hi is None else min(b, hi)
+
+
 def pick_bucket(n: int, buckets: Sequence[int]) -> int:
     for b in buckets:
         if n <= b:

@@ -255,10 +255,6 @@ def test_unported_options_raise_naming_their_roadmap_item():
         tgpt.GPTLMHeadModel(tgpt.GPTConfig.tiny(attn_impl="ring"), device="cpu")
     with pytest.raises(NotImplementedError, match="A8"):
         tgpt.GPTLMHeadModel(tgpt.GPTConfig.tiny(num_experts=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        tgpt.init_cache(tgpt.GPTConfig.tiny(), 2, 8, per_slot=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        tgpt.init_block_pool(tgpt.GPTConfig.tiny(), 4, 8)
     with pytest.raises(NotImplementedError, match="A8"):
         tgpt.sp_prefill(None, None, None)
     module = tgpt.GPTLMHeadModel(tgpt.GPTConfig.tiny(), device="cpu")

@@ -70,6 +70,12 @@ rows = Pipeline(stages=[feat]).fit(df).transform(df).collect()
 assert rows[0]["f"].shape == (32,) and np.isfinite(rows[2]["f"]).all()
 from sparkdl_torch.hpo import fmin, hp
 assert 0 <= fmin(lambda p: p["x"], {"x": hp.uniform("x", 0, 1)}, max_evals=3)["x"] <= 1
+from sparkdl_torch.serving import ContinuousGPTEngine, ServingEngine
+with ContinuousGPTEngine(cfg, sd, device="cpu", n_slots=2, max_len=16, kv_block_size=4,
+                         spec_k=2, kv_dtype="int8") as eng:
+    assert len(eng.submit([5, 3, 9], 3).result(timeout=60)) == 3
+with ServingEngine(BatchedRunner(lambda b: b["x"] + 1, batch_size=4, device="cpu")) as srv:
+    assert float(srv.submit({"x": np.zeros(2, np.float32)}).result(timeout=60)[0]) == 1.0
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in FORBIDDEN)
 print("LOADED", loaded)
@@ -79,10 +85,11 @@ print("LOADED", loaded)
 def test_featurize_in_fresh_interpreter_loads_no_jax():
     """One featurize (over the staging ring, with async readback) and one
     text-generation transform, an autotuned runner stream, a native
-    decode, one BERT fine-tune step with input readahead and one fused
-    1x1-conv call in a fresh interpreter load no module of JAX, Flax or
-    sparkdl_tpu: the copied observability, reliability and ingest modules
-    pull in nothing of it."""
+    decode, one BERT fine-tune step with input readahead, one fused
+    1x1-conv call, a continuous GPT engine (paged, speculative, int8) and
+    a micro-batching ServingEngine in a fresh interpreter load no module
+    of JAX, Flax or sparkdl_tpu: the copied observability, reliability,
+    ingest and serving modules pull in nothing of it."""
     env = dict(os.environ)
     env.pop("PYTHONSTARTUP", None)
     proc = subprocess.run(
