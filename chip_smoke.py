@@ -28,7 +28,16 @@ went through its kernels and agrees with a kernel-free run:
   a key mask, under no grad, inside the runner's CUDA graphs) against
   ``attn_impl="full"``, every pooling;
 - ``hpo.fmin`` over two BERT-base fine-tuning trials (the flash forward
-  and backward kernels).
+  and backward kernels);
+- the serving core: ``ContinuousGPTEngine`` at GPT-2-small width (no
+  kernel: the per-slot steps are the dense masked path) and
+  ``ServingEngine`` over the InceptionV3 featurizer's runner (the stem
+  kernel), then the same traffic over a ``ReplicaPool`` of two such
+  runners on the one card, with injected executor failures;
+- tiered KV: three-turn sessions parked to host and disk between turns,
+  exported to and imported by a second engine, held bitwise to an engine
+  that never parks, for float32, bfloat16 and int8 pools;
+- ``observability.profiling.trace`` around one featurizer batch.
 
 The graphed paths are held bitwise to their eager form (the training
 ones under deterministic algorithms). Each phase prints its lines; any
@@ -47,6 +56,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 H100_F32_FLOPS = 67e12    # FP32 outside the tensor cores, H100 SXM data sheet
@@ -2702,7 +2712,465 @@ def phase_serve(card: str) -> dict:
     phase_s["serving_engine"] = time.perf_counter() - t0
     print(f"[serve] phase {time.perf_counter() - t_phase:.1f} s: " + ", ".join(
         f"{n} {s:.1f} s" for n, s in phase_s.items()))
-    return {"tokens_s": total / warm["secs"], "requests_s": N_ROWS / secs}
+    return {"tokens_s": total / warm["secs"], "requests_s": N_ROWS / secs,
+            "rows": rows, "want": want}
+
+
+REPLICAS, REPLICA_FAULTS = 2, 3  # replicas on the one card; failed dispatches injected
+REPLICA_PROBATION_S = 0.1
+TIER_SESSIONS, TIER_NEW, TIER_FRESH = 8, 32, 8    # sessions, tokens a turn, new prompt tokens a turn
+TIER_HOST_BLOCKS, TIER_DISK_BLOCKS = 32, 512      # the host tier smaller than turn 1's cold blocks
+TIER_TIMED_BLOCKS = 20
+H100_HOST_BYTES_S = 64e9  # PCIe 5.0 x16, one direction: the card's link to host memory
+
+
+class _FailingRunner:
+    """A replica's runner whose next ``failures`` dispatches raise, as an
+    executor that dies on a dispatch would (the pool's replica.execute
+    failure path)."""
+
+    def __init__(self, runner, failures: int):
+        self.runner, self.left, self.failed = runner, failures, 0
+        self.chunk_size = runner.chunk_size
+        self._lock = threading.Lock()
+
+    def run_batch(self, arrays):
+        with self._lock:
+            fail = self.left > 0
+            self.left -= fail
+            self.failed += fail
+        if fail:
+            raise RuntimeError("injected replica.execute failure")
+        return self.runner.run_batch(arrays)
+
+
+def _closed_loop(eng, rows, ids, threads: int) -> tuple:
+    """``ids`` requests from ``threads`` closed-loop client threads:
+    (answers by id, errors, seconds)."""
+    got, errs = {}, []
+
+    def client(part):
+        try:
+            for i in part:
+                got[i] = eng.submit(rows[i]["image"]).result(timeout=120)
+        except Exception as e:  # reported by the caller: a client must not die silently
+            errs.append(e)
+
+    workers = [threading.Thread(target=client, args=(ids[j::threads],))
+               for j in range(threads)]
+    t0 = time.perf_counter()
+    for th in workers:
+        th.start()
+    for th in workers:
+        th.join(300)
+    if any(th.is_alive() for th in workers):
+        raise AssertionError("[replicas] a client thread did not finish")
+    return got, errs, time.perf_counter() - t0
+
+
+def phase_replicas(card: str, served: dict) -> dict:
+    """ServingEngine over a ReplicaPool of REPLICAS DeepImageFeaturizer
+    (InceptionV3) runners on the one card: every bucket warmed on every
+    replica, then [serve]'s 256 single-image requests from its 8 closed-loop
+    clients (stem launches = the micro-batches summed over the replicas),
+    then the same traffic with one replica's next REPLICA_FAULTS dispatches
+    failing (no request lost, a quarantine, a probation recovery)."""
+    import numpy as np
+    import torch
+
+    from sparkdl_torch.models.registry import get_entry
+    from sparkdl_torch.ops.stem_fused import inception_stem_fused
+    from sparkdl_torch.serving import ReplicaPool, ServingEngine
+    from sparkdl_torch.transformers.named_image import (
+        _image_to_rgb_array,
+        _named_model_runner,
+        _resize_host,
+    )
+
+    t_phase = time.perf_counter()
+    rows, want = served["rows"], served["want"]
+    size = get_entry("InceptionV3").input_size
+    extract = lambda s: {"img": _resize_host(_image_to_rgb_array(s), size)}  # noqa: E731
+    runners = []
+
+    def make_runner(device):
+        # the featurizer's runner, built anew per replica (bypassing its
+        # per-process cache): own CUDA graphs, own buckets
+        runner = _named_model_runner.__wrapped__("InceptionV3", "random", False,
+                                                 "features", BATCH, str(device))
+        runners.append(_FailingRunner(runner, 0))
+        return runners[-1]
+
+    pool = ReplicaPool(make_runner=make_runner, n_replicas=REPLICAS,
+                       max_failures=2, probation_s=REPLICA_PROBATION_S)
+    devices = sorted({str(r.device) for r in pool.replicas})
+    t0 = time.perf_counter()
+    _zero_counts()
+    img = extract(rows[0]["image"])["img"]
+    buckets = runners[0].runner._buckets
+    for b in buckets:  # every bucket's graph on every replica before traffic
+        pool.warmup({"img": np.repeat(img[None], b, axis=0)})
+    warm_s = time.perf_counter() - t0
+    warm_launches = inception_stem_fused.launches
+    warm_batches = sum(r["dispatched"] for r in pool.snapshot()["replicas"])
+
+    eng = ServingEngine(pool, max_wait_s=SERVE_WAIT_S, extract=extract)
+    _zero_counts()
+    before = [r["dispatched"] for r in pool.snapshot()["replicas"]]
+    got, errs, secs = _closed_loop(eng, rows, list(range(N_ROWS)), SERVE_THREADS)
+    stem_launches = inception_stem_fused.launches
+    snap = eng.snapshot()
+    per_replica = [r["dispatched"] - b for r, b in zip(snap["replicas"], before)]
+    if errs or len(got) != N_ROWS:
+        raise AssertionError(f"[replicas] {len(got)}/{N_ROWS} answers, {errs[:3]}")
+    diffs = [(torch.as_tensor(got[i]) - torch.as_tensor(want[i])).abs().max().item()
+             for i in range(N_ROWS)]
+    worst = max(_rel_err(torch.as_tensor(got[i]), torch.as_tensor(want[i]))[1]
+                for i in range(N_ROWS))
+    if worst > NET_TOL:
+        raise AssertionError(f"[replicas] answers vs the featurizer's rows: rel err "
+                             f"{worst:.2e} > {NET_TOL}")
+    if stem_launches != sum(per_replica) or min(per_replica) == 0:
+        raise AssertionError(f"[replicas] stem launches {stem_launches} for batches "
+                             f"{per_replica} per replica")
+    if warm_launches != warm_batches:
+        raise AssertionError(f"[replicas] warmup: stem launches {warm_launches} for "
+                             f"{warm_batches} batches")
+    lat = snap["latency_s"]
+    # T2: one micro-batch through each replica's runner, the same rows
+    probe = {"img": np.stack([extract(rows[i]["image"])["img"]
+                              for i in range(min(8, BATCH))])}
+    outs = [r.runner.run_batch(probe) for r in runners]
+    cross = max(float(np.abs(o - outs[0]).max()) for o in outs[1:])
+    print(f"[replicas] ServingEngine over ReplicaPool(n_replicas={REPLICAS}) on "
+          f"{', '.join(devices)}, each replica DeepImageFeaturizer(InceptionV3, "
+          f"weights='random')'s runner (own CUDA graphs), warmed over buckets "
+          f"{list(buckets)} in {warm_s:.1f} s (stem launches {warm_launches} = "
+          f"{warm_batches} warmup batches); {N_ROWS} single-image requests from "
+          f"{SERVE_THREADS} closed-loop client threads, max_wait_s {SERVE_WAIT_S}; "
+          f"{card}: {N_ROWS / secs:.1f} requests/s, latency p50 {lat['p50'] * 1e3:.1f} ms "
+          f"p99 {lat['p99'] * 1e3:.1f} ms; batches per replica {per_replica}, "
+          f"inception_stem_fused launches {stem_launches} (= {sum(per_replica)} "
+          f"micro-batches); answers vs the featurizer's rows rel err {worst:.2e} (tol "
+          f"{NET_TOL}), largest abs difference {max(diffs):.3e}, bitwise equal in "
+          f"{sum(d == 0 for d in diffs)}/{N_ROWS}; one {len(probe['img'])}-row micro-batch on each "
+          f"replica's runner: largest difference between replicas {cross:.3e} "
+          f"({'bitwise equal' if cross == 0 else 'NOT bitwise equal'})")
+
+    # one replica's executor fails its next REPLICA_FAULTS dispatches
+    quarantined0 = _metric("sparkdl_replica_quarantined_total")
+    rejoined0 = _metric("sparkdl_replica_reintegrated_total")
+    rerouted0 = _metric("sparkdl_retries_total", site="replica.execute",
+                        outcome="retried")
+    victim = runners[-1]
+    victim.left = REPLICA_FAULTS
+    failed0 = snap["failed"]
+    got, errs, fsecs = _closed_loop(eng, rows, list(range(N_ROWS)), SERVE_THREADS)
+    deadline = time.monotonic() + 30
+    extra = 0
+    while (_metric("sparkdl_replica_reintegrated_total") == rejoined0
+           and time.monotonic() < deadline):
+        # traffic carries the probation probe: keep it flowing until it lands
+        more, more_errs, _ = _closed_loop(eng, rows, list(range(16)), 2)
+        errs += more_errs
+        extra += len(more)
+    fsnap = eng.snapshot()
+    eng.close()
+    pool.close()
+    quarantines = _metric("sparkdl_replica_quarantined_total") - quarantined0
+    rejoins = _metric("sparkdl_replica_reintegrated_total") - rejoined0
+    rerouted = _metric("sparkdl_retries_total", site="replica.execute",
+                       outcome="retried") - rerouted0
+    lost = N_ROWS - len(got) + len(errs) + fsnap["failed"] - failed0
+    if lost or victim.failed != REPLICA_FAULTS or quarantines < 1 or rejoins < 1:
+        raise AssertionError(
+            f"[replicas] faults: {lost} requests lost ({errs[:3]}), {victim.failed} "
+            f"failed dispatches, {quarantines} quarantines, {rejoins} reintegrations")
+    worst_f = max(_rel_err(torch.as_tensor(got[i]), torch.as_tensor(want[i]))[1]
+                  for i in range(N_ROWS))
+    if worst_f > NET_TOL:
+        raise AssertionError(f"[replicas] faults: rel err {worst_f:.2e} > {NET_TOL}")
+    print(f"[replicas] replica {len(runners) - 1}'s next {REPLICA_FAULTS} dispatches "
+          f"fail (max_failures 2, probation_s {REPLICA_PROBATION_S}), the same "
+          f"{N_ROWS} requests + {extra} more until the probe rejoins it; {card}: "
+          f"{N_ROWS / fsecs:.1f} requests/s; 0 requests lost, {int(rerouted)} "
+          f"re-routed micro-batches, {int(quarantines)} quarantine(s), "
+          f"{int(rejoins)} probation reintegration(s); answers rel err {worst_f:.2e}; "
+          f"batches per replica {[r['dispatched'] for r in fsnap['replicas']]}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    return {"requests_s": N_ROWS / secs, "p50_ms": lat["p50"] * 1e3,
+            "p99_ms": lat["p99"] * 1e3, "batches": per_replica,
+            "stem_launches": stem_launches}
+
+
+def _metric(name: str, **labels) -> float:
+    from sparkdl_torch.observability.registry import registry
+
+    fam = registry().get(name)
+    if fam is None:
+        return 0.0
+    key = ",".join(f'{k}="{v}"' for k, v in labels.items())
+    return fam.snapshot_values().get(key, 0.0)
+
+
+def _tier_prompts(vocab: int) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+    return [rng.integers(0, vocab, int(rng.integers(64, 129))).tolist()
+            for _ in range(TIER_SESSIONS)]
+
+
+def _tier_turn(eng, prompts) -> list:
+    """One turn of every session, manual ticks (one schedule for every
+    engine with the same settings): the greedy replies."""
+    import numpy as np
+
+    futs = [eng.submit(p, TIER_NEW) for p in prompts]
+    while not all(f.done() for f in futs):
+        eng.tick()
+    return [np.asarray(f.result()) for f in futs]
+
+
+def _tier_next(prompts, replies, turn: int) -> list:
+    """Each session's next prompt: its last prompt, its reply, and
+    TIER_FRESH new user tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(100 + turn)
+    return [p + r.tolist() + rng.integers(0, 50000, TIER_FRESH).tolist()
+            for p, r in zip(prompts, replies)]
+
+
+def _tier_block_times(eng, store_dir: str) -> dict:
+    """Per-block park (D2H into page-locked memory), unpark (H2D into a
+    fresh block, synchronized), spill (codec + write + fsync + rename) and
+    load (read + sha256 + decode) ms: medians of TIER_TIMED_BLOCKS blocks
+    of this quiescent engine's cached blocks."""
+    import statistics
+
+    import torch
+
+    from sparkdl_torch.serving.kv_tiers import TieredKVStore
+
+    bids = list(eng._prefix._registered)[:TIER_TIMED_BLOCKS]
+    park, unpark, spill, load, payloads = [], [], [], [], []
+    spare = eng._pool.allocate(1)[0]
+    for bid in bids:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pl = eng._park_payload(bid)
+        park.append((time.perf_counter() - t0) * 1e3)
+        payloads.append(pl)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if not eng._install_parked(spare, pl):
+            raise AssertionError("[tiers] timed unpark failed")
+        torch.cuda.synchronize()
+        unpark.append((time.perf_counter() - t0) * 1e3)
+        for name, t in eng._raw_block(spare).items():
+            if not torch.equal(t, eng._raw_block(bid)[name]):
+                raise AssertionError(f"[tiers] unparked {name} differs from its source")
+    eng._pool.release(eng._pool.deref([spare]))
+    store = TieredKVStore(1, len(payloads) + 1, spill_dir=store_dir)
+    for i, pl in enumerate(payloads):
+        t0 = time.perf_counter()
+        store._spill(("timed", i), pl)
+        spill.append((time.perf_counter() - t0) * 1e3)
+    for i in range(len(payloads)):
+        t0 = time.perf_counter()
+        store._load(store._disk[("timed", i)])
+        load.append((time.perf_counter() - t0) * 1e3)
+    store.close()
+    nbytes = sum(v.nbytes for v in payloads[0].values())
+    return {"park_ms": statistics.median(park), "unpark_ms": statistics.median(unpark),
+            "spill_ms": statistics.median(spill), "load_ms": statistics.median(load),
+            "bytes": nbytes, "bound_ms": nbytes / H100_HOST_BYTES_S * 1e3}
+
+
+def phase_tiers(card: str) -> dict:
+    """ContinuousGPTEngine at GPT-2-small width, paged, with a host tier
+    and a disk tier: per kv_dtype, TIER_SESSIONS three-turn sessions. Engine
+    A parks every cold block between turns 1 and 2 (some spill to disk),
+    engine B (the same settings) never parks: their turn 2 bitwise equal.
+    A parks again and exports every parked session; engine C imports them:
+    its turn 3 bitwise B's. Park/unpark fallbacks 0 in every engine; per-block
+    park/unpark/spill/load ms against the bytes' bound at the host link."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sparkdl_torch.models.gpt import GPTConfig, GPTLMHeadModel, init_gpt_
+
+    t_phase = time.perf_counter()
+    cfg = GPTConfig(positions="learned")
+    model = GPTLMHeadModel(cfg, device="cuda")
+    model.load_state_dict(init_gpt_(GPTLMHeadModel(cfg, device="cpu"), seed=0).state_dict())
+    model.eval()
+    prompts = _tier_prompts(cfg.vocab_size)
+    out, lines = {}, []
+    with tempfile.TemporaryDirectory(prefix="sparkdl-chip-tiers-") as tmp:
+        for dt in ("fp32", "bf16", "int8"):
+            t0 = time.perf_counter()
+            tiers = dict(kv_dtype=dt, host_kv_blocks=TIER_HOST_BLOCKS,
+                         disk_kv_blocks=TIER_DISK_BLOCKS)
+            engs = {n: _serve_engine(cfg, model, kv_spill_dir=os.path.join(tmp, f"{dt}-{n}"),
+                                     **tiers) for n in "ABC"}
+            a, b, c = engs["A"], engs["B"], engs["C"]
+            _zero_counts()
+            turn1 = [_tier_turn(e, prompts) for e in (a, b)]
+            if any((x != y).any() for x, y in zip(*turn1)):
+                raise AssertionError(f"[tiers] {dt}: turn 1 differs between A and B")
+            p2 = _tier_next(prompts, turn1[0], 2)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            parked = a.park_cold()
+            torch.cuda.synchronize()
+            park_s = time.perf_counter() - t1
+            st = a._kv_snapshot()["tiers"]
+            if st["disk_blocks"] == 0 or st["host_blocks"] == 0:
+                raise AssertionError(f"[tiers] {dt}: parked {st}: nothing reached "
+                                     "both tiers")
+            got2, want2 = _tier_turn(a, p2), _tier_turn(b, p2)
+            same2 = sum((x == y).all() for x, y in zip(got2, want2))
+            resumed = a._kv_snapshot()["tiers"]["unparks"]
+            p3 = _tier_next(p2, want2, 3)
+            a.park_cold()
+            t1 = time.perf_counter()
+            bundle = a.export_parked_sessions()
+            blob = json.dumps(bundle)
+            export_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            adopted = c.import_parked_sessions(json.loads(blob))
+            import_s = time.perf_counter() - t1
+            got3, want3 = _tier_turn(c, p3), _tier_turn(b, p3)
+            same3 = sum((x == y).all() for x, y in zip(got3, want3))
+            fallbacks = {n: e._kv_snapshot()["tiers"]["park_fallbacks"]
+                         for n, e in engs.items()}
+            cunparks = c._kv_snapshot()["tiers"]["unparks"]
+            launched = _launch_counts()
+            times = _tier_block_times(b, os.path.join(tmp, f"{dt}-timed"))
+            for e in engs.values():
+                e.close()
+            if same2 != TIER_SESSIONS or same3 != TIER_SESSIONS:
+                raise AssertionError(f"[tiers] {dt}: resumed turns equal to never-parked "
+                                     f"in {same2} (turn 2) and {same3} (turn 3, imported) "
+                                     f"of {TIER_SESSIONS}")
+            if any(fallbacks.values()) or adopted != TIER_SESSIONS or not cunparks:
+                raise AssertionError(f"[tiers] {dt}: fallbacks {fallbacks}, {adopted} "
+                                     f"sessions adopted, {cunparks} unparks on C")
+            if any(launched.values()):
+                raise AssertionError(f"[tiers] the continuous engine launched kernels: "
+                                     f"{launched}")
+            out[dt] = times
+            lines.append(
+                f"[tiers] kv_dtype={dt}: park_cold() parked {parked} blocks in "
+                f"{park_s * 1e3:.1f} ms ({st['host_blocks']} host, {st['disk_blocks']} "
+                f"disk); turn 2 resumed {resumed} blocks, tokens bitwise the "
+                f"never-parked engine's in {same2}/{TIER_SESSIONS} sessions; exported "
+                f"{len(bundle['sessions'])} sessions ({len(blob) / 1e6:.1f} MB of JSON) in "
+                f"{export_s:.2f} s, {adopted} adopted by a second engine in "
+                f"{import_s:.2f} s, whose turn 3 ({cunparks} blocks "
+                f"unparked) is bitwise the never-parked engine's in "
+                f"{same3}/{TIER_SESSIONS}; park/unpark fallbacks 0; per block "
+                f"({times['bytes']} B): park (D2H) {times['park_ms']:.3f} ms, unpark "
+                f"(H2D) {times['unpark_ms']:.3f} ms, bound {times['bound_ms']:.4f} ms "
+                f"at {H100_HOST_BYTES_S / 1e9:.0f} GB/s; spill {times['spill_ms']:.2f} "
+                f"ms, load {times['load_ms']:.2f} ms; {time.perf_counter() - t0:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+    print(f"[tiers] ContinuousGPTEngine GPT-2 small ({cfg.num_layers}x{cfg.hidden_size}, "
+          f"random init seed 0), paged, n_slots {SERVE_SLOTS}, block {SERVE_BLOCK}, "
+          f"host_kv_blocks {TIER_HOST_BLOCKS}, disk_kv_blocks {TIER_DISK_BLOCKS} (a "
+          f"temporary kv_spill_dir); {TIER_SESSIONS} sessions of 64..128 prompt tokens, "
+          f"{TIER_NEW} greedy tokens a turn, {TIER_FRESH} new tokens a next turn; {card}")
+    for line in lines:
+        print(line)
+    print(f"[tiers] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _profile_batch(logdir: str) -> list:
+    """trace() around one featurizer batch of BATCH on an eager runner over
+    the featurizer's apply (chain_k=1: no graphs), then around a CUDA-graph
+    replay of the same batch: per window the trace's size, event and
+    kernel counts, the stem kernel events, the annotate()d range events and
+    the stem launches the wrapper counted."""
+    import numpy as np
+
+    from sparkdl_torch.models.registry import get_entry
+    from sparkdl_torch.observability.profiling import annotate, trace
+    from sparkdl_torch.ops.stem_fused import inception_stem_fused
+    from sparkdl_torch.transformers._inference import BatchedRunner
+    from sparkdl_torch.transformers.named_image import _named_model_runner
+
+    size = get_entry("InceptionV3").input_size
+    graphed = _named_model_runner.__wrapped__("InceptionV3", "random", False,
+                                              "features", BATCH, "cuda")
+    eager = BatchedRunner(graphed.apply_fn, batch_size=BATCH, device="cuda", chain_k=1)
+    batch = {"img": np.random.default_rng(5).integers(0, 256, (BATCH, *size, 3),
+                                                      dtype=np.uint8)}
+    graphed.run_batch(batch)  # captured here, replayed in the second window
+    found = []
+    for runner in (eager, graphed):
+        _zero_counts()
+        with trace(logdir) as cap, annotate("sparkdl.featurize_batch"):
+            feats = runner.run_batch(batch)
+        with open(cap.path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        found.append({
+            "mb": os.path.getsize(cap.path) / 1e6, "events": len(events),
+            "kernels": len(kernels), "finite": bool(np.isfinite(feats).all()),
+            "launches": inception_stem_fused.launches,
+            "memcpys": sum(e.get("cat") == "gpu_memcpy" for e in events),
+            "device_ms": sum(e.get("dur", 0) for e in kernels) / 1e3,
+            "stem": [e for e in kernels if "stem_fused_kernel" in e.get("name", "")],
+            "ranges": [e for e in events if e.get("name") == "sparkdl.featurize_batch"]})
+    return found
+
+
+def phase_profile(card: str) -> dict:
+    """trace() around one featurizer batch, in a fresh process (as an
+    operator captures one): the Chrome trace names the stem kernel's
+    symbol and the annotate()d range, and a second window around a
+    CUDA-graph replay of the batch shows the replay's kernels. The same
+    two windows in this process, after every earlier phase, are printed
+    beside them."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="sparkdl-chip-trace-") as logdir:
+        child = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--profile-child", logdir],
+                               capture_output=True, text=True, timeout=600)
+        if child.returncode != 0:
+            raise AssertionError(f"[profile] the tracing process failed: "
+                                 f"{child.stderr[-2000:]}")
+        fresh = json.loads(child.stdout.strip().splitlines()[-1])
+        here = _profile_batch(logdir)
+    first = fresh[0]
+    if not (first["stem"] and first["ranges"] and first["finite"]
+            and first["launches"] == 1):
+        raise AssertionError(
+            f"[profile] trace of {first['events']} events: {first['kernels']} kernels, "
+            f"{len(first['stem'])} stem kernel(s) for {first['launches']} launch(es), "
+            f"{len(first['ranges'])} annotated range(s)")
+    stem = first["stem"][0]
+    seen = lambda w: (f"{w['kernels']} kernels ({w['device_ms']:.2f} ms device) and "  # noqa: E731
+                      f"{w['memcpys']} copies, stem kernel "
+                      f"{'seen' if w['stem'] else 'NOT seen'} for {w['launches']} "
+                      "launch(es)")
+    print(f"[profile] trace() around one DeepImageFeaturizer(InceptionV3) batch of "
+          f"{BATCH} on an eager runner (chain_k=1), in a fresh process; {card}: Chrome "
+          f"trace {first['mb']:.1f} MB, {first['events']} events, {seen(first)} "
+          f"({stem['name'][:48]} {stem['dur'] / 1e3:.3f} ms), annotated range "
+          f"'sparkdl.featurize_batch' {first['ranges'][0].get('dur', 0) / 1e3:.1f} ms; "
+          f"the same batch as a CUDA-graph replay: {seen(fresh[1])}; in this process "
+          f"after the earlier phases: eager {seen(here[0])}, replay {seen(here[1])}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"stem_ms": stem["dur"] / 1e3}
 
 
 def _launch_counts() -> dict:
@@ -2741,6 +3209,9 @@ def main() -> int:
     text_rate = phase_text(card, attn)
     hpo = phase_hpo(card)
     serve = phase_serve(card)
+    pool = phase_replicas(card, serve)
+    tiers = phase_tiers(card)
+    phase_profile(card)
     kernels = [stem, attn, dq, dkv, decode, gemm]
     print(f"[summary] {card}: zoo featurizer images/s "
           + ", ".join(f"{n} {r:.1f}" for n, r in zoo_rates.items())
@@ -2752,7 +3223,11 @@ def main() -> int:
           f"SDPA {attn['text_library_ms']:.4f}, bound {attn['text_bound_ms']:.4f}); HPO "
           f"trials {', '.join(f'{s:.1f}' for s in hpo['seconds'])} s; ContinuousGPTEngine "
           f"GPT-2 small {serve['tokens_s']:.1f} tokens/s; ServingEngine InceptionV3 "
-          f"{serve['requests_s']:.1f} requests/s")
+          f"{serve['requests_s']:.1f} requests/s, over ReplicaPool({REPLICAS}) "
+          f"{pool['requests_s']:.1f} requests/s (p50 {pool['p50_ms']:.1f} ms, p99 "
+          f"{pool['p99_ms']:.1f} ms); KV park/unpark per block "
+          + ", ".join(f"{dt} {t['park_ms']:.3f}/{t['unpark_ms']:.3f} ms (bound "
+                      f"{t['bound_ms']:.4f})" for dt, t in tiers.items()))
     print(f"[summary] {card}: featurizer {images_s:.1f} images/s; generator "
           f"{tokens_s:.1f} tokens/s; BERT-base fine-tune {examples_s:.1f} examples/s; "
           f"ResNet50 training {train_images_s:.1f} images/s; flash_attention at the "
@@ -2772,4 +3247,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--profile-child"]:  # phase_profile's fresh process
+        import torch
+
+        torch.backends.cudnn.allow_tf32 = False  # as phase_card sets them
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(json.dumps(_profile_batch(sys.argv[2])))
+    else:
+        sys.exit(main())

@@ -14,6 +14,7 @@ source is rebuilt and an unchanged one is loaded as it is.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -169,35 +170,62 @@ def stream_handle() -> int:
 # -- launch counts ------------------------------------------------------------
 #
 # Each kernel wrapper counts its launches in attributes of its own
-# (``inception_stem_fused.launches``, ...), adding one where it launches
-# its kernel. A CUDA graph replay launches the captured kernels without
-# calling the wrappers, so the graph runner (runtime/dispatch.py) takes
-# back what the wrappers counted during a capture, where nothing ran, and
-# adds it again for every replay.
+# (``inception_stem_fused.launches``, ...), adding one through
+# :func:`note_launch` where it launches its kernel. A CUDA graph replay
+# launches the captured kernels without calling the wrappers, so the graph
+# runner (runtime/dispatch.py) collects what the wrappers launched into the
+# stream it was capturing (:func:`capture_tally`: those launches only
+# recorded a node, and go to the graph's tally instead of the counts) and
+# adds the tally for every replay. Launches other threads make meanwhile
+# on other streams (replicas of a ReplicaPool that share a card) count as
+# they happen; the counts take their additions under one lock.
 
-_COUNTERS: "list[tuple[object, str]]" = []
+_COUNT_LOCK = threading.Lock()
+#: The tally of the capture in progress; graph-cache misses take turns, so
+#: there is at most one (runtime/dispatch.py ``_CAPTURE_LOCK``).
+_CAPTURE = {"tally": None}
+
+
+def _stream_capturing() -> bool:
+    return torch.cuda.is_current_stream_capturing()
+
+
+def note_launch(fn, name: str = "launches") -> None:
+    """One launch of ``fn``'s kernel: its ``name`` count grows by one, or,
+    when the kernel went into a stream being captured, the capture's tally
+    does. The capturing thread is not the only one: autograd's worker
+    thread runs a captured backward on its forward's stream."""
+    capturing = _CAPTURE["tally"] is not None and _stream_capturing()
+    with _COUNT_LOCK:
+        if capturing:
+            tally = _CAPTURE["tally"]
+            tally[(fn, name)] = tally.get((fn, name), 0) + 1
+        else:
+            setattr(fn, name, getattr(fn, name) + 1)
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """The launches made into a capturing stream inside the block, as a
+    ``{(wrapper, attribute): n}`` dict, kept out of the counts."""
+    tally: dict = {}
+    with _COUNT_LOCK:
+        outer, _CAPTURE["tally"] = _CAPTURE["tally"], tally
+    try:
+        yield tally
+    finally:
+        with _COUNT_LOCK:
+            _CAPTURE["tally"] = outer
 
 
 def count_launches(fn, *names: str) -> None:
-    """Register ``fn``'s launch-count attributes (each set to 0)."""
+    """Give ``fn`` its launch-count attributes, each set to 0."""
     for name in names:
         setattr(fn, name, 0)
-        _COUNTERS.append((fn, name))
-
-
-def launch_counts() -> "dict[tuple[object, str], int]":
-    """Every registered launch count, keyed by (wrapper, attribute)."""
-    return {key: getattr(*key) for key in _COUNTERS}
-
-
-def launch_delta(before: dict, after: dict) -> "dict[tuple[object, str], int]":
-    """What each count gained from ``before`` to ``after`` (a count
-    registered in between started at 0)."""
-    return {k: v - before.get(k, 0) for k, v in after.items()
-            if v != before.get(k, 0)}
 
 
 def add_launches(delta: dict, times: int = 1) -> None:
     """Add ``times`` x ``delta`` to the counts (negative to take back)."""
-    for (fn, name), d in delta.items():
-        setattr(fn, name, getattr(fn, name) + d * times)
+    with _COUNT_LOCK:
+        for (fn, name), d in delta.items():
+            setattr(fn, name, getattr(fn, name) + d * times)

@@ -28,6 +28,7 @@ import torch
 from sparkdl_torch.ops._dispatch import (
     count_launches,
     load_library,
+    note_launch,
     on_cuda,
     stream_handle,
 )
@@ -158,7 +159,7 @@ def _forward(q, k, v, kv_mask, causal, scale, q_offset, return_lse):
         if rc != 0:
             raise RuntimeError(
                 f"flash_attention kernel launch failed: cudaError {rc}")
-        flash_attention.launches += 1
+        note_launch(flash_attention)
     return (out, lse) if return_lse else out
 
 
@@ -269,8 +270,7 @@ def flash_attention_bwd(q, k, v, kv_mask, o, lse, do, *, causal=False,
         if rc != 0:
             raise RuntimeError(f"flash_attention_bwd kernel {counter[9:]} "
                                f"launch failed: cudaError {rc}")
-        setattr(flash_attention_bwd, counter,
-                getattr(flash_attention_bwd, counter) + 1)
+        note_launch(flash_attention_bwd, counter)
     return dq, dk, dv
 
 

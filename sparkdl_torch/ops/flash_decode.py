@@ -23,6 +23,7 @@ import torch
 from sparkdl_torch.ops._dispatch import (
     count_launches,
     load_library,
+    note_launch,
     on_cuda,
     refuse_grad,
     stream_handle,
@@ -109,7 +110,7 @@ def flash_decode(q, ck, cv, idx, *, start=None):
                     1.0 / math.sqrt(d), stream_handle())
         if rc != 0:
             raise RuntimeError(f"flash_decode kernel launch failed: cudaError {rc}")
-        flash_decode.launches += 1
+        note_launch(flash_decode)
     return out
 
 

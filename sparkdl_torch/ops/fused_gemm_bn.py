@@ -28,6 +28,7 @@ import torch
 from sparkdl_torch.ops._dispatch import (
     count_launches,
     load_library,
+    note_launch,
     on_cuda,
     stream_handle,
 )
@@ -102,7 +103,7 @@ def _forward(x, w, scale, shift, bias, relu_in):
             int(bool(relu_in)), stream_handle())
     if rc != 0:
         raise RuntimeError(f"gemm_bn_stats kernel launch failed: cudaError {rc}")
-    gemm_bn_stats.launches += 1
+    note_launch(gemm_bn_stats)
     return y, stats[0], stats[1]
 
 

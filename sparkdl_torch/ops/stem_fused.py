@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from sparkdl_torch.ops._dispatch import (
     count_launches,
     load_library,
+    note_launch,
     on_cuda,
     refuse_grad,
     stream_handle,
@@ -131,7 +132,7 @@ def inception_stem_fused(x: torch.Tensor, folded: dict, *,
                 int(dtype == torch.bfloat16), b, s, stream_handle())
     if rc != 0:
         raise RuntimeError(f"stem_fused kernel launch failed: cudaError {rc}")
-    inception_stem_fused.launches += 1
+    note_launch(inception_stem_fused)
     return out
 
 

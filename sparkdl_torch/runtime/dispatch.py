@@ -442,10 +442,26 @@ def no_gc():
                 gc.enable()
 
 
+#: One graph-cache miss (eager warm-up, then capture) at a time in the
+#: process: a capture must not meet another thread's device-wide
+#: synchronize or cache release (runners of a ReplicaPool that share a
+#: card, HPO trials in threads). Reentrant: a warm-up may miss a cache too.
+_CAPTURE_LOCK = threading.RLock()
+
+#: The priority of the warm-up and capture streams. PyTorch hands out
+#: streams round-robin from a pool of 32 per priority, and the feed's puts
+#: take a new priority-0 stream per batch, so a capture stream from that
+#: pool is, sooner or later, another thread's copy stream: its copies and
+#: events would land in the graph. No other stream of the port has this
+#: priority.
+_CAPTURE_STREAM_PRIORITY = -1
+
+
 class CapturedGraph:
     """``fn(*inputs)`` captured as one CUDA graph over static copies of
     ``inputs``, and the kernel launches one replay makes (what the
-    wrappers counted during the capture, where nothing ran).
+    wrappers launched into the capturing stream during the capture, where
+    nothing ran: :func:`~sparkdl_torch.ops._dispatch.capture_tally`).
 
     ``generator``: a ``torch.Generator`` the call draws from. The graph
     gets one of its own, registered with it; a replay starts from the
@@ -470,20 +486,15 @@ class CapturedGraph:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()  # as the capture does: the pool is what grows
         reserved = torch.cuda.memory_reserved()
-        before = _dispatch.launch_counts()
         t0 = time.perf_counter()
-        try:
-            # thread_local: feed threads may keep copying (and registering
-            # host memory) while this thread captures; no collection may
-            # finalize garbage mid-capture (no_gc)
-            with no_gc(), torch.cuda.graph(self.graph, stream=stream,
-                                           capture_error_mode="thread_local"):
-                self.outputs = fn(*self.inputs, **kwargs)
-        finally:
-            # the wrappers counted launches that were only captured
-            self.launches = _dispatch.launch_delta(
-                before, _dispatch.launch_counts())
-            _dispatch.add_launches(self.launches, -1)
+        # thread_local: feed threads and other replicas may keep copying
+        # and launching while this thread captures; no collection may
+        # finalize garbage mid-capture (no_gc); what the wrappers launch
+        # here is only captured (capture_tally)
+        with no_gc(), _dispatch.capture_tally() as self.launches, \
+                torch.cuda.graph(self.graph, stream=stream,
+                                 capture_error_mode="thread_local"):
+            self.outputs = fn(*self.inputs, **kwargs)
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved() - reserved
 
@@ -512,9 +523,10 @@ class GraphCache:
     runs eagerly on a side stream (the warm-up: kernel libraries load,
     lazy state such as optimizer moments is created, and its outputs are
     this call's), then the same call is captured on that stream, and the
-    least recently used graph beyond ``maxsize`` is dropped. A capture
-    that fails raises, naming the path: nothing falls back to eager
-    execution. ``fn`` must not read the device from the host; every leaf
+    least recently used graph beyond ``maxsize`` is dropped. Misses take
+    turns across the process's threads, and the side stream comes from a
+    priority pool no feed copy draws from. A capture that fails raises,
+    naming the path: nothing falls back to eager execution. ``fn`` must not read the device from the host; every leaf
     of ``inputs`` must be a tensor (another value would be baked in)."""
 
     def __init__(self, path: str, *, maxsize: int = 8):
@@ -552,13 +564,14 @@ class GraphCache:
         if g is not None:
             self._graphs.move_to_end(full)
             return g.replay(inputs, generator)
-        out = self._warm_up(fn, inputs, generator)
-        try:
-            g = self._capture(fn, inputs, generator)
-        except Exception as e:
-            raise RuntimeError(
-                f"capturing a CUDA graph of {self.path!r} failed "
-                f"({type(e).__name__}: {e})") from e
+        with _CAPTURE_LOCK:
+            out = self._warm_up(fn, inputs, generator)
+            try:
+                g = self._capture(fn, inputs, generator)
+            except Exception as e:
+                raise RuntimeError(
+                    f"capturing a CUDA graph of {self.path!r} failed "
+                    f"({type(e).__name__}: {e})") from e
         self.captures += 1
         self._graphs[full] = g
         while len(self._graphs) > self.maxsize:
@@ -569,7 +582,8 @@ class GraphCache:
         kwargs = {} if generator is None else {"generator": generator}
         cur = torch.cuda.current_stream()
         if self._stream is None:
-            self._stream = torch.cuda.Stream()
+            self._stream = torch.cuda.Stream(
+                priority=_CAPTURE_STREAM_PRIORITY)
         self._stream.wait_stream(cur)
         with torch.cuda.stream(self._stream):
             out = fn(*inputs, **kwargs)

@@ -64,10 +64,26 @@ the causal mask hides) and sentinel writes land in it, never in a real
 block. Per-slot writes past a dense buffer are dropped by
 :func:`~sparkdl_torch.models.gpt.write_columns`.
 
+Tiered KV (``host_kv_blocks``, ``disk_kv_blocks``, ``kv_spill_dir``):
+cold cached blocks page out to host DRAM and on to disk
+(:mod:`~sparkdl_torch.serving.kv_tiers`) instead of being evicted, and a
+returning session's next turn pages them back in before its prefix
+match. A park reads a block's RAW storage bytes (int8 codes and their
+scales, bf16 bit patterns; never a dequantized copy) with an async
+device-to-host copy on the engine's stream, behind the program that last
+wrote it; an unpark writes those bytes back into a freshly allocated
+block in place — the pool tensors the graphs read never move — so a
+resumed turn is bitwise the turn that never parked. Parked sessions
+migrate between engines through :meth:`export_parked_sessions` /
+:meth:`import_parked_sessions` (the raw codec of
+:mod:`~sparkdl_torch.serving.kv_codec`). A torn park (``kv.park``
+fault) evicts instead, a corrupt unpark (``kv.unpark``) prunes and
+re-prefills: both counted (``_park_fallbacks``,
+``sparkdl_kv_park_fallbacks_total``), and no request is lost. The
+scratch block at the sentinel id is never registered, so it never parks.
+
 Not ported yet, and raising where asked for: sequence-parallel prefill
-(``sp`` > 1, ROADMAP A8) and the tiered KV store (``host_kv_blocks``,
-``disk_kv_blocks``, :meth:`park_cold`, parked-session export/import;
-ROADMAP A7 kv_tiers).
+(``sp`` > 1, ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -261,6 +277,11 @@ class ContinuousGPTEngine:
     budget/deadline caps as ``chain_tokens`` plus the measured
     acceptance rate. ``kv_dtype`` ("fp32" | "bf16" | "int8") picks the
     paged pool's storage layout.
+
+    ``host_kv_blocks`` (paged layout) parks cold blocks in a host-DRAM
+    tier of that many blocks instead of evicting them; ``disk_kv_blocks``
+    adds a disk tier below it, spilling into ``kv_spill_dir`` (a temporary
+    directory by default, removed at close).
     """
 
     def __init__(self, config, model, *, device=None, n_slots: int = 8,
@@ -278,6 +299,7 @@ class ContinuousGPTEngine:
                  kv_dtype: str = "fp32",
                  host_kv_blocks: "int | None" = None,
                  disk_kv_blocks: "int | None" = None,
+                 kv_spill_dir: "str | None" = None,
                  metrics: ServingMetrics | None = None,
                  slo: "slo_mod.SLO | None" = None,
                  tenants: "tenancy.TenantRegistry | None" = None,
@@ -313,10 +335,24 @@ class ContinuousGPTEngine:
                 "(kv_dtype) require kv_layout='paged'; the dense layout "
                 "is the exact parity oracle"
             )
-        if host_kv_blocks is not None or disk_kv_blocks is not None:
-            raise NotImplementedError(
-                "tiered KV (host_kv_blocks/disk_kv_blocks) "
-                + _NOT_PORTED.format(item="A7 kv_tiers"))
+        if kv_layout != "paged" and host_kv_blocks is not None:
+            raise ValueError(
+                "tiered KV (host_kv_blocks) requires kv_layout='paged': "
+                "parking pages pool blocks, and the dense layout has "
+                "no block pool"
+            )
+        if disk_kv_blocks is not None and host_kv_blocks is None:
+            raise ValueError(
+                "disk_kv_blocks requires host_kv_blocks: the disk tier "
+                "sits below the host tier (blocks spill host->disk, "
+                "never device->disk directly)"
+            )
+        if host_kv_blocks is not None and host_kv_blocks < 1:
+            raise ValueError(
+                f"host_kv_blocks must be >= 1, got {host_kv_blocks}")
+        if disk_kv_blocks is not None and disk_kv_blocks < 0:
+            raise ValueError(
+                f"disk_kv_blocks must be >= 0, got {disk_kv_blocks}")
         if sp is not None and sp < 1:
             raise ValueError(f"sp must be >= 1, got {sp}")
         sp_val, _, _ = resolve_pin(sp, "SPARKDL_TORCH_SP", 1, what="sp")
@@ -375,6 +411,10 @@ class ContinuousGPTEngine:
         self._prefill_seconds = 0.0
         self._prefill_chunks = 0
         self._deferrals = 0
+        #: host/disk tier store for parked cold sessions; None = flat
+        #: single-tier cache (the default)
+        self._kv_tiers = None
+        self._park_fallbacks = 0
         self._max_tick_prefill_tokens = 0
         self._prefill_rr = 0
         self._lock = threading.Lock()
@@ -383,7 +423,8 @@ class ContinuousGPTEngine:
 
         if kv_layout == "paged":
             self._init_paged(kv_block_size, kv_blocks, prefill_chunk,
-                             draft_source, resolve_pin)
+                             draft_source, resolve_pin, host_kv_blocks,
+                             disk_kv_blocks, kv_spill_dir)
         else:
             from sparkdl_torch.models.gpt import init_cache
 
@@ -402,7 +443,8 @@ class ContinuousGPTEngine:
             self.start()
 
     def _init_paged(self, kv_block_size, kv_blocks, prefill_chunk,
-                    draft_source, resolve_pin) -> None:
+                    draft_source, resolve_pin, host_kv_blocks,
+                    disk_kv_blocks, kv_spill_dir) -> None:
         from sparkdl_torch.models.gpt import init_block_pool
         from sparkdl_torch.serving.kv_blocks import KVBlockPool
         from sparkdl_torch.serving.prefix_cache import PrefixCache
@@ -448,7 +490,15 @@ class ContinuousGPTEngine:
             fault_point("kv.quantize")
         self._pool = KVBlockPool(kv_blocks, bs, dtype=self.kv_dtype)
         self._defer_pool = self._pool
-        self._prefix = PrefixCache(self._pool)
+        if host_kv_blocks is not None:
+            from sparkdl_torch.serving.kv_tiers import TieredKVStore
+
+            # disk overflow may only drop trie LEAVES — dropping an
+            # interior parked node would orphan its (parked) descendants
+            self._kv_tiers = TieredKVStore(
+                host_kv_blocks, disk_kv_blocks or 0, spill_dir=kv_spill_dir,
+                is_droppable=lambda node: not node.children)
+        self._prefix = PrefixCache(self._pool, tiers=self._kv_tiers)
         self._draft = (draft_source if draft_source is not None
                        else default_draft_source(self._prefix))
         # one scratch block past the real ones, at the sentinel id: empty
@@ -756,6 +806,8 @@ class ContinuousGPTEngine:
         self.graphs.clear()  # their private memory pools go with them
         if self.kv_layout == "paged":
             self._pool.close()
+            if self._kv_tiers is not None:
+                self._kv_tiers.close()
 
     def begin_drain(self) -> "list[Request]":
         """Graceful host drain, phase one: stop admission and hand back
@@ -1029,9 +1081,27 @@ class ContinuousGPTEngine:
         plen = len(prompt)
         toks = tuple(int(t) for t in prompt)
         nb_total = -(-(plen + gen.max_new_tokens) // self._kv_bs)
+        # turn resume: page any parked prefix of this prompt back in
+        # BEFORE matching, so the match below sees device blocks and the
+        # resume costs one H2D copy per block instead of a re-prefill.
+        # Restored blocks hold a temporary reference (restore allocation
+        # may demote OTHER cold leaves, never these) released as soon as
+        # match has taken its own.
+        restored: "list[int]" = []
+        if self._kv_tiers is not None:
+            restored = self._prefix.restore_path(
+                toks[:-1], alloc_block=self._alloc_one_block,
+                install=self._install_parked)
+            self._update_unpark_reserved()
+            if restored:
+                flight_mod.record_event(
+                    "kv.unparked", request_id=req.request_id,
+                    blocks=len(restored))
         # the last prompt token must always prefill — the cache holds
         # K/V, not the logits that seed decode
         m = self._prefix.match(toks[:-1])
+        if restored:
+            self._prefix.release(restored)
         matched = (m.full_blocks
                    + ([m.partial_block] if m.partial_block is not None
                       else []))
@@ -1079,22 +1149,247 @@ class ContinuousGPTEngine:
         got = self._pool.allocate(n)
         if got is None:
             short = n - self._pool.free_count
-            if self._prefix.evict(short) >= short:
+            if self._kv_tiers is not None:
+                # tiered: page cold leaves OUT (device->host->disk)
+                # instead of discarding them — the demoted sessions
+                # resume with one H2D copy, not a re-prefill
+                freed = self._prefix.demote(short, self._park_payload)
+                self._update_unpark_reserved()
+            else:
+                freed = self._prefix.evict(short)
+            if freed >= short:
                 got = self._pool.allocate(n)
         return got
 
+    def _alloc_one_block(self) -> "int | None":
+        got = self._alloc_blocks(1)
+        return got[0] if got else None
+
+    # -- tiered park/resume ---------------------------------------------------
+    def _raw_block(self, bid: int) -> "dict[str, torch.Tensor]":
+        """Block ``bid`` as it lies in the pool: ``k``/``v`` [layers, bs,
+        H, D] in storage dtype (bf16 as its 16-bit patterns: numpy has no
+        bf16) plus the int8 layout's ``k_scale``/``v_scale`` [layers,
+        bs]. Never the scratch block: parking starts from trie nodes,
+        and the sentinel id is never registered."""
+        names = ("k", "v") + (("k_scale", "v_scale")
+                              if self.kv_dtype == "int8" else ())
+        out = {}
+        for name in names:
+            t = self._pool_kv[name][:, bid]
+            out[name] = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+        return out
+
+    def _park_payload(self, bid: int) -> "dict | None":
+        """D2H-fetch one cold block's raw bytes for parking: an async copy
+        into page-locked memory on the engine's stream, so it runs behind
+        the program that last wrote the block. None = torn park (injected
+        ``kv.park`` fault or transfer failure): the caller falls back to
+        plain eviction — the session re-prefills next turn, nothing is
+        lost."""
+        from sparkdl_torch.serving import kv_tiers as kv_tiers_mod
+        from sparkdl_torch.serving.kv_codec import bf16_bits
+
+        t0 = time.monotonic()
+        try:
+            fault_point("kv.park")
+            fetched = start_fetch(self._raw_block(bid),
+                                  path="kv_park").result()
+        except Exception as e:
+            self._park_fallbacks += 1
+            kv_tiers_mod._M_FALLBACKS.inc(op="park")
+            flight_mod.record_event(
+                "kv.park_failed", error=type(e).__name__, block=bid)
+            return None
+        # into pageable memory: the page-locked copy goes back to the
+        # caching host allocator for the next park instead of living in
+        # the tier (and a CPU fetch is a view of the pool itself)
+        payload = {name: np.array(v) for name, v in fetched.items()}
+        if self.kv_dtype == "bf16":
+            payload = {name: bf16_bits(v) for name, v in payload.items()}
+        kv_tiers_mod._M_PARK_SEC.observe(time.monotonic() - t0)
+        return payload
+
+    def _install_parked(self, bid: int, payload: dict) -> bool:
+        """H2D-install one parked block's raw bytes into fresh pool block
+        ``bid``, in place (graphs hold the pool's addresses; the tensors
+        never move). False = corrupt unpark (injected ``kv.unpark`` fault
+        or a payload that does not fit): the caller prunes the parked
+        subtree and the suffix re-prefills — the request still
+        completes."""
+        from sparkdl_torch.serving import kv_tiers as kv_tiers_mod
+        from sparkdl_torch.serving.kv_codec import BF16Bits
+
+        t0 = time.monotonic()
+        try:
+            fault_point("kv.unpark")
+            for name, vals in payload.items():
+                dst = self._pool_kv[name][:, bid]
+                src = np.ascontiguousarray(vals)
+                if isinstance(vals, BF16Bits):
+                    src = torch.from_numpy(src.view(np.int16)).view(
+                        torch.bfloat16)
+                else:
+                    src = torch.from_numpy(src)
+                if dst.shape != src.shape or dst.dtype != src.dtype:
+                    raise ValueError(
+                        f"parked {name} {src.dtype} {tuple(src.shape)} "
+                        f"does not fit the pool's {dst.dtype} "
+                        f"{tuple(dst.shape)}")
+                if dst.is_cuda:
+                    # stream-ordered; the caching host allocator keeps
+                    # the pinned source alive until the copy has run
+                    src = src.pin_memory()
+                dst.copy_(src, non_blocking=True)
+        except Exception as e:
+            self._park_fallbacks += 1
+            kv_tiers_mod._M_FALLBACKS.inc(op="unpark")
+            flight_mod.record_event(
+                "kv.unpark_failed", error=type(e).__name__, block=bid)
+            return False
+        kv_tiers_mod._M_UNPARK_SEC.observe(time.monotonic() - t0)
+        return True
+
+    def _update_unpark_reserved(self) -> None:
+        """Tell the pool how many free blocks parked state expects to
+        claim on resume, so an autoscaler's shrink defers instead of
+        stranding unparks behind re-prefills (capped at the pool)."""
+        if self._kv_tiers is None:
+            return
+        s = self._kv_tiers.stats()
+        self._pool.unpark_reserved = min(
+            s["host_blocks"] + s["disk_blocks"], self._pool.n_blocks)
+
     def park_cold(self, max_blocks: "int | None" = None) -> int:
-        raise NotImplementedError(
-            "parking KV blocks (park_cold) "
-            + _NOT_PORTED.format(item="A7 kv_tiers"))
+        """Explicitly page every currently cold cached block out to the
+        host tier (benches/tests; production parks lazily under
+        allocation pressure). Returns device blocks freed. Refcounted
+        shares and partial-block COW donors never park."""
+        if self._kv_tiers is None:
+            raise RuntimeError(
+                "park_cold needs a host tier: construct the engine "
+                "with host_kv_blocks")
+        with self._lock:
+            n = (max_blocks if max_blocks is not None
+                 else self._prefix.cached_blocks)
+            freed = self._prefix.demote(
+                n, self._park_payload, evict_fallback=False)
+            self._update_unpark_reserved()
+            return freed
 
-    def export_parked_sessions(self, max_sessions: "int | None" = None):
-        raise NotImplementedError(
-            "parked-session export " + _NOT_PORTED.format(item="A7 kv_tiers"))
+    # -- parked-session migration ---------------------------------------------
+    def export_parked_sessions(self,
+                               max_sessions: "int | None" = None
+                               ) -> "dict | None":
+        """Serialize every parked session's block-aligned prefix path for
+        re-parking on another engine (a host's drain or scale-down:
+        without this, parked state strands where it parked and every
+        idle conversation re-prefills cold). Each session ships its WHOLE
+        path (device-resident ancestors are D2H-fetched like a park;
+        parked blocks are peeked from their tier) through the raw codec,
+        so the importing engine resumes bitwise-identically. Exported
+        parked subtrees are pruned here — the state now lives on the
+        target; a torn export (``kv.migrate`` fault) skips that session,
+        which simply re-prefills on resume (never lost, never
+        duplicated). None when this engine has no tier store."""
+        if self.kv_layout != "paged" or self._kv_tiers is None:
+            return None
+        from sparkdl_torch.serving import kv_tiers as kv_tiers_mod
+        from sparkdl_torch.serving.kv_codec import encode
 
-    def import_parked_sessions(self, bundle) -> int:
-        raise NotImplementedError(
-            "parked-session import " + _NOT_PORTED.format(item="A7 kv_tiers"))
+        t0 = time.monotonic()
+        sessions: "list[dict]" = []
+        with self._lock:
+            paths = self._prefix.parked_leaf_paths()
+            if max_sessions is not None:
+                paths = paths[:int(max_sessions)]
+            prune: "list[Any]" = []
+            for tokens, nodes in paths:
+                try:
+                    fault_point("kv.migrate")
+                    blocks = []
+                    for n in nodes:
+                        pl = (self._park_payload(n.block_id)
+                              if n.tier == "device"
+                              else self._kv_tiers.peek(n))
+                        if pl is None:
+                            raise RuntimeError(
+                                "torn export: block payload unavailable")
+                        blocks.append({k: encode(v) for k, v in pl.items()})
+                except Exception as e:
+                    kv_tiers_mod._M_MIGRATIONS.inc(outcome="export_failed")
+                    flight_mod.record_event(
+                        "kv.migrate_export_failed", host=self.host_id,
+                        error=type(e).__name__)
+                    continue
+                sessions.append({"tokens": [int(t) for t in tokens],
+                                 "blocks": blocks})
+                kv_tiers_mod._M_MIGRATIONS.inc(outcome="exported")
+                kv_tiers_mod._M_MIG_BLOCKS.inc(len(blocks))
+                top = next((n for n in nodes if n.tier != "device"), None)
+                if top is not None:
+                    prune.append(top)
+            seen: "set[int]" = set()
+            for top in prune:
+                # tops are roots of maximal parked subtrees — disjoint,
+                # but two leaves under one top share it: prune once
+                if id(top) in seen:
+                    continue
+                seen.add(id(top))
+                self._prefix._prune_parked(top)
+            self._update_unpark_reserved()
+        kv_tiers_mod._M_MIG_SEC.observe(time.monotonic() - t0)
+        flight_mod.record_event(
+            "kv.migrate_export", host=self.host_id, sessions=len(sessions))
+        return {"host_id": self.host_id, "block_size": self._kv_bs,
+                "kv_dtype": self.kv_dtype, "sessions": sessions}
+
+    def import_parked_sessions(self, bundle: "dict | None") -> int:
+        """Adopt migrated parked sessions into this engine's tier store
+        (the receiving end of :meth:`export_parked_sessions`): each
+        session's blocks re-park here and its trie path is grafted in, so
+        the next turn's ``restore_path`` pages it in with one H2D copy
+        per block instead of a re-prefill. Sessions on a different block
+        grid or storage dtype are skipped whole (their bytes cannot
+        install here — re-prefill is the correct fallback), as is any
+        session torn by the ``kv.migrate`` fault site. Returns sessions
+        adopted."""
+        if (self.kv_layout != "paged" or self._kv_tiers is None
+                or not bundle):
+            return 0
+        from sparkdl_torch.serving import kv_tiers as kv_tiers_mod
+        from sparkdl_torch.serving.kv_codec import decode
+
+        if int(bundle.get("block_size") or 0) != self._kv_bs:
+            return 0
+        dtype = bundle.get("kv_dtype")
+        if dtype is not None and str(dtype) != str(self.kv_dtype):
+            return 0
+        t0 = time.monotonic()
+        adopted = 0
+        with self._lock:
+            for sess in bundle.get("sessions") or ():
+                try:
+                    fault_point("kv.migrate")
+                    blocks = [{k: decode(v) for k, v in b.items()}
+                              for b in sess["blocks"]]
+                    toks = tuple(int(t) for t in sess["tokens"])
+                    if len(toks) != len(blocks) * self._kv_bs:
+                        raise ValueError("ragged migration payload")
+                    self._prefix.adopt_parked(toks, blocks)
+                except Exception as e:
+                    kv_tiers_mod._M_MIGRATIONS.inc(outcome="import_failed")
+                    flight_mod.record_event(
+                        "kv.migrate_import_failed", host=self.host_id,
+                        error=type(e).__name__)
+                    continue
+                adopted += 1
+                kv_tiers_mod._M_MIGRATIONS.inc(outcome="imported")
+            self._update_unpark_reserved()
+        kv_tiers_mod._M_MIG_SEC.observe(time.monotonic() - t0)
+        flight_mod.record_event(
+            "kv.migrate_import", host=self.host_id, sessions=adopted)
+        return adopted
 
     def _prefill_tick(self) -> None:
         """Advance chunked prefills by at most ``prefill_chunk`` REAL
@@ -1436,8 +1731,26 @@ class ContinuousGPTEngine:
                 **({"error": type(error).__name__} if error else {}),
             )
 
+    def _register_session(self, slot: int, flight: _InFlight) -> None:
+        """Index the finished turn's whole sequence — prompt plus
+        produced tokens minus the last (columns ``[0, pidx)`` hold
+        exactly the K/V of ``prompt + produced[:-1]``) — so the
+        session's NEXT turn, whose prompt embeds this turn verbatim,
+        parks and resumes instead of re-prefilling. Tiered engines only:
+        without a park tier the extra registrations would just bloat the
+        LRU."""
+        seq = (tuple(int(t) for t in flight.prompt)
+               + tuple(int(t) for t in flight.produced[:-1]))
+        if not seq:
+            return
+        nb = -(-len(seq) // self._kv_bs)
+        row = self._table[slot]
+        self._prefix.register(seq, [int(b) for b in row[:nb]])
+
     def _complete(self, slot: int) -> None:
         flight = self._inflight.pop(slot)
+        if self._kv_tiers is not None:
+            self._register_session(slot, flight)
         self._release_slot(slot, flight.blocks)
         now = time.monotonic()
         self._record_request_span(
@@ -1556,6 +1869,13 @@ class ContinuousGPTEngine:
                 self.config, self.kv_dtype),
             "capacity_ratio_vs_fp32": round(kv_capacity_ratio(
                 self.config, self.kv_dtype), 4),
+            # host/disk tier occupancy rides the same snapshot into the
+            # flight recorder's pool-pressure context and healthz
+            **({"tiers": {
+                **(self._prefix.tier_stats() or {}),
+                "park_fallbacks": self._park_fallbacks,
+                "unpark_reserved": self._pool.unpark_reserved,
+            }} if self._kv_tiers is not None else {}),
         }
 
     def _spec_snapshot(self) -> "dict[str, Any] | None":
@@ -1622,12 +1942,22 @@ class ContinuousGPTEngine:
         """The one structure a router's weighting reads: identity + room.
         Best-effort reads (no engine lock)."""
         paged = self.kv_layout == "paged"
-        cold = None
+        # parkable pressure split: cold = refcount-0 cached blocks that
+        # COULD page out on demand, parked = blocks already in the
+        # host/disk tiers
+        cold = parked = sessions = None
         if paged:
             try:
                 cold = self._prefix.cold_blocks()
             except RuntimeError:
                 cold = None  # racing registration: stale next refresh
+            if self._kv_tiers is not None:
+                s = self._kv_tiers.stats()
+                parked = s["host_blocks"] + s["disk_blocks"]
+                try:
+                    sessions = self._prefix.parked_sessions()
+                except RuntimeError:
+                    sessions = None
         return {
             "host_id": self.host_id,
             "replica_count": 1,
@@ -1637,8 +1967,8 @@ class ContinuousGPTEngine:
             "kv_blocks_free": self._pool.free_count if paged else None,
             "kv_blocks_total": self._pool.n_blocks if paged else None,
             "kv_blocks_cold": cold,
-            "kv_parked_blocks": None,
-            "kv_parked_sessions": None,
+            "kv_parked_blocks": parked,
+            "kv_parked_sessions": sessions,
             "queue_depth": self.queue.depth,
             "max_queue_depth": self.queue.max_depth,
             "draining": self.queue.closed,

@@ -42,9 +42,9 @@ from sparkdl_torch.transformers._inference import BatchedRunner
 
 
 class ServingEngine:
-    """Online micro-batching inference over a :class:`BatchedRunner`
-    (or anything with its ``run_batch``/``run_batch_async``/``chunk_size``
-    surface). The reference's ``ReplicaPool`` is not ported yet.
+    """Online micro-batching inference over a :class:`BatchedRunner`, a
+    :class:`~sparkdl_torch.serving.replicas.ReplicaPool`, or anything
+    with their ``run_batch``/``run_batch_async``/``chunk_size`` surface.
 
     ``max_wait_s`` bounds the extra latency the FIRST request of a batch
     pays to pick up riders; ``max_queue_depth`` bounds host memory and
@@ -208,12 +208,3 @@ class ServingEngine:
     def __exit__(self, *exc) -> None:
         self.close(drain=exc == (None, None, None))
 
-
-class ReplicaPool:
-    """The reference's pool of per-device executors behind one
-    ``run_batch`` surface, with its reliability breaker: not ported."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ReplicaPool is not ported to sparkdl_torch yet (ROADMAP A7 "
-            "replicas)")

@@ -26,9 +26,8 @@ leave an unmatchable dangling suffix), invoked by the engine when
 allocation comes up short. Unregistered blocks free immediately at
 refcount zero.
 
-Tiered mode (the reference's ``kv_tiers.TieredKVStore``; its port is
-ROADMAP A7's second half, and until then ``tiers=`` raises): with a
-tier store attached, the trie becomes
+Tiered mode: when the engine attaches a
+:class:`~sparkdl_torch.serving.kv_tiers.TieredKVStore`, the trie becomes
 a **3-level hierarchy**. A node's ``tier`` says where its block lives:
 ``"device"`` nodes hold a live pool block; ``"host"``/``"disk"`` nodes
 are *parked* — their raw block bytes moved to the cheap tier, their
@@ -58,6 +57,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from sparkdl_torch.observability.registry import registry
 from sparkdl_torch.serving.kv_blocks import KVBlockPool
+from sparkdl_torch.serving.kv_tiers import TieredKVStore
 
 _M_HITS = registry().counter(
     "sparkdl_prefix_hits_total",
@@ -145,12 +145,8 @@ class PrefixCache:
     """Token-trie prefix index over a :class:`KVBlockPool`."""
 
     def __init__(self, pool: KVBlockPool,
-                 tiers: Any = None,
+                 tiers: "Optional[TieredKVStore]" = None,
                  journal_limit: int = 1024):
-        if tiers is not None:
-            raise NotImplementedError(
-                "tiered prefix caching (tiers=) is not ported to "
-                "sparkdl_torch yet (ROADMAP A7 kv_tiers)")
         self.pool = pool
         self.block_size = pool.block_size
         self._clock = itertools.count(1)

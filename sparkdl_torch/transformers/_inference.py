@@ -61,9 +61,11 @@ class BatchedRunner:
     ``ragged_rows=True`` declares that row shapes vary across batches:
     ring slots are fixed-size, so such feeds must keep to the Python path.
 
-    ``data_parallel`` and ``partitioner`` keep the reference's names; a
-    single card has nothing to shard, and placement across cards is not
-    ported yet, so ``data_parallel=True`` or a partitioner raises.
+    ``data_parallel`` and ``partitioner`` keep the reference's names. A
+    :class:`~sparkdl_torch.partition.SingleDevicePartitioner` pins the
+    runner to its device (how a ReplicaPool builds its executors);
+    placement across cards is not ported yet, so ``data_parallel=True``
+    or any other partitioner raises.
     """
 
     apply_fn: Callable[[dict[str, torch.Tensor]], Any]
@@ -102,7 +104,8 @@ class BatchedRunner:
     fetch_window: "int | None" = None
     #: ``cuda`` (default) or ``cpu``; ``cuda`` raises where CUDA is absent.
     device: Any = "cuda"
-    #: Not ported (placement, ROADMAP A8): None.
+    #: None, or a SingleDevicePartitioner whose device the runner takes
+    #: (other layouts are ROADMAP A8).
     partitioner: Any = None
     #: Online autotuning of the ingest knobs (sparkdl_torch/ingest): the
     #: staging depth, the dispatch chain K, and the native packer
@@ -117,11 +120,22 @@ class BatchedRunner:
     def __post_init__(self):
         from sparkdl_torch.ingest.pipeline import resolve_pin, unique_name
 
-        if self.data_parallel or self.partitioner is not None:
+        from sparkdl_torch.partition import SingleDevicePartitioner
+
+        if self.data_parallel or not (
+                self.partitioner is None
+                or isinstance(self.partitioner, SingleDevicePartitioner)):
             raise NotImplementedError(
                 "data_parallel=True / partitioner= (batches placed over "
                 "several cards) is " + _NOT_PORTED.format(item="A8 partition")
                 + "; a runner drives one card")
+        if self.partitioner is not None:
+            if (self.device != "cuda"
+                    and resolve_device(self.device) != self.partitioner.device):
+                raise ValueError(
+                    "device= is sugar for partitioner=SingleDevicePartitioner"
+                    "(device); pass one or the other, not both")
+            self.device = self.partitioner.device
         self.device = resolve_device(self.device)
         self._prefetch_depth, self._prefetch_pinned, _ = resolve_pin(
             self.prefetch, "SPARKDL_TORCH_PREFETCH", 2, what="prefetch")

@@ -3,7 +3,7 @@ tiny GPT weights and requests, both on the CPU and driven by ``tick()``:
 greedy tokens identical under every layout and decode mode, the same
 prefix-hit and deferral counts; plus what the port adds to the
 reference's programs: the scratch block at the sentinel id, the graph
-path's static inputs, and the parts that raise until they are ported.
+path's static inputs, and the part that raises until it is ported.
 """
 
 import threading
@@ -288,17 +288,25 @@ def test_constructor_contract(pair):
     _, _, tcfg, module = pair
     with pytest.raises(NotImplementedError, match="A8"):
         TorchEngine(tcfg, module, sp=2, auto_start=False)
-    with pytest.raises(NotImplementedError, match="A7 kv_tiers"):
-        TorchEngine(tcfg, module, host_kv_blocks=4, auto_start=False)
+    # the tier knobs are validated as the reference validates them
+    for kw, match in ((dict(kv_layout="dense", host_kv_blocks=4),
+                       "requires kv_layout='paged'"),
+                      (dict(disk_kv_blocks=4), "requires host_kv_blocks"),
+                      (dict(host_kv_blocks=0), "host_kv_blocks must be"),
+                      (dict(host_kv_blocks=4, disk_kv_blocks=-1),
+                       "disk_kv_blocks must be")):
+        with pytest.raises(ValueError, match=match):
+            TorchEngine(tcfg, module, auto_start=False, **kw)
     with pytest.raises(ValueError, match="require kv_layout='paged'"):
         TorchEngine(tcfg, module, kv_layout="dense", spec_k=4,
                     auto_start=False)
     eng = TorchEngine(tcfg, module, auto_start=False)
     assert eng.device == torch.device("cpu")
-    for call in (eng.park_cold, eng.export_parked_sessions,
-                 lambda: eng.import_parked_sessions({})):
-        with pytest.raises(NotImplementedError, match="A7 kv_tiers"):
-            call()
+    # no tier store: nothing parks, exports or imports
+    with pytest.raises(RuntimeError, match="needs a host tier"):
+        eng.park_cold()
+    assert eng.export_parked_sessions() is None
+    assert eng.import_parked_sessions({"sessions": [{}]}) == 0
     cap = eng.capacity()
     assert cap["free_slots"] == eng.n_slots and cap["kv_blocks_free"] > 0
     eng.close()

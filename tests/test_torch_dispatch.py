@@ -210,20 +210,56 @@ def test_shape_key_groups_by_structure_shape_and_dtype():
     assert shape_key((torch.zeros(3),)) != shape_key([torch.zeros(3)])
 
 
-def test_launch_counts_add_and_take_back():
-    """The counts a graph replay adds: what the wrappers counted during
-    the capture (launch_delta), taken back once and added per replay."""
+def test_launch_counts_add_and_take_back(monkeypatch):
+    """The counts a graph replay adds: what the wrappers launched into
+    the capturing stream during the capture (capture_tally, kept out of
+    the counts, whichever thread launched it), added per replay; launches
+    into other streams meanwhile count as they happen, and none is lost
+    to a race."""
+    import sys
+    import threading
+
     from sparkdl_torch.ops.stem_fused import inception_stem_fused
 
+    # the capturing stream is current on the threads named "capture"
+    monkeypatch.setattr(_dispatch, "_stream_capturing", lambda: (
+        threading.current_thread().name.startswith("capture")))
+
+    def launch(n):
+        for _ in range(n):
+            _dispatch.note_launch(inception_stem_fused)
+
     inception_stem_fused.launches = 5
-    before = _dispatch.launch_counts()
-    inception_stem_fused.launches += 3
-    delta = _dispatch.launch_delta(before, _dispatch.launch_counts())
-    assert delta == {(inception_stem_fused, "launches"): 3}
-    _dispatch.add_launches(delta, -1)
-    assert inception_stem_fused.launches == 5
-    _dispatch.add_launches(delta, 4)
-    assert inception_stem_fused.launches == 17
+    with _dispatch.capture_tally() as tally:
+        threads = [threading.Thread(target=launch, args=(3,), name="capture"),
+                   threading.Thread(target=launch, args=(2,),
+                                    name="capture-backward"),
+                   threading.Thread(target=launch, args=(7,), name="other")]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    assert tally == {(inception_stem_fused, "launches"): 5}
+    assert inception_stem_fused.launches == 12  # the other stream's 7
+    launch(1)  # no capture in progress: counted
+    assert inception_stem_fused.launches == 13
+    _dispatch.add_launches(tally, 4)
+    assert inception_stem_fused.launches == 33
+    _dispatch.add_launches(tally, -1)
+    assert inception_stem_fused.launches == 28
+    inception_stem_fused.launches = 0
+    workers = [threading.Thread(target=launch, args=(5000,)) for _ in range(16)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)  # switch threads as often as possible
+    try:
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(w.is_alive() for w in workers)
+    assert inception_stem_fused.launches == 80000
     inception_stem_fused.launches = 0
 
 

@@ -1,6 +1,6 @@
-"""sparkdl_torch stands alone: it imports nothing of JAX, Flax or
-sparkdl_tpu (importing sparkdl_tpu pulls in JAX and sets KERAS_BACKEND),
-and neither does chip_smoke.py."""
+"""sparkdl_torch stands alone: it imports nothing of JAX, Flax,
+ml_dtypes or sparkdl_tpu (importing sparkdl_tpu pulls in JAX and sets
+KERAS_BACKEND), and neither does chip_smoke.py."""
 
 import ast
 import os
@@ -11,7 +11,7 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sparkdl_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "sparkdl_tpu")
 
 _FEATURIZE_ONE = """
 import sys
@@ -76,6 +76,24 @@ with ContinuousGPTEngine(cfg, sd, device="cpu", n_slots=2, max_len=16, kv_block_
     assert len(eng.submit([5, 3, 9], 3).result(timeout=60)) == 3
 with ServingEngine(BatchedRunner(lambda b: b["x"] + 1, batch_size=4, device="cpu")) as srv:
     assert float(srv.submit({"x": np.zeros(2, np.float32)}).result(timeout=60)[0]) == 1.0
+from sparkdl_torch.serving import ReplicaPool
+with ReplicaPool(lambda b: b["x"] + 1, batch_size=4, devices=[torch.device("cpu")] * 2) as pool:
+    pool.warmup({"x": np.zeros((2, 2), np.float32)})
+    with ServingEngine(pool) as srv:
+        assert float(srv.submit({"x": np.zeros(2, np.float32)}).result(timeout=60)[0]) == 1.0
+with ContinuousGPTEngine(cfg, sd, device="cpu", n_slots=2, max_len=16, kv_block_size=4,
+                         kv_dtype="bf16", host_kv_blocks=2, disk_kv_blocks=8,
+                         auto_start=False) as eng:
+    fut = eng.submit([5, 3, 9, 2, 7], 3)
+    while not fut.done():
+        eng.tick()
+    assert eng.park_cold() > 0 and eng.export_parked_sessions()["sessions"]
+from sparkdl_torch.observability import annotate, trace
+import tempfile
+with tempfile.TemporaryDirectory() as logdir:
+    with trace(logdir) as cap, annotate("probe"):
+        torch.ones(4).sum()
+    assert cap.path
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in FORBIDDEN)
 print("LOADED", loaded)
@@ -86,10 +104,12 @@ def test_featurize_in_fresh_interpreter_loads_no_jax():
     """One featurize (over the staging ring, with async readback) and one
     text-generation transform, an autotuned runner stream, a native
     decode, one BERT fine-tune step with input readahead, one fused
-    1x1-conv call, a continuous GPT engine (paged, speculative, int8) and
-    a micro-batching ServingEngine in a fresh interpreter load no module
-    of JAX, Flax or sparkdl_tpu: the copied observability, reliability,
-    ingest and serving modules pull in nothing of it."""
+    1x1-conv call, a continuous GPT engine (paged, speculative, int8), a
+    micro-batching ServingEngine, one over a ReplicaPool, a tiered bf16
+    engine that parks, spills and exports, and a profiler trace in a
+    fresh interpreter load no module of JAX, Flax, ml_dtypes or
+    sparkdl_tpu: the copied observability, reliability, ingest and
+    serving modules pull in nothing of it."""
     env = dict(os.environ)
     env.pop("PYTHONSTARTUP", None)
     proc = subprocess.run(
@@ -134,3 +154,22 @@ def _imported_roots(path: Path):
 def test_no_jax_imports_in_the_port(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+@pytest.mark.parametrize("module", [
+    "sparkdl_torch.serving.replicas", "sparkdl_torch.serving.kv_tiers",
+    "sparkdl_torch.serving.kv_codec", "sparkdl_torch.observability.profiling",
+    "sparkdl_torch.reliability.breaker"])
+def test_serving_core_modules_import_alone_without_jax(module):
+    """Each of the pool, tier, codec, profiler and breaker modules, imported
+    first in a fresh interpreter, loads no JAX and no ml_dtypes (the
+    reference decodes bfloat16 through ml_dtypes; the port does not)."""
+    code = (f"import sys, {module}\n"
+            f"print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}))")
+    env = dict(os.environ)
+    env.pop("PYTHONSTARTUP", None)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "[]", proc.stdout

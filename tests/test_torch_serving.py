@@ -328,13 +328,14 @@ def test_tuple_output_apply_fn():
 
 def test_serving_engine_runs_where_its_runner_runs():
     """The engine takes the runner's device: a runner's default is the
-    card, which raises without CUDA instead of serving on the CPU."""
+    card, which raises without CUDA instead of serving on the CPU, and so
+    is a pool's (every visible card)."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default does not raise here")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ServingEngine(BatchedRunner(lambda b: b["x"], batch_size=4))
-    with pytest.raises(NotImplementedError, match="A7 replicas"):
-        ReplicaPool([])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ReplicaPool(lambda b: b["x"])
 
 
 # -- observability copies vs the reference -----------------------------------
