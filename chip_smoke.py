@@ -66,6 +66,7 @@ H100_BYTES_S = 3.35e12    # HBM3
 BATCH, SIZE = 64, 299
 N_ROWS, N_PARTS = 256, 4
 STEM_TOL = 1e-5   # f32 kernel vs f32 plain: only the summation order differs
+STEM_BF16_TOL = 2.0 ** -7  # both sides round to bf16: one bf16 step apart at most
 NET_TOL = 1e-4    # after ~90 more f32 cuDNN convs on both sides
 
 HEADS, HEAD_DIM = 12, 64            # GPT-2 small (and BERT/ViT base)
@@ -222,9 +223,10 @@ def _stem_builds() -> str:
 
 def _stem_check(x_u8, folded, errs) -> None:
     """The kernel against stem_reference on one batch: f32 and u8 pixels to
-    f32 features within STEM_TOL, u8 to bf16 within 2^-7 (both sides round
-    to bf16: one bf16 step apart at most), each the same bits on a second
-    call. Records the worst relative error per label in ``errs``."""
+    f32 features within STEM_TOL, u8 and f32 pixels to bf16 (the featurizer
+    feeds u8, the bf16 zoo f32) within 2^-7 (both sides round to bf16: one
+    bf16 step apart at most), each the same bits on a second call. Records
+    the worst relative error per label in ``errs``."""
     import torch
 
     from sparkdl_torch.ops.stem_fused import inception_stem_fused, stem_reference
@@ -234,7 +236,8 @@ def _stem_check(x_u8, folded, errs) -> None:
     want = stem_reference(x_f32, folded)
     for label, x, dtype, tol in (("f32->f32", x_f32, torch.float32, STEM_TOL),
                                  ("u8->f32", x_u8, torch.float32, STEM_TOL),
-                                 ("u8->bf16", x_u8, torch.bfloat16, 2.0 ** -7)):
+                                 ("u8->bf16", x_u8, torch.bfloat16, STEM_BF16_TOL),
+                                 ("f32->bf16", x_f32, torch.bfloat16, STEM_BF16_TOL)):
         got = inception_stem_fused(x, folded, dtype=dtype)
         again = inception_stem_fused(x, folded, dtype=dtype)
         torch.cuda.synchronize()
@@ -283,7 +286,7 @@ def phase_stem():
     print(f"[stem] S {'/'.join(map(str, STEM_EDGE_SIZES))} x B "
           f"{'/'.join(map(str, STEM_EDGE_BATCHES))}: worst rel err "
           + ", ".join(f"{k} {v[1]:.2e}" for k, v in edge_errs.items())
-          + f" (tol {STEM_TOL}, bf16 {2.0 ** -7}); every result the same bits on a "
+          + f" (tol {STEM_TOL}, bf16 {STEM_BF16_TOL}); every result the same bits on a "
           "second call")
     x_u8 = torch.from_numpy(
         rng.integers(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)).cuda()
@@ -574,7 +577,8 @@ def phase_main_path(stem_entry: dict, card: str):
     pick = [i % N_ROWS for i in (0, 1, 63, 64, 100, 150, 200, 255)]
     x = torch.from_numpy(images[pick].astype(np.float32)).cuda()  # RGB as fed
     with torch.inference_mode():
-        want = fused_inception_v3_features(params, x, stem=stem_reference)
+        want = fused_inception_v3_features(params, x, dtype=torch.float32,
+                                           stem=stem_reference)
     abs_err, rel = _rel_err(torch.from_numpy(feats[pick]), want.cpu())
     if rel > NET_TOL:
         raise AssertionError(f"featurizer vs plain-stem forward: rel err {rel:.3e}")
@@ -583,7 +587,7 @@ def phase_main_path(stem_entry: dict, card: str):
     x = torch.from_numpy(images[:BATCH].astype(np.float32)).cuda()
     with torch.inference_mode():
         fwd = {name: _time_ms(lambda s=s: fused_inception_v3_features(
-                   params, x, stem=s), warmup=2, reps=10)
+                   params, x, dtype=torch.float32, stem=s), warmup=2, reps=10)
                for name, s in (("kernel", inception_stem_fused),
                                ("plain", stem_reference))}
     print(f"[forward] fused InceptionV3 forward, B={BATCH} already on the device: "
@@ -2048,6 +2052,448 @@ def phase_zoo(card: str) -> dict:
     return rates
 
 
+ZOO_BF16_TOL = 2.0 ** -5  # bf16 activations and operands vs float32, ~94 convs / 12 layers
+KERAS_TOL = 1e-4          # the same float32 ResNet50 as two torch programs, card and CPU
+
+
+def _operand_dtypes(fn) -> dict:
+    """{op: dtypes of its floating operands} for the convolutions and
+    matrix products dispatched by one call of ``fn``."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    ops = {"conv2d", "convolution", "linear", "matmul", "mm", "addmm", "bmm"}
+    seen: dict = {}
+
+    class Mode(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name in ops:
+                for a in args:
+                    if isinstance(a, torch.Tensor) and a.is_floating_point():
+                        seen.setdefault(name, set()).add(str(a.dtype).split(".")[-1])
+            return func(*args, **(kwargs or {}))
+
+    with Mode():
+        fn()
+    return {k: sorted(v) for k, v in seen.items()}
+
+
+def _zoo_bf16_kernel_checks(x, stem_params, vit_bf16, xv, rng) -> list:
+    """The bf16 builds that [zoo_bf16] launches, each against its plain
+    version on the path's own inputs: the stem's f32-pixels->bf16 build on
+    the B=64, 299 px batch within STEM_BF16_TOL, and the flash forward's
+    bf16 build, unmasked at L=197 (three full 64-key tiles and a ragged
+    5), on the q/k/v that each of ViT-B/16's layers gives it and on
+    unit-normal q/k/v of that shape (a sharper softmax), within BF16_TOL
+    of max |ref|. These launches come before the counted forwards."""
+    import numpy as np
+    import torch
+
+    import sparkdl_torch.models.vit as vit_module
+    from sparkdl_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+    from sparkdl_torch.ops.stem_fused import inception_stem_fused, stem_reference
+
+    bf16 = torch.bfloat16
+    with torch.inference_mode():
+        got = inception_stem_fused(x, stem_params, dtype=bf16)
+        want = stem_reference(x, stem_params).to(bf16)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"[zoo_bf16] stem f32->bf16: bad output {tuple(got.shape)}")
+        _, stem_rel = _rel_err(got, want)
+        if stem_rel > STEM_BF16_TOL:
+            raise AssertionError(f"[zoo_bf16] stem f32->bf16 B={x.shape[0]}: rel err "
+                                 f"{stem_rel:.3e} > {STEM_BF16_TOL}")
+
+        seen = []  # every layer's (q, k, v, args, kwargs) of one bf16 forward
+
+        def record(q, k, v, *args, **kwargs):
+            seen.append((q, k, v, args, kwargs))
+            return flash_attention(q, k, v, *args, **kwargs)
+
+        vit_module.flash_attention = record
+        try:
+            vit_bf16(xv)
+        finally:
+            vit_module.flash_attention = flash_attention
+        q0 = seen[0][0]
+        normal = tuple(torch.from_numpy(rng.standard_normal(
+            tuple(q0.shape), dtype=np.float32)).cuda().to(bf16) for _ in "qkv")
+        cases = seen + [normal + ((), {})]
+        worst = 0.0
+        for i, (q, k, v, args, kwargs) in enumerate(cases):
+            got = flash_attention(q, k, v, *args, **kwargs)
+            want = flash_attention_reference(q, k, v, *args, **kwargs)
+            torch.cuda.synchronize()
+            what = f"layer {i}" if i < len(seen) else "unit-normal q/k/v"
+            if (q.dtype != bf16 or got.shape != want.shape
+                    or not torch.isfinite(got.float()).all()):
+                raise AssertionError(f"[zoo_bf16] flash_attention {what}: bad output or "
+                                     f"dtype {q.dtype}")
+            _, rel = _rel_err(got, want)
+            if rel > BF16_TOL:
+                raise AssertionError(f"[zoo_bf16] flash_attention bf16 {what} "
+                                     f"{tuple(q.shape)}: rel err {rel:.3e} > {BF16_TOL}")
+            worst = max(worst, rel)
+    return [f"stem f32->bf16 B={x.shape[0]} {x.shape[1]} px rel err {stem_rel:.2e} "
+            f"(tol {STEM_BF16_TOL})",
+            f"flash_attention bf16 {list(q0.shape)} unmasked, {len(seen)} layers' q/k/v "
+            f"and unit-normal q/k/v: worst rel err {worst:.2e} (tol {BF16_TOL})"]
+
+
+def _dispatched_ops(fn) -> int:
+    """The count of ATen ops that one call of ``fn`` dispatches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    count = [0]
+
+    class Mode(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            count[0] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Mode():
+        fn()
+    return count[0]
+
+
+def phase_zoo_bf16(card: str, stem_entry: dict, attn_entry: dict) -> dict:
+    """The zoo at dtype=bfloat16 on the card, full width and depth, random
+    weights (seed 0), batch 64: InceptionV3's branch-merged forward at 299
+    px (the stem kernel writing bf16) and ViT-B/16 at 224 px with
+    attn_impl="flash" (the flash forward's bf16 instantiation), each held
+    against the same weights' float32 forward within ZOO_BF16_TOL of
+    max |f32|. Before that, each kernel's bf16 build is held against its
+    plain version on this path's own inputs (_zoo_bf16_kernel_checks).
+    Each bf16 forward must launch its kernel (counts zeroed just before
+    it), keep its parameters float32 and give every convolution and matrix
+    product bfloat16 operands, as the JAX package rounds. Prints the
+    errors and the device ms a batch in both dtypes."""
+    import numpy as np
+    import torch
+
+    from sparkdl_torch.models.inception_fused import (
+        fused_inception_v3_features,
+        prepare_fused_inception_v3,
+    )
+    from sparkdl_torch.models.registry import build_torch_model
+    from sparkdl_torch.models.vit import ViTConfig, ViTModel
+    from sparkdl_torch.ops.flash_attention import flash_attention
+    from sparkdl_torch.ops.fold import fold_tf_preprocess
+    from sparkdl_torch.ops.preprocess import preprocess_tf
+    from sparkdl_torch.ops.stem_fused import inception_stem_fused
+
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(7)
+    inception = build_torch_model("InceptionV3", "random", include_top=False, seed=0)
+    params = prepare_fused_inception_v3(fold_tf_preprocess(inception.state_dict()))
+    x = torch.from_numpy(rng.integers(0, 256, (BATCH, SIZE, SIZE, 3)).astype(np.float32)).cuda()
+    cfg = ViTConfig.b16(attn_impl="flash")
+    weights = build_torch_model("ViTB16", "random", include_top=False, seed=0).state_dict()
+    vit = {}
+    for dt in (torch.float32, bf16):
+        vit[dt] = ViTModel(cfg, include_top=False, dtype=dt)
+        vit[dt].load_state_dict(weights)
+        vit[dt] = vit[dt].cuda().eval()
+    xv = preprocess_tf(torch.from_numpy(rng.integers(
+        0, 256, (BATCH, cfg.image_size, cfg.image_size, 3)).astype(np.float32)).cuda())
+    paths = {
+        "InceptionV3": (lambda dt: fused_inception_v3_features(params, x, dtype=dt),
+                        inception_stem_fused, 1, SIZE, stem_entry),
+        "ViTB16": (lambda dt: vit[dt](xv)[0], flash_attention, cfg.num_layers,
+                   cfg.image_size, attn_entry),
+    }
+    f32_params = all(p.dtype == torch.float32 for p in vit[bf16].parameters()) and all(
+        w.dtype == torch.float32 for w, _ in params["convs"].values())
+    if not f32_params:
+        raise AssertionError("[zoo_bf16] parameters are not float32")
+    kernel_report = _zoo_bf16_kernel_checks(x, params["stem"], vit[bf16], xv, rng)
+    out, report = {}, []
+    for name, (fwd, kernel, want_launches, size, entry) in paths.items():
+        with torch.inference_mode():
+            want = fwd(torch.float32)
+            torch.cuda.synchronize()
+            _zero_counts()
+            got = fwd(bf16)
+            torch.cuda.synchronize()
+            launches = kernel.launches
+            operands = _operand_dtypes(lambda: fwd(bf16))
+            ms = {dt: _time_ms(lambda dt=dt: fwd(dt), warmup=2, reps=10)
+                  for dt in (torch.float32, bf16)}
+        if launches != want_launches:
+            raise AssertionError(f"[zoo_bf16] {name}: {kernel.__name__} launched "
+                                 f"{launches} times in one bf16 forward, want {want_launches}")
+        if not operands or any(v != ["bfloat16"] for v in operands.values()):
+            raise AssertionError(f"[zoo_bf16] {name}: operand dtypes {operands}")
+        abs_err, rel = _rel_err(got, want)
+        if got.shape != want.shape or not torch.isfinite(got).all() or rel > ZOO_BF16_TOL:
+            raise AssertionError(f"[zoo_bf16] {name}: bf16 vs float32 rel err {rel:.3e} "
+                                 f"(tol {ZOO_BF16_TOL})")
+        entry["zoo_bf16_launches"] = launches
+        out[name] = {"rel_err": rel, "f32_ms": ms[torch.float32], "bf16_ms": ms[bf16],
+                     "launches": launches}
+        report.append(
+            f"{name} {size} px: bf16 vs float32 features max|diff| {abs_err:.3e} = "
+            f"{rel:.2e} of max|f32| (tol {ZOO_BF16_TOL}); {kernel.__name__} launches "
+            f"{launches} a bf16 forward; operands {operands}; forward "
+            f"{ms[torch.float32]:.2f} ms float32, {ms[bf16]:.2f} ms bf16 a batch "
+            f"(CUDA events)")
+    print(f"[zoo_bf16] kernels against their plain versions on this path's inputs: "
+          + "; ".join(kernel_report))
+    print(f"[zoo_bf16] dtype=bfloat16 zoo, random init seed 0, B={BATCH}, parameters "
+          f"float32: " + "; ".join(report) + f"; {card}")
+    del inception, params, vit, x, xv
+    torch.cuda.empty_cache()
+    return out
+
+
+def _keras_entry(cls: str, name: str, inputs: list, **config) -> dict:
+    """One layer of a Keras 3 functional config: ``inputs`` are the names
+    of the layers whose (single) outputs it is called on."""
+    tensors = [{"class_name": "__keras_tensor__",
+                "config": {"keras_history": [src, 0, 0]}} for src in inputs]
+    args = [tensors] if len(tensors) > 1 else tensors
+    return {"class_name": cls, "name": name, "config": {"name": name, **config},
+            "inbound_nodes": [{"args": args, "kwargs": {}}] if inputs else []}
+
+
+def resnet50_keras_graph(seed: int = 0, size: int = 224):
+    """keras.applications.ResNet50(include_top=False, pooling="avg") as a
+    KerasGraph written in code: Keras' layer names, order, configs and
+    connections (``conv1_pad``, ``conv1_conv``, ``conv1_bn``, ...,
+    ``conv5_block3_out``, ``avg_pool``), with seeded numpy weights
+    (lecun-scaled kernels, BN statistics away from 0/1). Needs no Keras."""
+    import numpy as np
+
+    from sparkdl_torch.models.keras_loader import KerasGraph
+
+    rng = np.random.default_rng(seed)
+    layers, weights = [], {}
+
+    def add(cls, name, inputs, **config):
+        layers.append(_keras_entry(cls, name, inputs, **config))
+        return name
+
+    def conv(name, src, cin, filters, k, stride=1, padding="valid"):
+        weights[name] = [
+            (rng.standard_normal((k, k, cin, filters)) / np.sqrt(k * k * cin)).astype(np.float32),
+            (0.1 * rng.standard_normal(filters)).astype(np.float32)]
+        return add("Conv2D", name, [src], filters=filters, kernel_size=[k, k],
+                   strides=[stride, stride], padding=padding, data_format="channels_last",
+                   dilation_rate=[1, 1], groups=1, activation="linear", use_bias=True)
+
+    def bn(name, src, c):
+        weights[name] = [(1 + 0.1 * rng.standard_normal(c)).astype(np.float32),
+                         (0.1 * rng.standard_normal(c)).astype(np.float32),
+                         (0.1 * rng.standard_normal(c)).astype(np.float32),
+                         (0.5 + rng.random(c)).astype(np.float32)]
+        return add("BatchNormalization", name, [src], axis=3, momentum=0.99,
+                   epsilon=1.001e-5, center=True, scale=True)
+
+    def relu(name, src):
+        return add("Activation", name, [src], activation="relu")
+
+    add("InputLayer", "input_layer", [], batch_shape=[None, size, size, 3])
+    add("ZeroPadding2D", "conv1_pad", ["input_layer"], padding=[[3, 3], [3, 3]],
+        data_format="channels_last")
+    relu("conv1_relu", bn("conv1_bn", conv("conv1_conv", "conv1_pad", 3, 64, 7, 2), 64))
+    add("ZeroPadding2D", "pool1_pad", ["conv1_relu"], padding=[[1, 1], [1, 1]],
+        data_format="channels_last")
+    x = add("MaxPooling2D", "pool1_pool", ["pool1_pad"], pool_size=[3, 3], padding="valid",
+            strides=[2, 2], data_format="channels_last")
+    cin = 64
+    for stage, (filters, blocks, stride) in enumerate(
+            ((64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 2)), start=2):
+        for b in range(1, blocks + 1):
+            p, s = f"conv{stage}_block{b}", (stride if b == 1 else 1)
+            h = relu(f"{p}_1_relu", bn(f"{p}_1_bn", conv(f"{p}_1_conv", x, cin, filters, 1, s),
+                                       filters))
+            h = relu(f"{p}_2_relu", bn(f"{p}_2_bn", conv(f"{p}_2_conv", h, filters, filters, 3,
+                                                         1, "same"), filters))
+            if b == 1:  # Keras' order: the shortcut's conv, the closing conv, their BNs
+                short = conv(f"{p}_0_conv", x, cin, 4 * filters, 1, s)
+            h = conv(f"{p}_3_conv", h, filters, 4 * filters, 1)
+            if b == 1:
+                short = bn(f"{p}_0_bn", short, 4 * filters)
+            else:
+                short = x
+            h = bn(f"{p}_3_bn", h, 4 * filters)
+            x = relu(f"{p}_out", add("Add", f"{p}_add", [short, h]))
+            cin = 4 * filters
+    add("GlobalAveragePooling2D", "avg_pool", [x], data_format="channels_last",
+        keepdims=False)
+    config = {"name": "resnet50", "trainable": True, "layers": layers,
+              "input_layers": ["input_layer", 0, 0], "output_layers": ["avg_pool", 0, 0]}
+    return KerasGraph(config=config, weights=weights)
+
+
+def _small_keras_graph(seed: int, size: int, classes: int):
+    """A small Keras image classifier as a KerasGraph in code: Conv2D 3x3
+    same -> BatchNormalization (momentum 0.5) -> ReLU -> global average
+    pool -> Dense softmax."""
+    import numpy as np
+
+    from sparkdl_torch.models.keras_loader import KerasGraph
+
+    rng = np.random.default_rng(seed)
+    layers = [
+        _keras_entry("InputLayer", "input", [], batch_shape=[None, size, size, 3]),
+        _keras_entry("Conv2D", "conv", ["input"], filters=16, kernel_size=[3, 3],
+                     strides=[1, 1], padding="same", activation="linear", use_bias=True),
+        _keras_entry("BatchNormalization", "bn", ["conv"], axis=-1, momentum=0.5,
+                     epsilon=1e-3),
+        _keras_entry("ReLU", "relu", ["bn"]),
+        _keras_entry("GlobalAveragePooling2D", "pool", ["relu"]),
+        _keras_entry("Dense", "head", ["pool"], units=classes, activation="softmax"),
+    ]
+    weights = {
+        "conv": [(rng.standard_normal((3, 3, 3, 16)) / np.sqrt(27)).astype(np.float32),
+                 np.zeros(16, np.float32)],
+        "bn": [np.ones(16, np.float32), np.zeros(16, np.float32),
+               np.zeros(16, np.float32), np.ones(16, np.float32)],
+        "head": [(rng.standard_normal((16, classes)) / 4).astype(np.float32),
+                 np.zeros(classes, np.float32)],
+    }
+    return KerasGraph(config={"name": "small", "layers": layers,
+                              "input_layers": ["input", 0, 0],
+                              "output_layers": ["head", 0, 0]}, weights=weights)
+
+
+def phase_keras(card: str) -> dict:
+    """The Keras side without Keras (this machine has none): ResNet50's
+    layer graph as keras.applications names it, written as a KerasGraph
+    in code with seeded weights. registerKerasImageUDF (BASELINE config 3)
+    scores 256 random image rows at 224 px through it on the card, one
+    row a call through applyUDF over 4 partitions (caffe preprocessing as
+    the UDF's torch preprocessor): rows/s after a warm-up of 8 rows. The
+    same graph goes through the zoo converter into the port's ResNet50;
+    the UDF's outputs are held against the zoo module's on the card (all
+    rows) and against the graph module on the CPU (two rows), within
+    KERAS_TOL of max |ref|. Where a row's time goes, measured right after
+    the UDF's run: the graph module's forward on one device row with its
+    result's readback, as the UDF calls it (host clock, median of 25),
+    its device time (CUDA-graph replays) and the ATen ops it dispatches.
+    Then the estimator's torch training loop runs
+    one epoch (Adam, categorical crossentropy, batch 8, shuffled) over a
+    small Conv-BN-Dense graph on the card: the loss must be finite and
+    fall. No kernel of the port runs here (cuDNN/cuBLAS)."""
+    import copy
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from sparkdl_torch import LocalDataFrame, registerKerasImageUDF
+    from sparkdl_torch.estimators.keras_image_file_estimator import (
+        fit_keras_graph,
+        keras_loss,
+    )
+    from sparkdl_torch.models.keras_graph import KerasGraphModule
+    from sparkdl_torch.models.keras_loader import load_keras_weights
+    from sparkdl_torch.models.resnet import ResNet50
+    from sparkdl_torch.ops.preprocess import preprocess_caffe
+    from sparkdl_torch.udf import applyUDF
+
+    graph = resnet50_keras_graph(seed=0)
+    rng = np.random.default_rng(8)
+    images, rows = _image_rows(rng, 224)
+    registerKerasImageUDF("resnet50_keras", graph, preprocessor=preprocess_caffe)
+    applyUDF("resnet50_keras", LocalDataFrame.from_rows(rows[:8], 1), "image",
+             "scores").collect()  # warm-up: cuDNN plans
+    df = LocalDataFrame.from_rows(rows, N_PARTS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = applyUDF("resnet50_keras", df, "image", "scores").collect()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    row_module = KerasGraphModule(graph, device="cuda").eval()
+    with torch.inference_mode():
+        x1 = preprocess_caffe(torch.from_numpy(images[:1].astype(np.float32)).cuda())
+        walls = []
+        for _ in range(28):
+            t1 = time.perf_counter()
+            row_module(x1).cpu()
+            walls.append(time.perf_counter() - t1)
+        row_host_ms = sorted(walls[3:])[len(walls[3:]) // 2] * 1e3
+        row_ops = _dispatched_ops(lambda: row_module(x1))
+        row_device_ms = _device_ms(lambda: row_module(x1), calls=5, reps=5)
+    got = torch.from_numpy(np.stack([r["scores"] for r in out]))
+    if got.shape != (N_ROWS, 2048) or not torch.isfinite(got).all():
+        raise AssertionError(f"[keras] UDF outputs {tuple(got.shape)}, finite "
+                             f"{bool(torch.isfinite(got).all())}")
+
+    zoo = load_keras_weights(ResNet50(include_top=False, device="cpu"), graph, "topo")
+    zoo = zoo.cuda().eval()
+    cpu = KerasGraphModule(graph, device="cpu").eval()
+    with torch.inference_mode():
+        x = preprocess_caffe(torch.from_numpy(images.astype(np.float32)).cuda())
+        want = torch.cat([zoo(x[i:i + BATCH])[0] for i in range(0, N_ROWS, BATCH)]).cpu()
+        want_cpu = cpu(preprocess_caffe(torch.from_numpy(images[:2].astype(np.float32))))
+    _, rel_zoo = _rel_err(got, want)
+    _, rel_cpu = _rel_err(got[:2], want_cpu)
+    if rel_zoo > KERAS_TOL or rel_cpu > KERAS_TOL:
+        raise AssertionError(f"[keras] UDF vs zoo ResNet50 rel err {rel_zoo:.3e}, vs the "
+                             f"graph on the CPU {rel_cpu:.3e} (tol {KERAS_TOL})")
+    rate = N_ROWS / secs
+    print(f"[keras] registerKerasImageUDF over ResNet50's Keras graph ({len(graph.layers)} "
+          f"layers, {len(graph.weights)} weight-bearing, written in code, seed 0): "
+          f"{N_ROWS} rows at 224 px in {N_PARTS} partitions, one row a call, "
+          f"{rate:.1f} rows/s ({secs:.2f} s after 8 warm-up rows); outputs "
+          f"[{N_ROWS}, 2048] vs the zoo ResNet50 loaded through the converter on the "
+          f"card rel err {rel_zoo:.1e}, vs the graph module on the CPU (2 rows) "
+          f"{rel_cpu:.1e} (tol {KERAS_TOL}); {card}")
+    print(f"[keras] where a UDF row's {1e3 / rate:.2f} ms go: the graph module's forward "
+          f"on one device row with its readback {row_host_ms:.2f} ms (host clock, median "
+          f"of 25), of it {row_device_ms:.2f} ms of device time (CUDA-graph replays); "
+          f"{row_ops} ATen ops dispatched a forward; the rest of the row is the UDF's "
+          f"host work (image conversion, resize, the input's copy); {card}")
+
+    small = _small_keras_graph(seed=1, size=32, classes=3)
+    xs = rng.standard_normal((256, 32, 32, 3)).astype(np.float32)
+    ys = np.eye(3, dtype=np.float32)[xs.mean(axis=(1, 2)).argmax(axis=1)]
+    module = KerasGraphModule(small, device="cuda")
+    start = copy.deepcopy(module.keras_weights())
+    loss_fn = keras_loss("categorical_crossentropy")
+    xt, yt = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+
+    def full_loss() -> float:
+        with torch.no_grad():
+            return loss_fn(module(xt), yt).mean().item()
+
+    before = full_loss()
+    t0 = time.perf_counter()
+    history = fit_keras_graph(module, xs, ys, optimizer="adam",
+                              loss="categorical_crossentropy", epochs=1, batch_size=8,
+                              shuffle=True)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    after = full_loss()
+    moved = float(np.abs(module.keras_weights()["bn"][2] - start["bn"][2]).max())
+    if not (math.isfinite(before) and math.isfinite(after) and after < before
+            and math.isfinite(history["loss"][0]) and moved > 0):
+        raise AssertionError(f"[keras] fit: loss {before:.4f} -> {after:.4f}, epoch loss "
+                             f"{history['loss']}, moving mean moved {moved:.3e}")
+    print(f"[keras] KerasImageFileEstimator's torch loop (fit_keras_graph) on the card: "
+          f"Conv-BN-Dense graph, 256 examples 32x32, 1 epoch of 32 steps, Adam "
+          f"(Keras defaults), categorical crossentropy: loss over the set {before:.4f} "
+          f"-> {after:.4f}, epoch mean {history['loss'][0]:.4f}, BN moving mean moved "
+          f"{moved:.3e}, {fit_s:.2f} s; {card}")
+    keras_here = importlib.util.find_spec("keras") is not None
+    print(f"[keras] judged on the CPU, not here: reading .h5/.keras files "
+          f"(KerasTransformer, KerasImageFileTransformer, registerKerasImageUDF from a "
+          f"file, the estimator's load and save), because this machine has no keras/"
+          f"h5py (keras importable here: {keras_here}); tests/test_torch_keras_*.py")
+    del zoo, cpu, module, x, x1, row_module
+    torch.cuda.empty_cache()
+    return {"rows_s": rate, "rel_zoo": rel_zoo, "rel_cpu": rel_cpu,
+            "loss": (before, after), "row_host_ms": row_host_ms,
+            "row_device_ms": row_device_ms, "row_ops": row_ops}
+
+
 def _attention_times(q, k, v, mask) -> dict:
     """The flash forward (no grad) against its plain version, SDPA and its
     3xTF32 bound on the same inputs (the work this mask needs:
@@ -3205,6 +3651,8 @@ def main() -> int:
     examples_s = phase_train_bert(card, dq, dkv, bert_fwd)
     train_images_s = phase_train_resnet(card, gemm)
     zoo_rates = phase_zoo(card)
+    zoo_bf16 = phase_zoo_bf16(card, stem, attn)
+    keras_side = phase_keras(card)
     phase_vit(card, attn)
     text_rate = phase_text(card, attn)
     hpo = phase_hpo(card)
@@ -3215,6 +3663,10 @@ def main() -> int:
     kernels = [stem, attn, dq, dkv, decode, gemm]
     print(f"[summary] {card}: zoo featurizer images/s "
           + ", ".join(f"{n} {r:.1f}" for n, r in zoo_rates.items())
+          + "; zoo at bfloat16 a batch of 64 "
+          + ", ".join(f"{n} {z['bf16_ms']:.2f} ms vs {z['f32_ms']:.2f} ms float32 (rel err "
+                      f"{z['rel_err']:.1e})" for n, z in zoo_bf16.items())
+          + f"; registerKerasImageUDF ResNet50 {keras_side['rows_s']:.1f} rows/s"
           + f"; DeepTextFeaturizer BERT-base {text_rate:.1f} examples/s; flash_attention "
           f"at ViT-B/16 B={BATCH} L=197 {attn['vit_ms']:.4f} ms (plain "
           f"{attn['vit_plain_ms']:.4f}, SDPA {attn['vit_library_ms']:.4f}, bound "

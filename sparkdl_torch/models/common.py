@@ -5,6 +5,11 @@ Every weight-bearing layer is named by construction order (``conv000``,
 as the Flax zoo of ``sparkdl_tpu``, so weights convert key by key
 (``models/convert.py``). Public model functions take NHWC like the JAX
 package; inside, tensors are NCHW in ``channels_last`` memory format.
+
+The compute dtype is the activations' dtype: the helpers cast float32
+parameters to it at the op (Flax's ``dtype`` with ``param_dtype=float32``),
+and BatchNorm normalizes in float32 and rounds its output back, as Flax's
+does. A float32 input runs exactly the float32 ops.
 """
 
 from __future__ import annotations
@@ -54,22 +59,36 @@ def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def _same_pads(x: torch.Tensor, kh: int, kw: int, stride: int):
-    """(left, right, top, bottom) TF "SAME" padding of an NCHW tensor."""
-    top, bottom = same_padding(x.shape[-2], kh, stride)
-    left, right = same_padding(x.shape[-1], kw, stride)
+def pair(v) -> tuple[int, int]:
+    """An int or an (h, w) pair as an (h, w) pair."""
+    return (v, v) if isinstance(v, int) else (int(v[0]), int(v[1]))
+
+
+def _same_pads(x: torch.Tensor, kernel, stride):
+    """(left, right, top, bottom) TF "SAME" padding of an NCHW tensor;
+    ``kernel`` and ``stride`` are ints or (h, w) pairs."""
+    (kh, kw), (sh, sw) = pair(kernel), pair(stride)
+    top, bottom = same_padding(x.shape[-2], kh, sh)
+    left, right = same_padding(x.shape[-1], kw, sw)
     return left, right, top, bottom
 
 
+def _as(t, x: torch.Tensor):
+    """Parameter ``t`` (or None) in ``x``'s dtype: a no-op when they agree."""
+    return None if t is None else t.to(x.dtype)
+
+
 def conv2d_tf(x: torch.Tensor, weight: torch.Tensor, bias=None,
-              stride: int = 1, padding: str = "SAME",
+              stride=1, padding: str = "SAME",
               groups: int = 1) -> torch.Tensor:
-    """``F.conv2d`` with TF padding semantics ("SAME" or "VALID")."""
+    """``F.conv2d`` with TF padding semantics ("SAME" or "VALID"), in
+    ``x``'s dtype; ``stride`` is an int or an (h, w) pair."""
+    weight, bias = _as(weight, x), _as(bias, x)
     if padding == "VALID":
         return F.conv2d(x, weight, bias, stride, groups=groups)
     if padding != "SAME":
         raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
-    left, right, top, bottom = _same_pads(x, *weight.shape[-2:], stride)
+    left, right, top, bottom = _same_pads(x, tuple(weight.shape[-2:]), stride)
     if top == bottom and left == right:
         return F.conv2d(x, weight, bias, stride, padding=(top, left),
                         groups=groups)
@@ -88,7 +107,7 @@ def sep_conv(x, dw: nn.Conv2d, pw: nn.Conv2d, stride: int = 1,
              padding: str = "SAME"):
     """Depthwise conv (TF padding) then the pointwise 1x1."""
     x = conv2d_tf(x, dw.weight, None, stride, padding, groups=dw.groups)
-    return F.conv2d(x, pw.weight, pw.bias)
+    return F.conv2d(x, pw.weight.to(x.dtype), _as(pw.bias, x))
 
 
 def make_conv_bn(c_in: int, c_out: int, kernel: tuple[int, int]):
@@ -100,36 +119,60 @@ def make_conv_bn(c_in: int, c_out: int, kernel: tuple[int, int]):
     return conv, bn
 
 
+def bn_eval(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """BatchNorm on its running statistics over NCHW ``x``: computed in
+    float32, rounded back to ``x``'s dtype."""
+    y = F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight,
+                     bn.bias, False, 0.0, bn.eps)
+    return y.to(x.dtype)
+
+
+def linear(x: torch.Tensor, m: nn.Linear) -> torch.Tensor:
+    """``m`` applied in ``x``'s dtype."""
+    return F.linear(x, m.weight.to(x.dtype), _as(m.bias, x))
+
+
 def conv_bn_relu(x, conv: nn.Conv2d, bn: nn.BatchNorm2d, stride: int = 1,
                  padding: str = "SAME"):
     """Eval conv -> BatchNorm on its running statistics -> ReLU."""
     x = conv2d_tf(x, conv.weight, None, stride, padding)
-    x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                     False, 0.0, bn.eps)
-    return torch.relu(x)
+    return torch.relu(bn_eval(x, bn))
 
 
-def max_pool(x, window: int = 3, strides: int = 2, padding: str = "VALID"):
-    """Max pool with TF padding semantics. "SAME" pads with -inf, more on
-    the bottom/right where the total is odd, so a pad cell never wins
-    (zero padding, or torch's symmetric ``padding=``, changes edge rows)."""
+def max_pool(x, window=3, strides=2, padding: str = "VALID"):
+    """Max pool with TF padding semantics (``window`` and ``strides`` ints
+    or (h, w) pairs). "SAME" pads with -inf, more on the bottom/right
+    where the total is odd, so a pad cell never wins (zero padding, or
+    torch's symmetric ``padding=``, changes edge rows)."""
+    window, strides = pair(window), pair(strides)
     if padding == "VALID":
         return F.max_pool2d(x, window, strides)
     if padding != "SAME":
         raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
-    pads = _same_pads(x, window, window, strides)
+    pads = _same_pads(x, window, strides)
     if any(pads):
         x = F.pad(x, pads, value=float("-inf"))
     return F.max_pool2d(x, window, strides)
 
 
-def avg_pool_keras(x, window: int = 3, strides: int = 1, padding: str = "SAME"):
-    """Average pool with Keras semantics: padded cells are excluded from
-    the divisor (count_include_pad=False)."""
-    if padding != "SAME" or strides != 1 or window % 2 == 0:
-        raise ValueError("only stride-1 odd-window SAME average pooling is used")
-    return F.avg_pool2d(x, window, strides, padding=window // 2,
-                        count_include_pad=False)
+def avg_pool_keras(x, window=3, strides=1, padding: str = "SAME"):
+    """Average pool with Keras semantics (``window`` and ``strides`` ints
+    or (h, w) pairs): "SAME"'s padded cells are left out of the divisor."""
+    window, strides = pair(window), pair(strides)
+    if padding == "VALID":
+        return F.avg_pool2d(x, window, strides)
+    if padding != "SAME":
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+    left, right, top, bottom = _same_pads(x, window, strides)
+    if top == bottom and left == right:
+        return F.avg_pool2d(x, window, strides, padding=(top, left),
+                            count_include_pad=False)
+    # asymmetric (TF-SAME at stride 2): each window's sum over the padded
+    # map over the count of real cells in it
+    ones = torch.ones_like(x[:1, :1])
+    sums, counts = (F.avg_pool2d(F.pad(t, (left, right, top, bottom)), window,
+                                 strides, divisor_override=1) for t in (x, ones))
+    return sums / counts
 
 
 def global_avg_pool(x):
@@ -170,9 +213,16 @@ def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
 BN_MOMENTUM = 0.99  # Flax's: running = 0.99 * running + 0.01 * batch
 
 
-def bn_moments(x: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
-    """float32 batch mean and biased variance over ``dims``."""
+def bn_moments(x: torch.Tensor, dims, centered: bool = False
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 batch mean and biased variance over ``dims``: Flax's
+    E[x^2] - E[x]^2 clamped at 0, or with ``centered`` Keras' two-pass
+    E[(x - E[x])^2] (``keras.ops.moments``, ``jnp.var``)."""
     xf = x.float()
+    if centered:
+        mean = xf.mean(dim=dims, keepdim=True)
+        var = ((xf - mean) ** 2).mean(dim=dims)
+        return mean.reshape(var.shape), var
     mean = xf.mean(dim=dims)
     var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
     return mean, var

@@ -8,7 +8,8 @@ again to compute. Layers are named in construction order (``conv000``,
 ``bn000``, ..., ``dense000``), the Flax zoo's names, so converted weights
 line up key for key. Concatenation order == construction order.
 
-features = global-average-pooled mixed10 output (2048-d).
+features = global-average-pooled mixed10 output (2048-d). ``dtype`` is
+the compute dtype (the parameters stay float32), as the Flax module's.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from sparkdl_torch.models.common import (
     avg_pool_keras,
     conv_bn_relu,
     global_avg_pool,
+    linear,
     make_conv_bn,
     max_pool,
     nhwc_to_nchw,
@@ -159,18 +161,21 @@ class _Run:
 class InceptionV3(nn.Module):
     """``forward(x)``: NHWC [B, H, W, 3] preprocessed images ->
     (features [B, 2048], softmax probabilities [B, num_classes] or None
-    when ``include_top`` is False) — the Flax module's return."""
+    when ``include_top`` is False) — the Flax module's return, in
+    ``dtype``."""
 
-    def __init__(self, include_top: bool = True, num_classes: int = 1000):
+    def __init__(self, include_top: bool = True, num_classes: int = 1000,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.include_top = include_top
         self.num_classes = num_classes
+        self.dtype = dtype
         _body(3, _Build(self))
         if include_top:
             self.add_module("dense000", nn.Linear(FEATURE_DIM, num_classes))
 
     def forward(self, x: torch.Tensor):
-        features = _body(nhwc_to_nchw(x), _Run(self))
+        features = _body(nhwc_to_nchw(x).to(self.dtype), _Run(self))
         if not self.include_top:
             return features, None
-        return features, torch.softmax(self.dense000(features), dim=-1)
+        return features, torch.softmax(linear(features, self.dense000), dim=-1)

@@ -18,12 +18,18 @@ Everything that depends only on the weights is done once, in
 :func:`prepare_fused_inception_v3`: eval BN is folded into each conv
 (W * r, bias = BN shift), head groups are concatenated, and the stem's
 parameters are folded for the kernel. Eval-only.
+
+The forward computes in ``dtype`` (bfloat16 by default, as the JAX
+package's): the stem kernel writes its output in it, and every other conv
+runs on a copy of its folded weights in it, made once per dtype and
+held beside (not inside) the parameters. The features come back float32.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakTensorKeyDictionary
 
 from sparkdl_torch.models.common import (
     BN_EPS,
@@ -69,18 +75,41 @@ def prepare_fused_inception_v3(state_dict: dict) -> dict:
             "merged": merged}
 
 
-def fused_inception_v3_features(params: dict, x: torch.Tensor,
+# the first folded conv weight of a parameter set -> {dtype: (convs, merged)}:
+# the cast copies live as long as the parameters they were made from
+_CAST = WeakTensorKeyDictionary()
+
+
+def _weights_in(params: dict, dtype: torch.dtype) -> tuple[dict, dict]:
+    """(convs, merged) of ``params`` in ``dtype``: the float32 originals,
+    or a copy cast on first use and kept in ``_CAST``."""
+    if dtype == torch.float32:
+        return params["convs"], params["merged"]
+    cast = _CAST.setdefault(params["convs"][3][0], {})
+    if dtype not in cast:
+        cast[dtype] = (
+            {i: (w.to(dtype), b.to(dtype)) for i, (w, b) in params["convs"].items()},
+            {k: (w.to(dtype), b.to(dtype), widths)
+             for k, (w, b, widths) in params["merged"].items()},
+        )
+    return cast[dtype]
+
+
+def fused_inception_v3_features(params: dict, x: torch.Tensor, *,
+                                dtype: torch.dtype = torch.bfloat16,
                                 stem=inception_stem_fused) -> torch.Tensor:
     """2048-d float32 features, the math of
-    ``InceptionV3(include_top=False)(x)`` with branch heads merged.
+    ``InceptionV3(include_top=False, dtype=dtype)(x)`` with branch heads
+    merged.
 
     ``params`` from :func:`prepare_fused_inception_v3`; ``x``: NHWC
     [B, H, W, 3] float32 (or uint8) — raw [0, 255] pixels when the weights
-    were ``fold_tf_preprocess``'ed, else already preprocessed. ``stem``
-    computes conv000-002 + max-pool; pass ``ops.stem_fused.stem_reference``
-    for the plain version.
+    were ``fold_tf_preprocess``'ed, else already preprocessed. ``dtype``:
+    the compute dtype, float32 or bfloat16. ``stem`` computes conv000-002
+    + max-pool into ``dtype``; pass ``ops.stem_fused.stem_reference`` for
+    the plain version.
     """
-    convs = params["convs"]
+    convs, merged = _weights_in(params, dtype)
     nxt = iter(range(3, _N_CONVS))
 
     def cbr(h, i=None, strides=1, padding="SAME"):
@@ -88,14 +117,14 @@ def fused_inception_v3_features(params: dict, x: torch.Tensor,
         return torch.relu(conv2d_tf(h, w, b, strides, padding))
 
     def heads(h, idxs):
-        w, b, widths = params["merged"][tuple(idxs)]
+        w, b, widths = merged[tuple(idxs)]
         return torch.relu(F.conv2d(h, w, b)).split(widths, dim=1)
 
     def take(n):
         return [next(nxt) for _ in range(n)]
 
     # -- stem: conv000-002 + max-pool, one kernel ------------------------
-    h = nhwc_to_nchw(stem(x.contiguous(), params["stem"]))
+    h = nhwc_to_nchw(stem(x.contiguous(), params["stem"], dtype=dtype))
     h = cbr(h, padding="VALID")
     h = cbr(h, padding="VALID")
     h = max_pool(h, 3, 2, "VALID")

@@ -1,23 +1,32 @@
 """Named-model registry: metadata + constructors for the zoo.
 
 Each entry records the model's input size, preprocessing mode and
-featurization width, and how to build its ``nn.Module``: InceptionV3,
-Xception, ResNet50, VGG16, VGG19 and ViT-B/16, the zoo of
-``sparkdl_tpu.models.registry``. Weights are a random initialisation from
-a seed; pretrained Keras weights ('imagenet', .h5/.keras files) wait for
-the Keras side of ROADMAP A3 and raise, and the HF-sourced ViTB16 takes
-pretrained weights only through ``models.vit.load_hf_vit``.
+featurization width, and how to build both its ``nn.Module`` and the Keras
+original (for weight conversion): InceptionV3, Xception, ResNet50, VGG16,
+VGG19 and ViT-B/16, the zoo of ``sparkdl_tpu.models.registry``. Weight
+resolution order:
+
+  1. an explicit .h5/.keras file given by the caller,
+  2. keras.applications pretrained weights if cached locally
+     (zero-egress environments fall back to 3, with a warning),
+  3. random init from a seed (weights=None or 'random').
+
+The HF-sourced ViTB16 takes pretrained weights only through
+``models.vit.load_hf_vit``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
 from typing import Any, Callable
 
 import torch
 
 from sparkdl_torch.ops._dispatch import resolve_device
+
+logger = logging.getLogger(__name__)
 
 
 def init_random_(module: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
@@ -53,6 +62,10 @@ class ModelEntry:
     source: str = "keras"
     #: random initialisation (module, seed) -> module
     init: Callable[..., Any] = init_random_
+    #: "module:attr" inside keras.applications ("" for HF-sourced models)
+    keras_builder_path: str = ""
+    #: per-type layer ordering for weight conversion (see keras_loader)
+    layer_order: str = "topo"
 
 
 def _entries() -> dict[str, ModelEntry]:
@@ -63,14 +76,17 @@ def _entries() -> dict[str, ModelEntry]:
     from sparkdl_torch.models.xception import Xception
 
     entries = [
-        ModelEntry("InceptionV3", InceptionV3, (299, 299), "tf", 2048),
-        ModelEntry("Xception", Xception, (299, 299), "tf", 2048),
+        ModelEntry("InceptionV3", InceptionV3, (299, 299), "tf", 2048,
+                   keras_builder_path="inception_v3:InceptionV3",
+                   layer_order="auto_suffix"),
+        ModelEntry("Xception", Xception, (299, 299), "tf", 2048,
+                   keras_builder_path="xception:Xception"),
         ModelEntry("ResNet50", functools.partial(ResNet50, device="cpu"),
-                   (224, 224), "caffe", 2048),
+                   (224, 224), "caffe", 2048, keras_builder_path="resnet:ResNet50"),
         ModelEntry("VGG16", VGG16, (224, 224), "caffe", 4096,
-                   features_need_top=True),
+                   features_need_top=True, keras_builder_path="vgg16:VGG16"),
         ModelEntry("VGG19", VGG19, (224, 224), "caffe", 4096,
-                   features_need_top=True),
+                   features_need_top=True, keras_builder_path="vgg19:VGG19"),
         # HF ViT's default image processing (rescale 1/255, normalize
         # mean=std=0.5) is exactly the "tf" preprocess mode
         ModelEntry("ViTB16", vit_b16_builder, (224, 224), "tf", 768,
@@ -90,17 +106,50 @@ def get_entry(name: str) -> ModelEntry:
     return entries[name]
 
 
-def build_torch_model(name: str, weights: "str | None" = None,
-                      include_top: bool = True, device="cuda",
-                      seed: int = 0) -> torch.nn.Module:
-    """The named model as an eval-mode ``nn.Module`` on ``device``.
+def build_keras_model(entry: ModelEntry, weights: "str | None" = "imagenet",
+                      include_top: bool = True):
+    """Build the keras.applications original (for conversion and oracles).
 
-    ``weights``: None or 'random' (random init from ``seed``; 'random'
-    exists so Spark-ML Param plumbing, where None means "unset", can ask
-    for it). 'imagenet' and Keras weight files wait for the Keras side of
-    ROADMAP A3 and raise ``NotImplementedError``; an HF-sourced model
-    (ViTB16) raises ``ValueError`` for any other weights, as the JAX
-    package does.
+    Falls back to random weights when pretrained ones are not cached and
+    cannot be downloaded (zero-egress), with a warning.
+    """
+    import importlib
+
+    if entry.source != "keras":
+        raise ValueError(
+            f"model {entry.name} has no keras.applications source "
+            f"(source={entry.source!r}); use the family's load_hf_* "
+            "converter for pretrained weights"
+        )
+    mod_name, attr = entry.keras_builder_path.split(":")
+    builder = getattr(importlib.import_module(f"keras.applications.{mod_name}"), attr)
+    try:
+        return builder(weights=weights, include_top=include_top)
+    except Exception as e:  # Keras raises a bare Exception for a failed download
+        if weights is None:
+            raise
+        logger.warning(
+            "could not load %s pretrained weights (%s); using random init",
+            entry.name, e,
+        )
+        return builder(weights=None, include_top=include_top)
+
+
+def build_torch_model(name: str, weights: "str | None" = None,
+                      dtype: "torch.dtype | None" = None, include_top: bool = True,
+                      device="cuda", seed: int = 0) -> torch.nn.Module:
+    """The named model as an eval-mode ``nn.Module`` on ``device``,
+    computing in ``dtype`` (float32 when None; parameters are float32).
+
+    ``weights``: 'imagenet' (keras.applications' weights, random-init
+    Keras weights with a warning where they are not cached), a path to a
+    Keras .h5/.keras file, or None / 'random' (random init from ``seed``;
+    'random' exists so Spark-ML Param plumbing, where None means "unset",
+    can ask for it). Keras weights go through ``models/keras_loader``:
+    a classifier head the module does not build is dropped, and any other
+    name or shape that disagrees raises. An HF-sourced model (ViTB16)
+    raises ``ValueError`` for any weights but random, as the JAX package
+    does.
     """
     entry = get_entry(name)
     dev = resolve_device(device)
@@ -113,11 +162,18 @@ def build_torch_model(name: str, weights: "str | None" = None,
             "weights='random' (or None) for random init, or convert a "
             "transformers model with the family's load_hf_* converter "
             "(models.vit.load_hf_vit)")
-    if weights is not None:
-        raise NotImplementedError(
-            f"weights={weights!r}: Keras weights ('imagenet', .h5/.keras "
-            "files) wait for the Keras side of ROADMAP A3 (keras_loader), "
-            "not ported to sparkdl_torch yet; use weights='random'")
-    module = entry.builder(include_top=include_top, num_classes=entry.num_classes)
-    entry.init(module, seed)
+    module = entry.builder(include_top=include_top, num_classes=entry.num_classes,
+                           dtype=torch.float32 if dtype is None else dtype)
+    if weights is None:
+        entry.init(module, seed)
+    else:
+        from sparkdl_torch.models.keras_loader import load_keras_weights, read_keras_model
+
+        if weights == "imagenet":
+            # Keras' VGG builds fc1/fc2 only with its top
+            top = include_top or entry.features_need_top
+            source = build_keras_model(entry, weights=weights, include_top=top)
+        else:
+            source = weights
+        load_keras_weights(module, read_keras_model(source), entry.layer_order)
     return module.to(dev).eval()

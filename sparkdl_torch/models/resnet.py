@@ -17,21 +17,23 @@ Parameters are created on ``device`` (``cuda`` unless the caller passes
 [B, 2048], softmax probabilities or None without the top). With
 ``train=True`` every BatchNorm normalizes with its batch moments and its
 running statistics move as Flax moves them (``models/common.py``), in
-place.
+place. ``dtype`` is the compute dtype (the parameters and the batch
+statistics stay float32), as the Flax module's.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from sparkdl_torch.models.common import (
     Namer,
+    bn_eval,
     bn_moments,
     bn_scale_shift,
     conv2d_tf,
     global_avg_pool,
+    linear,
     max_pool,
     moved_running_stats,
     nhwc_to_nchw,
@@ -50,11 +52,12 @@ class ResNet50(nn.Module):
     """Returns (features, probs); probs is None when include_top=False."""
 
     def __init__(self, include_top: bool = True, num_classes: int = 1000, *,
-                 device="cuda"):
+                 dtype: torch.dtype = torch.float32, device="cuda"):
         super().__init__()
         dev = resolve_device(device)
         self.include_top = include_top
         self.num_classes = num_classes
+        self.dtype = dtype
         nm = Namer()
 
         def conv_bn(cin, cout, k):
@@ -85,14 +88,14 @@ class ResNet50(nn.Module):
         def bn(y):
             m = getattr(self, nm.bn())
             if not train:
-                return F.batch_norm(y, m.running_mean, m.running_var, m.weight,
-                                    m.bias, False, 0.0, m.eps)
+                return bn_eval(y, m)
             mean, var = bn_moments(y, (0, 2, 3))
             set_running_stats(m, moved_running_stats(m, mean, var))
             scale, shift = bn_scale_shift(m, mean, var)
-            return y * scale[:, None, None] + shift[:, None, None]
+            return (y.float() * scale[:, None, None]
+                    + shift[:, None, None]).to(y.dtype)
 
-        y = zero_pad(nhwc_to_nchw(x), 3)
+        y = zero_pad(nhwc_to_nchw(x).to(self.dtype), 3)
         y = torch.relu(bn(conv(y, 2, "VALID")))
         y = max_pool(zero_pad(y, 1), 3, 2)
         for filters, blocks, stride in STAGES:
@@ -105,4 +108,4 @@ class ResNet50(nn.Module):
         features = global_avg_pool(y)
         if not self.include_top:
             return features, None
-        return features, torch.softmax(self.dense000(features), dim=-1)
+        return features, torch.softmax(linear(features, self.dense000), dim=-1)

@@ -17,7 +17,13 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from sparkdl_torch.models.common import Namer, conv2d_tf, max_pool, nhwc_to_nchw
+from sparkdl_torch.models.common import (
+    Namer,
+    conv2d_tf,
+    linear,
+    max_pool,
+    nhwc_to_nchw,
+)
 
 FEATURE_DIM = 4096
 VGG16_BLOCKS = ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512))
@@ -28,14 +34,17 @@ FLAT_DIM = 7 * 7 * 512
 
 class _VGG(nn.Module):
     """``forward(x)``: NHWC [B, 224, 224, 3] -> (fc2 features [B, 4096],
-    softmax probabilities or None when ``include_top`` is False)."""
+    softmax probabilities or None when ``include_top`` is False), in
+    ``dtype``."""
 
     blocks: tuple[tuple[int, int], ...] = ()
 
-    def __init__(self, include_top: bool = True, num_classes: int = 1000):
+    def __init__(self, include_top: bool = True, num_classes: int = 1000,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.include_top = include_top
         self.num_classes = num_classes
+        self.dtype = dtype
         nm = Namer()
         cin = 3
         for n_convs, filters in self.blocks:
@@ -49,18 +58,18 @@ class _VGG(nn.Module):
 
     def forward(self, x: torch.Tensor):
         nm = Namer()
-        y = nhwc_to_nchw(x)
+        y = nhwc_to_nchw(x).to(self.dtype)
         for n_convs, _ in self.blocks:
             for _ in range(n_convs):
                 m = getattr(self, nm.conv())
                 y = torch.relu(conv2d_tf(y, m.weight, m.bias))
             y = max_pool(y, 2, 2)
         y = y.permute(0, 2, 3, 1).flatten(1)  # Keras' row-major HWC flatten
-        y = torch.relu(getattr(self, nm.dense())(y))
-        features = torch.relu(getattr(self, nm.dense())(y))
+        y = torch.relu(linear(y, getattr(self, nm.dense())))
+        features = torch.relu(linear(y, getattr(self, nm.dense())))
         if not self.include_top:
             return features, None
-        logits = getattr(self, nm.dense())(features)
+        logits = linear(features, getattr(self, nm.dense()))
         return features, torch.softmax(logits, dim=-1)
 
 

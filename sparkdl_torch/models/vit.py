@@ -7,7 +7,7 @@ pre-LayerNorm encoder blocks with an exact (erf) GELU MLP, and a final
 LayerNorm (eps 1e-12 throughout). Attention dispatches on
 ``ViTConfig.attn_impl``:
 
-- ``"full"``: the dense softmax (einsum) in float32;
+- ``"full"``: the dense softmax (einsum) with float32 scores;
 - ``"flash"``: ``ops/flash_attention`` with no mask (ViT's sequences are
   dense), the hand-written CUDA kernel on the card.
 
@@ -20,6 +20,10 @@ A8). Parameters are created with torch's default init; use
 :func:`init_vit_` for Flax's, load a state dict converted from the Flax
 tree (``models/convert.vit_flax_to_torch``) or from a transformers model
 (:func:`load_hf_vit`).
+
+``ViTConfig.dtype`` is the compute dtype, as in the Flax module: the
+parameters stay float32 and are cast at each op, LayerNorm normalizes in
+float32 and rounds its output, the attention scores are float32.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sparkdl_torch.models.common import conv2d_tf, linear
 from sparkdl_torch.ops.flash_attention import flash_attention
 
 
@@ -74,18 +79,17 @@ class ViTSelfAttention(nn.Module):
         super().__init__()
         self.config = config
         h = config.hidden_size
-        kw = dict(dtype=config.dtype)
-        self.query = nn.Linear(h, h, **kw)
-        self.key = nn.Linear(h, h, **kw)
-        self.value = nn.Linear(h, h, **kw)
-        self.output_dense = nn.Linear(h, h, **kw)
+        self.query = nn.Linear(h, h)
+        self.key = nn.Linear(h, h)
+        self.value = nn.Linear(h, h)
+        self.output_dense = nn.Linear(h, h)
 
     def forward(self, x):
         c = self.config
         nh = c.num_heads
         hd = c.hidden_size // nh
         b, l = x.shape[0], x.shape[1]
-        q, k, v = (p(x).view(b, l, nh, hd)
+        q, k, v = (linear(x, p).view(b, l, nh, hd)
                    for p in (self.query, self.key, self.value))
         if c.attn_impl == "flash":
             ctx = flash_attention(q, k, v)
@@ -93,7 +97,13 @@ class ViTSelfAttention(nn.Module):
             s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(hd)
             p = torch.softmax(s, dim=-1).to(c.dtype)
             ctx = torch.einsum("bhqk,bkhd->bqhd", p, v)
-        return self.output_dense(ctx.reshape(b, l, c.hidden_size))
+        return linear(ctx.reshape(b, l, c.hidden_size), self.output_dense)
+
+
+def _layer_norm(x: torch.Tensor, m: nn.LayerNorm) -> torch.Tensor:
+    """``m`` in float32, rounded back to ``x``'s dtype (Flax's LayerNorm)."""
+    y = F.layer_norm(x.float(), m.normalized_shape, m.weight, m.bias, m.eps)
+    return y.to(x.dtype)
 
 
 class ViTBlock(nn.Module):
@@ -102,41 +112,43 @@ class ViTBlock(nn.Module):
     def __init__(self, config: ViTConfig):
         super().__init__()
         c = config
-        kw = dict(dtype=c.dtype)
-        self.layernorm_before = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps, **kw)
+        self.layernorm_before = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
         self.attention = ViTSelfAttention(c)
-        self.layernorm_after = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps, **kw)
-        self.intermediate = nn.Linear(c.hidden_size, c.intermediate_size, **kw)
-        self.output = nn.Linear(c.intermediate_size, c.hidden_size, **kw)
+        self.layernorm_after = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        self.intermediate = nn.Linear(c.hidden_size, c.intermediate_size)
+        self.output = nn.Linear(c.intermediate_size, c.hidden_size)
 
     def forward(self, x):
-        x = x + self.attention(self.layernorm_before(x))
-        h = F.gelu(self.intermediate(self.layernorm_after(x)))  # exact GELU
-        return x + self.output(h)
+        x = x + self.attention(_layer_norm(x, self.layernorm_before))
+        h = F.gelu(linear(_layer_norm(x, self.layernorm_after), self.intermediate))
+        return x + linear(h, self.output)  # exact GELU above
 
 
 class ViTModel(nn.Module):
     """Zoo-contract ViT: ``forward(x)`` -> (features [B, hidden], probs or
-    None). ``num_classes`` defaults to the config's (which
-    :func:`load_hf_vit` sets from HF ``num_labels``)."""
+    None), both float32. ``num_classes`` defaults to the config's (which
+    :func:`load_hf_vit` sets from HF ``num_labels``); ``dtype``, when
+    given, overrides the config's compute dtype. Parameters are float32
+    whatever the compute dtype, as the Flax module's."""
 
     def __init__(self, config: ViTConfig = ViTConfig(), num_classes: "int | None" = None,
-                 include_top: bool = True):
+                 include_top: bool = True, dtype: "torch.dtype | None" = None):
         super().__init__()
         if config.attn_impl not in ("full", "flash"):
             raise ValueError(f"unknown attn_impl {config.attn_impl!r}")
+        if dtype is not None and dtype != config.dtype:
+            config = dataclasses.replace(config, dtype=dtype)
         c = config
         self.config = c
         self.include_top = include_top
         self.num_classes = num_classes if num_classes is not None else c.num_classes
         p, h = c.patch_size, c.hidden_size
-        self.patch_embed = nn.Conv2d(3, h, p, stride=p, dtype=c.dtype)
-        self.cls_token = nn.Parameter(torch.zeros(1, 1, h, dtype=c.dtype))
-        self.pos_embed = nn.Parameter(torch.zeros(1, c.num_patches + 1, h, dtype=c.dtype))
+        self.patch_embed = nn.Conv2d(3, h, p, stride=p)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, h))
+        self.pos_embed = nn.Parameter(torch.zeros(1, c.num_patches + 1, h))
         self.layer = nn.ModuleList(ViTBlock(c) for _ in range(c.num_layers))
-        self.layernorm = nn.LayerNorm(h, eps=c.layer_norm_eps, dtype=c.dtype)
-        self.classifier = (nn.Linear(h, self.num_classes, dtype=c.dtype)
-                           if include_top else None)
+        self.layernorm = nn.LayerNorm(h, eps=c.layer_norm_eps)
+        self.classifier = nn.Linear(h, self.num_classes) if include_top else None
 
     def forward(self, x: torch.Tensor):
         c = self.config
@@ -147,22 +159,26 @@ class ViTModel(nn.Module):
                 f"{x.shape[1]}x{x.shape[2]}")
         # patch embedding: conv PxP stride P == a linear map of each patch;
         # patches in row-major (h, w) order, as the Flax reshape has them
-        h = self.patch_embed(x.to(c.dtype).permute(0, 3, 1, 2))
+        h = conv2d_tf(x.to(c.dtype).permute(0, 3, 1, 2), self.patch_embed.weight,
+                      self.patch_embed.bias, c.patch_size, "VALID")
         h = h.flatten(2).transpose(1, 2)  # [B, N, H]
-        h = torch.cat([self.cls_token.expand(b, 1, c.hidden_size), h], dim=1)
-        h = h + self.pos_embed
+        cls = self.cls_token.to(c.dtype).expand(b, 1, c.hidden_size)
+        h = torch.cat([cls, h], dim=1) + self.pos_embed.to(c.dtype)
         for blk in self.layer:
             h = blk(h)
-        h = self.layernorm(h)
+        h = _layer_norm(h, self.layernorm)
         features = h[:, 0].float()
         if self.classifier is None:
             return features, None
-        return features, torch.softmax(self.classifier(h[:, 0]).float(), dim=-1)
+        return features, torch.softmax(linear(h[:, 0], self.classifier).float(), dim=-1)
 
 
-def vit_b16_builder(include_top: bool = True, num_classes: int = 1000) -> ViTModel:
-    """Registry-shaped constructor for ViT-B/16 at 224 px."""
-    return ViTModel(ViTConfig.b16(), num_classes=num_classes, include_top=include_top)
+def vit_b16_builder(include_top: bool = True, dtype: torch.dtype = torch.float32,
+                    num_classes: int = 1000) -> ViTModel:
+    """Registry-shaped constructor for ViT-B/16 at 224 px, computing in
+    ``dtype``."""
+    return ViTModel(ViTConfig.b16(dtype=dtype), num_classes=num_classes,
+                    include_top=include_top, dtype=dtype)
 
 
 def init_vit_(module: ViTModel, seed: int = 0) -> ViTModel:

@@ -11,19 +11,21 @@ the layers, :class:`_Run` to compute. Each residual 1x1 conv and its BN
 are created AFTER their block's body, the Flax module's (and Keras')
 order, so ``Namer`` indices line up with the Flax tree.
 
-features = global-average-pooled block14 output (2048-d).
+features = global-average-pooled block14 output (2048-d). ``dtype`` is
+the compute dtype (the parameters stay float32), as the Flax module's.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from sparkdl_torch.models.common import (
     Namer,
+    bn_eval,
     conv2d_tf,
     global_avg_pool,
+    linear,
     make_sep_conv,
     max_pool,
     nhwc_to_nchw,
@@ -121,9 +123,7 @@ class _Run:
                         getattr(self.module, self.nm.seppw()))
 
     def bn(self, x):
-        m = getattr(self.module, self.nm.bn())
-        return F.batch_norm(x, m.running_mean, m.running_var, m.weight, m.bias,
-                            False, 0.0, m.eps)
+        return bn_eval(x, getattr(self.module, self.nm.bn()))
 
     @staticmethod
     def add(a, b):
@@ -145,18 +145,20 @@ class _Run:
 class Xception(nn.Module):
     """``forward(x)``: NHWC [B, H, W, 3] preprocessed images ->
     (features [B, 2048], softmax probabilities or None when
-    ``include_top`` is False)."""
+    ``include_top`` is False), in ``dtype``."""
 
-    def __init__(self, include_top: bool = True, num_classes: int = 1000):
+    def __init__(self, include_top: bool = True, num_classes: int = 1000,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.include_top = include_top
         self.num_classes = num_classes
+        self.dtype = dtype
         _body(3, _Build(self))
         if include_top:
             self.add_module("dense000", nn.Linear(FEATURE_DIM, num_classes))
 
     def forward(self, x: torch.Tensor):
-        features = _body(nhwc_to_nchw(x), _Run(self))
+        features = _body(nhwc_to_nchw(x).to(self.dtype), _Run(self))
         if not self.include_top:
             return features, None
-        return features, torch.softmax(self.dense000(features), dim=-1)
+        return features, torch.softmax(linear(features, self.dense000), dim=-1)

@@ -1,7 +1,10 @@
+from sparkdl_torch.transformers.keras_image import KerasImageFileTransformer
+from sparkdl_torch.transformers.keras_tensor import KerasTransformer
 from sparkdl_torch.transformers.named_image import (
     DeepImageFeaturizer,
     DeepImagePredictor,
 )
 from sparkdl_torch.transformers.text_generator import DeepTextGenerator
 
-__all__ = ["DeepImageFeaturizer", "DeepImagePredictor", "DeepTextGenerator"]
+__all__ = ["DeepImageFeaturizer", "DeepImagePredictor", "DeepTextGenerator",
+           "KerasImageFileTransformer", "KerasTransformer"]

@@ -20,6 +20,7 @@ import functools
 from typing import Any
 
 import numpy as np
+import torch
 
 from sparkdl_torch.dataframe import transform_partitions
 from sparkdl_torch.image.imageIO import imageStructToArray
@@ -74,7 +75,8 @@ def _named_model_runner(model_name: str, weights: "str | None",
         preprocess = PREPROCESSORS["identity"]
 
         def apply_fn(batch):
-            return fused_inception_v3_features(params, preprocess(batch["img"]))
+            return fused_inception_v3_features(
+                params, preprocess(batch["img"]), dtype=torch.float32)
     else:
         preprocess = PREPROCESSORS[get_entry(model_name).preprocess]
 
@@ -131,10 +133,9 @@ class _NamedImageTransformer(Transformer, HasInputCol, HasOutputCol, HasBatchSiz
                       _model_name)
     weights = Param(
         None, "weights",
-        "'random' for random init ('imagenet' and Keras weight files "
-        "wait for the Keras side of ROADMAP A3 and raise; HF-sourced "
-        "ViTB16 takes only 'random'; None in the constructor means unset "
-        "-> default)",
+        "'imagenet', a Keras .h5/.keras file, or 'random' for random init "
+        "(HF-sourced ViTB16 takes only 'random'; None in the constructor "
+        "means unset -> default)",
     )
     device = Param(None, "device", "'cuda' (default) or 'cpu'",
                    SparkDLTypeConverters.toDevice)

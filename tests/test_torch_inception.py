@@ -162,7 +162,8 @@ def test_fused_features_match_jax_fused(variables, pixels):
     params = prepare_fused_inception_v3(
         torch_fold_tf(convert.flax_to_torch(without_top(variables))))
     with torch.inference_mode():
-        got = fused_inception_v3_features(params, torch.from_numpy(pixels))
+        got = fused_inception_v3_features(params, torch.from_numpy(pixels),
+                                          dtype=torch.float32)
     assert got.dtype == torch.float32 and got.shape == (2, 2048)
     assert_close(got.numpy(), want)
 
@@ -173,7 +174,7 @@ def test_fused_matches_module_on_preprocessed_input(variables, pixels):
     x = torch.from_numpy(pixels)
     with torch.inference_mode():
         want, _ = model(preprocess_tf(x))
-        got = fused_inception_v3_features(params, x)
+        got = fused_inception_v3_features(params, x, dtype=torch.float32)
     assert_close(got.numpy(), want.numpy())
 
 
@@ -202,11 +203,11 @@ def test_random_init_follows_flax_defaults():
 
 
 @pytest.mark.parametrize("name,weights,exc", [
-    ("ResNet50", "/some/file.h5", NotImplementedError),
+    ("ResNet50", "/some/file.h5", FileNotFoundError),
     ("ViTB16", "imagenet", ValueError),
     ("NoSuchNet", None, ValueError),
-    ("InceptionV3", "imagenet", NotImplementedError),
-    ("InceptionV3", "/some/file.h5", NotImplementedError),
+    ("InceptionV3", "/some/file.h5", FileNotFoundError),
+    ("Xception", "/some/file.keras", FileNotFoundError),
 ])
 def test_registry_refuses_what_is_not_ported(name, weights, exc):
     from sparkdl_torch.models.registry import build_torch_model

@@ -116,25 +116,25 @@ def graphs(res: dict) -> None:
         x = torch.from_numpy((np.random.default_rng(1).random((bsz, S, S, 3))
                               * 255).astype(np.float32)).cuda()
         with torch.inference_mode():
-            eager = fused_inception_v3_features(params, x).clone()
+            eager = fused_inception_v3_features(params, x, dtype=torch.float32).clone()
             static_x = x.clone()
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
                 for _ in range(2):
-                    fused_inception_v3_features(params, static_x)
+                    fused_inception_v3_features(params, static_x, dtype=torch.float32)
             torch.cuda.current_stream().wait_stream(side)
             g = torch.cuda.CUDAGraph()
             t0 = time.perf_counter()
             with torch.cuda.graph(g):
-                static_y = fused_inception_v3_features(params, static_x)
+                static_y = fused_inception_v3_features(params, static_x, dtype=torch.float32)
             capture_s = time.perf_counter() - t0
             g.replay()
             torch.cuda.synchronize()
             res[f"graph_B{bsz}"] = {
                 "bitwise": bool(torch.equal(eager, static_y)),
                 "capture_s": round(capture_s, 3),
-                "eager_ms": _times(lambda: fused_inception_v3_features(params, x)),
+                "eager_ms": _times(lambda: fused_inception_v3_features(params, x, dtype=torch.float32)),
                 "replay_ms": _times(g.replay),
             }
             del g

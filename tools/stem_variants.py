@@ -275,7 +275,7 @@ def main() -> int:
     want = stem_reference(x_f32, folded)
     rows = x_f32[:8]
     with torch.inference_mode():
-        want_net = fused_inception_v3_features(params, rows, stem=stem_reference)
+        want_net = fused_inception_v3_features(params, rows, dtype=torch.float32, stem=stem_reference)
     for name in VARIANTS:
         use(libs[name])
         parts = []
@@ -285,7 +285,7 @@ def main() -> int:
             parts.append(f"{label} {cs._rel_err(got, want)[1]:.2e}"
                          + ("" if same else " REPEAT-DIFFERS"))
         with torch.inference_mode():
-            net = fused_inception_v3_features(params, rows, stem=inception_stem_fused)
+            net = fused_inception_v3_features(params, rows, dtype=torch.float32, stem=inception_stem_fused)
         print(f"[accuracy] {name}: stem rel err {', '.join(parts)} (tol {cs.STEM_TOL}); "
               f"8-row featurizer vs plain-stem forward {cs._rel_err(net, want_net)[1]:.2e} "
               f"(tol {cs.NET_TOL})", flush=True)
