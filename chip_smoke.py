@@ -34,6 +34,11 @@ went through its kernels and agrees with a kernel-free run:
   ``ServingEngine`` over the InceptionV3 featurizer's runner (the stem
   kernel), then the same traffic over a ``ReplicaPool`` of two such
   runners on the one card, with injected executor failures;
+- TF-graph ingestion's run half with no TF: ResNet50's frozen tf.keras
+  graph, written in code, through ``TFImageTransformer`` (held to the
+  Keras graph module over the same weights), an MLP graph through
+  ``TFTransformer`` and an If/While graph (cuDNN/cuBLAS: no kernel of
+  the port);
 - tiered KV: three-turn sessions parked to host and disk between turns,
   exported to and imported by a second engine, held bitwise to an engine
   that never parks, for float32, bfloat16 and int8 pools;
@@ -2494,6 +2499,385 @@ def phase_keras(card: str) -> dict:
             "row_device_ms": row_device_ms, "row_ops": row_ops}
 
 
+TF_ROWS, TF_BATCH = 128, 64
+TF_TOL = 1e-5        # the same float32 ResNet50 as two torch programs on the card, TF32 off
+TF_CPU_TOL = 1e-4    # card vs CPU: cuDNN's and oneDNN's algorithms differ (KERAS_TOL)
+MLP_WIDTHS, MLP_BATCH, MLP_ROWS = (2048, 4096, 4096, 1000), 256, 1024
+MLP_TOL = 1e-5       # the same cuBLAS float32 products, bias and softmax as separate ops
+FLOW_TOL = 1e-5      # card vs CPU: elementwise ops only (tanh's last ulp)
+
+
+def resnet50_tf_graph(seed: int = 0, size: int = 224):
+    """The TFGraph that tf.keras' ResNet50(include_top=False,
+    pooling="avg") freezes to, written in code with no TF: Pad, Conv2D +
+    BiasAdd, FusedBatchNormV3 (inference), Relu, MaxPool, AddV2 and Mean,
+    named after the Keras layers (``conv1_pad/Pad``, ``conv1_conv/Conv2D``,
+    ..., ``avg_pool/Mean``), input ``input_1`` (NHWC float32 pixels).
+    The weights are resnet50_keras_graph(seed, size)'s, so both graphs
+    compute the same function."""
+    import numpy as np
+
+    from sparkdl_torch.graph.tfgraph import TFGraph, TFNode, const, placeholder
+
+    weights = resnet50_keras_graph(seed, size).weights
+    f32, i32 = np.dtype("float32"), np.dtype("int32")
+    nodes = [placeholder("input_1", f32, [None, size, size, 3])]
+
+    def op(name, kind, inputs, **attrs):
+        nodes.append(TFNode(name, kind, tuple(inputs), {"T": f32, **attrs}))
+        return name
+
+    def pad(name, src, p):
+        nodes.append(const(f"{name}/paddings", np.array([[0, 0], [p, p], [p, p], [0, 0]],
+                                                        np.int32)))
+        return op(f"{name}/Pad", "Pad", [src, f"{name}/paddings"], Tpaddings=i32)
+
+    def conv(layer, src, stride=1, padding="VALID"):
+        kernel, bias = weights[layer]
+        nodes.extend([const(f"{layer}/kernel", kernel), const(f"{layer}/bias", bias)])
+        h = op(f"{layer}/Conv2D", "Conv2D", [src, f"{layer}/kernel"], strides=[1, stride, stride, 1],
+               padding=padding, data_format="NHWC", dilations=[1, 1, 1, 1],
+               explicit_paddings=[], use_cudnn_on_gpu=True)
+        return op(f"{layer}/BiasAdd", "BiasAdd", [h, f"{layer}/bias"], data_format="NHWC")
+
+    def bn(layer, src):
+        for key, value in zip(("gamma", "beta", "moving_mean", "moving_variance"),
+                              weights[layer]):
+            nodes.append(const(f"{layer}/{key}", value))
+        return op(f"{layer}/FusedBatchNormV3", "FusedBatchNormV3",
+                  [src] + [f"{layer}/{k}" for k in ("gamma", "beta", "moving_mean",
+                                                    "moving_variance")],
+                  U=f32, epsilon=1.001e-5, exponential_avg_factor=1.0, data_format="NHWC",
+                  is_training=False)
+
+    def relu(layer, src):
+        return op(f"{layer}/Relu", "Relu", [src])
+
+    x = relu("conv1_relu", bn("conv1_bn", conv("conv1_conv", pad("conv1_pad", "input_1", 3), 2)))
+    x = pad("pool1_pad", x, 1)
+    x = op("pool1_pool/MaxPool", "MaxPool", [x], ksize=[1, 3, 3, 1], strides=[1, 2, 2, 1],
+           padding="VALID", data_format="NHWC", explicit_paddings=[])
+    for stage, (blocks, stride) in enumerate(((3, 1), (4, 2), (6, 2), (3, 2)), start=2):
+        for b in range(1, blocks + 1):
+            p, s = f"conv{stage}_block{b}", (stride if b == 1 else 1)
+            h = relu(f"{p}_1_relu", bn(f"{p}_1_bn", conv(f"{p}_1_conv", x, s)))
+            h = relu(f"{p}_2_relu", bn(f"{p}_2_bn", conv(f"{p}_2_conv", h, 1, "SAME")))
+            h = bn(f"{p}_3_bn", conv(f"{p}_3_conv", h))
+            short = bn(f"{p}_0_bn", conv(f"{p}_0_conv", x, s)) if b == 1 else x
+            x = relu(f"{p}_out", op(f"{p}_add/add", "AddV2", [short, h]))
+    nodes.append(const("avg_pool/Mean/reduction_indices", np.array([1, 2], np.int32)))
+    op("avg_pool/Mean", "Mean", [x, "avg_pool/Mean/reduction_indices"], Tidx=i32,
+       keep_dims=False)
+    return TFGraph(nodes)
+
+
+def mlp_tf_graph(seed: int = 0, widths=MLP_WIDTHS):
+    """A frozen dense classifier as a TFGraph in code: MatMul + BiasAdd +
+    Relu per hidden layer, MatMul + BiasAdd + Softmax at the top; input
+    ``x`` [None, widths[0]], output ``probs``. Returns (graph, weights)."""
+    import numpy as np
+
+    from sparkdl_torch.graph.tfgraph import TFGraph, TFNode, const, placeholder
+
+    rng = np.random.default_rng(seed)
+    f32 = np.dtype("float32")
+    nodes, weights, h = [placeholder("x", f32, [None, widths[0]])], [], "x"
+    for i, (cin, cout) in enumerate(zip(widths[:-1], widths[1:])):
+        w = (rng.standard_normal((cin, cout)) / np.sqrt(cin)).astype(np.float32)
+        b = (0.1 * rng.standard_normal(cout)).astype(np.float32)
+        weights.append((w, b))
+        nodes += [const(f"dense{i}/kernel", w), const(f"dense{i}/bias", b),
+                  TFNode(f"dense{i}/MatMul", "MatMul", (h, f"dense{i}/kernel"),
+                         {"T": f32, "transpose_a": False, "transpose_b": False}),
+                  TFNode(f"dense{i}/BiasAdd", "BiasAdd", (f"dense{i}/MatMul", f"dense{i}/bias"),
+                         {"T": f32, "data_format": "NHWC"})]
+        h = f"dense{i}/BiasAdd"
+        if i < len(widths) - 2:
+            nodes.append(TFNode(f"dense{i}/Relu", "Relu", (h,), {"T": f32}))
+            h = f"dense{i}/Relu"
+    nodes.append(TFNode("probs", "Softmax", (h,), {"T": f32}))
+    return TFGraph(nodes), weights
+
+
+def control_flow_tf_graph(width: int = 64):
+    """A graph with a functional If and a While, as TF2 freezes tf.cond
+    and tf.while_loop: y = While(i < 5: (i + 1, 0.5 a + tanh a)) over
+    a = If(mean(x) > 0, 2x + 1, -x). Input ``x`` [None, width], output
+    ``loop:1``."""
+    import numpy as np
+
+    from sparkdl_torch.graph.tfgraph import TFFunction, TFGraph, TFNode, const, placeholder
+
+    f32, i32 = np.dtype("float32"), np.dtype("int32")
+
+    def fn(nodes, inputs, outputs):
+        return TFFunction(TFGraph(nodes), inputs, outputs)
+
+    then_ = fn([placeholder("x", f32, [None, width]), const("two", np.float32(2)),
+                const("one", np.float32(1)),
+                TFNode("mul", "Mul", ("x", "two"), {"T": f32}),
+                TFNode("add", "AddV2", ("mul", "one"), {"T": f32})], ["x:0"], ["add:0"])
+    else_ = fn([placeholder("x", f32, [None, width]),
+                TFNode("neg", "Neg", ("x",), {"T": f32})], ["x:0"], ["neg:0"])
+    cond = fn([placeholder("i", i32, []), placeholder("a", f32, [None, width]),
+               const("n", np.int32(5)), TFNode("less", "Less", ("i", "n"), {"T": i32})],
+              ["i:0", "a:0"], ["less:0"])
+    body = fn([placeholder("i", i32, []), placeholder("a", f32, [None, width]),
+               const("one", np.int32(1)), const("half", np.float32(0.5)),
+               TFNode("next", "AddV2", ("i", "one"), {"T": i32}),
+               TFNode("scaled", "Mul", ("a", "half"), {"T": f32}),
+               TFNode("tanh", "Tanh", ("a",), {"T": f32}),
+               TFNode("acc", "AddV2", ("scaled", "tanh"), {"T": f32})],
+              ["i:0", "a:0"], ["next:0", "acc:0"])
+    nodes = [placeholder("x", f32, [None, width]), const("axes", np.array([0, 1], np.int32)),
+             const("zero", np.float32(0)), const("start", np.int32(0)),
+             TFNode("mean", "Mean", ("x", "axes"), {"T": f32, "keep_dims": False}),
+             TFNode("pred", "Greater", ("mean", "zero"), {"T": f32}),
+             TFNode("branch", "StatelessIf", ("pred", "x"),
+                    {"then_branch": "then", "else_branch": "else"}),
+             TFNode("loop", "StatelessWhile", ("start", "branch"),
+                    {"cond": "cond", "body": "body"})]
+    return TFGraph(nodes, library={"then": then_, "else": else_, "cond": cond, "body": body})
+
+
+def shape_math_tf_graph(width: int = 64):
+    """y = (x / n) * n * Fill([n, width], 2) with n = Shape(x)[0]: a graph
+    whose device operands are computed from the batch's shape (the scalar
+    n and the [n, width] fill), so each batch size gives them other
+    values. Input ``x`` [None, width], output ``y``; y == 2x exactly when
+    n is a power of two."""
+    import numpy as np
+
+    from sparkdl_torch.graph.tfgraph import TFGraph, TFNode, const, placeholder
+
+    f32, i32 = np.dtype("float32"), np.dtype("int32")
+    return TFGraph([
+        placeholder("x", f32, [None, width]),
+        const("begin", np.array([0], np.int32)), const("end", np.array([1], np.int32)),
+        const("strides", np.array([1], np.int32)), const("width", np.int32(width)),
+        const("two", np.float32(2)),
+        TFNode("shape", "Shape", ("x",), {"T": f32, "out_type": i32}),
+        TFNode("n", "StridedSlice", ("shape", "begin", "end", "strides"),
+               {"T": i32, "Index": i32, "begin_mask": 0, "end_mask": 0, "ellipsis_mask": 0,
+                "new_axis_mask": 0, "shrink_axis_mask": 1}),
+        TFNode("nf", "Cast", ("n",), {"SrcT": i32, "DstT": f32, "Truncate": False}),
+        TFNode("dims", "Pack", ("n", "width"), {"T": i32, "N": 2, "axis": 0}),
+        TFNode("twos", "Fill", ("dims", "two"), {"T": f32, "index_type": i32}),
+        TFNode("scaled", "RealDiv", ("x", "nf"), {"T": f32}),
+        TFNode("back", "Mul", ("scaled", "nf"), {"T": f32}),
+        TFNode("y", "Mul", ("back", "twos"), {"T": f32}),
+    ])
+
+
+def check_shape_math_buckets(rows: int = 96, batch: int = 64, width: int = 64) -> list:
+    """shape_math_tf_graph through TFTransformer on the card over one
+    partition of ``rows`` rows (a batch of ``batch`` and a tail of
+    ``rows - batch``: two buckets, each captured as a CUDA graph after
+    its eager warm-up), three transforms, with the freed memory of the
+    card's allocator filled with NaN between them; every row must be 2x
+    exactly. A captured graph holds the addresses of the device copies
+    of the shape-derived operands, so a copy dropped when another bucket
+    ran would read reused memory here. Returns the graphs' keys."""
+    import numpy as np
+    import torch
+
+    from sparkdl_torch import LocalDataFrame, TFInputGraph, TFTransformer
+    from sparkdl_torch.transformers._inference import _GRAPH_RUNNERS
+
+    gin = TFInputGraph.fromGraphDef(shape_math_tf_graph(width), ["x"], ["y"])
+    feats = np.random.default_rng(5).standard_normal((rows, width)).astype(np.float32)
+    df = LocalDataFrame.from_rows([{"v": feats[i]} for i in range(rows)], 1)
+    tft = TFTransformer(tfInputGraph=gin, inputMapping={"v": "x"}, outputMapping={"y": "y"},
+                        batchSize=batch, device="cuda")
+    for attempt in range(3):
+        got = np.stack([r["y"] for r in tft.transform(df).collect()])
+        bad = int((got != 2 * feats).any(axis=1).sum())
+        if bad:
+            raise AssertionError(f"[tf_graph] shape-derived operands, transform {attempt}: "
+                                 f"{bad} of {rows} rows differ from 2x")
+        torch.cuda.synchronize()
+        junk = [torch.full((n, width), float("nan"), device="cuda")
+                for n in (batch, rows - batch) for _ in range(4)]
+        junk += [torch.full((), float("nan"), device="cuda") for _ in range(16)]
+        del junk
+    (runner,) = _GRAPH_RUNNERS[gin].values()
+    keys = runner._chainer.graph_keys
+    if len({k[0] for k in keys}) < 2:
+        raise AssertionError(f"[tf_graph] shape-derived operands: graphs {keys}, not two buckets")
+    return keys
+
+
+def phase_tf_graph(card: str) -> dict:
+    """TF-graph ingestion's run half on the card, with no TF (this machine
+    has none): ResNet50's frozen tf.keras graph, written in code
+    (resnet50_tf_graph, seed 0), through TFImageTransformer(outputMode=
+    "vector", device="cuda", batchSize=64) over 128 random rows at 224 px
+    (rows/s of a second transform, after one that captured the runner's
+    CUDA graphs), its features held to KerasGraphModule over the same
+    weights' Keras graph on the card (TF_TOL) and to the CPU translation
+    (2 rows, TF_CPU_TOL); one batch's forward in device ms (CUDA-graph
+    replays), the ATen ops it dispatches, and f32_precision="default"
+    against "highest". Then TFTransformer over a 2048-4096-4096-1000 MLP
+    graph at batch 256, held to the same math in plain torch, and an
+    If/While graph on the card held to the CPU. No kernel of the port
+    runs here (cuDNN/cuBLAS), and none is launched."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from sparkdl_torch import LocalDataFrame, TFImageTransformer, TFInputGraph, TFTransformer
+    from sparkdl_torch.graph.tf2torch import translate_graph
+    from sparkdl_torch.models.keras_graph import KerasGraphModule
+    from sparkdl_torch.transformers._inference import _GRAPH_RUNNERS
+
+    launched = _launch_counts()
+    graph = resnet50_tf_graph(seed=0)
+    gin = TFInputGraph.fromGraphDef(graph, ["input_1"], ["avg_pool/Mean"])
+    rng = np.random.default_rng(9)
+    images = rng.integers(0, 256, (TF_ROWS, 224, 224, 3), dtype=np.uint8)
+    from sparkdl_torch.image import imageArrayToStructBGR
+
+    df = LocalDataFrame.from_rows(
+        [{"id": i, "image": imageArrayToStructBGR(images[i])} for i in range(TF_ROWS)], 2)
+    transformer = TFImageTransformer(inputCol="image", outputCol="features", graph=gin,
+                                     outputMode="vector", device="cuda", batchSize=TF_BATCH)
+    # TF32 on in the process (phase_card turned it off) while the
+    # transformer captures and runs: f32_precision="highest" must keep
+    # its products float32 all the same (TF_TOL below) and give the
+    # flags back as it found them
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        t0 = time.perf_counter()
+        transformer.transform(df).collect()  # translation, cuDNN plans, graph captures
+        first_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = transformer.transform(df).collect()
+        secs = time.perf_counter() - t0
+        flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    if flags != (True, True):
+        raise AssertionError(f"[tf_graph] TF32 flags (cudnn, cuBLAS) {flags} after the "
+                             "transforms, not restored to (True, True)")
+    (runner,) = _GRAPH_RUNNERS[gin].values()
+    captured = sorted(k[1] for k in runner._chainer.graph_keys)
+    got = torch.from_numpy(np.stack([r["features"] for r in out]))
+    if got.shape != (TF_ROWS, 2048) or not torch.isfinite(got).all() or not captured:
+        raise AssertionError(f"[tf_graph] features {tuple(got.shape)}, finite "
+                             f"{bool(torch.isfinite(got).all())}, graphs {captured}")
+    keras = KerasGraphModule(resnet50_keras_graph(seed=0), device="cuda").eval()
+    x = torch.from_numpy(images.astype(np.float32)).cuda()
+    with torch.inference_mode():
+        want = torch.cat([keras(x[i:i + TF_BATCH]) for i in range(0, TF_ROWS, TF_BATCH)]).cpu()
+        cpu = translate_graph(graph, ["input_1"], ["avg_pool/Mean"], device="cpu")
+        want_cpu = cpu(images[:2].astype(np.float32))[0]
+    _, rel = _rel_err(got, want)
+    _, rel_cpu = _rel_err(got[:2], want_cpu)
+    if rel > TF_TOL or rel_cpu > TF_CPU_TOL:
+        raise AssertionError(f"[tf_graph] features vs KerasGraphModule rel err {rel:.3e} "
+                             f"(tol {TF_TOL}), vs the CPU translation {rel_cpu:.3e} "
+                             f"(tol {TF_CPU_TOL})")
+    hi = gin.to_torch(device="cuda")
+    lo = gin.to_torch(device="cuda", f32_precision="default")
+    xb = x[:TF_BATCH].contiguous()
+    with torch.inference_mode():
+        f_hi, f_lo = hi(xb)[0], lo(xb)[0]
+        _, rel_lo = _rel_err(f_lo, f_hi)
+        ops = _dispatched_ops(lambda: hi(xb))
+        ms_hi = _device_ms(lambda: hi(xb), calls=5, reps=5)
+        ms_lo = _device_ms(lambda: lo(xb), calls=5, reps=5)
+    if not torch.isfinite(f_lo).all() or rel_lo > ZOO_BF16_TOL:
+        raise AssertionError(f"[tf_graph] f32_precision='default' vs 'highest' rel err "
+                             f"{rel_lo:.3e} (tol {ZOO_BF16_TOL})")
+    rate = TF_ROWS / secs
+    print(f"[tf_graph] TFImageTransformer over ResNet50's frozen tf.keras graph "
+          f"({len(graph.nodes)} nodes, written in code, seed 0, no TF), {TF_ROWS} rows at 224 "
+          f"px in 2 partitions, batchSize {TF_BATCH}, device cuda; {card}: {rate:.1f} rows/s "
+          f"({secs:.2f} s; first transform {first_s:.1f} s with translation and captures), "
+          f"CUDA graphs captured for K {captured}; features [{TF_ROWS}, 2048] vs "
+          f"KerasGraphModule over the same weights on the card rel err {rel:.1e} (tol "
+          f"{TF_TOL}; the transforms ran with the process's TF32 flags on, and "
+          f"f32_precision='highest' kept them float32 and gave the flags back), vs the CPU "
+          f"translation (2 rows) {rel_cpu:.1e} (tol {TF_CPU_TOL})")
+    print(f"[tf_graph] one batch of {TF_BATCH} through the translated graph; {card}: "
+          f"{ms_hi:.2f} ms of device time at f32_precision='highest' (CUDA-graph replays), "
+          f"{ops} ATen ops dispatched a forward; f32_precision='default' (bf16 operands, "
+          f"float32 accumulation) {ms_lo:.2f} ms, rel err vs 'highest' {rel_lo:.2e} (tol "
+          f"{ZOO_BF16_TOL})")
+
+    mlp, weights = mlp_tf_graph(seed=0, widths=MLP_WIDTHS)
+    feats = rng.standard_normal((MLP_ROWS, MLP_WIDTHS[0])).astype(np.float32)
+    mlp_gin = TFInputGraph.fromGraphDef(mlp, ["x"], ["probs"])
+    tft = TFTransformer(tfInputGraph=mlp_gin, inputMapping={"v": "x"},
+                        outputMapping={"probs": "p"}, batchSize=MLP_BATCH, device="cuda")
+    mdf = LocalDataFrame.from_rows([{"v": feats[i]} for i in range(MLP_ROWS)], 2)
+    tft.transform(mdf).collect()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mout = tft.transform(mdf).collect()
+    mlp_s = time.perf_counter() - t0
+    (mrunner,) = _GRAPH_RUNNERS[mlp_gin].values()
+    mlp_graphs = sorted(k[1] for k in mrunner._chainer.graph_keys)
+    mgot = torch.from_numpy(np.stack([r["p"] for r in mout]))
+    with torch.inference_mode():
+        h = torch.from_numpy(feats).cuda()
+        for i, (w, b) in enumerate(weights):
+            h = h @ torch.from_numpy(w).cuda() + torch.from_numpy(b).cuda()
+            h = torch.relu(h) if i < len(weights) - 1 else torch.softmax(h, dim=-1)
+        mwant = h.cpu()
+        mfn = mlp_gin.to_torch(device="cuda")
+        xm = torch.from_numpy(feats[:MLP_BATCH]).cuda()
+        mlp_ms = _device_ms(lambda: mfn(xm), calls=5, reps=5)
+    _, mrel = _rel_err(mgot, mwant)
+    if mgot.shape != (MLP_ROWS, MLP_WIDTHS[-1]) or mrel > MLP_TOL or not mlp_graphs:
+        raise AssertionError(f"[tf_graph] MLP {tuple(mgot.shape)} rel err {mrel:.3e} "
+                             f"(tol {MLP_TOL}), graphs {mlp_graphs}")
+    print(f"[tf_graph] TFTransformer over a {'-'.join(map(str, MLP_WIDTHS))} MLP graph "
+          f"(MatMul + BiasAdd + Relu, Softmax), {MLP_ROWS} rows, batchSize {MLP_BATCH}; "
+          f"{card}: {MLP_ROWS / mlp_s:.1f} rows/s ({mlp_s:.2f} s), {mlp_ms:.3f} ms of device "
+          f"time a batch, CUDA graphs for K {mlp_graphs}; vs the same math in plain torch "
+          f"on the card rel err {mrel:.1e} (tol {MLP_TOL})")
+
+    flow = control_flow_tf_graph()
+    xf = rng.standard_normal((256, 64)).astype(np.float32)
+    fgot, fwant = [], []
+    for sign in (1.0, -1.0):  # one input for each branch of the If
+        xs = np.abs(xf) * sign
+        card_fn = translate_graph(flow, ["x"], ["loop:1"], device="cuda")
+        fgot.append(card_fn(torch.from_numpy(xs).cuda())[0].cpu())
+        fwant.append(translate_graph(flow, ["x"], ["loop:1"], device="cpu")(xs)[0])
+    _, frel = _rel_err(torch.cat(fgot), torch.cat(fwant))
+    if frel > FLOW_TOL or not card_fn.host_sync:
+        raise AssertionError(f"[tf_graph] If/While graph card vs CPU rel err {frel:.3e} "
+                             f"(tol {FLOW_TOL})")
+    print(f"[tf_graph] StatelessIf + StatelessWhile graph ({len(flow.library)} library "
+          f"functions, predicates read to the host, so runners keep it eager) on the card, "
+          f"both branches, [256, 64]: vs the CPU translation rel err {frel:.1e} (tol "
+          f"{FLOW_TOL}); {card}")
+    keys = check_shape_math_buckets()
+    print(f"[tf_graph] a graph whose device operands come from Shape(x)[0] (x / n * n * "
+          f"Fill([n, 64], 2)) through TFTransformer, 96 rows as a batch of 64 and a tail of "
+          f"32, three transforms with the allocator's free memory filled with NaN between "
+          f"them: every row equals 2x exactly, CUDA graphs {sorted(keys)}; {card}")
+    after = _launch_counts()
+    if after != launched:
+        raise AssertionError(f"[tf_graph] launched a kernel of the port: {launched} -> {after}")
+    print("[tf_graph] no kernel of the port launched in this phase")
+    tf_here = importlib.util.find_spec("tensorflow") is not None
+    print(f"[tf_graph] judged on the CPU, not here: reading GraphDefs, SavedModels and "
+          f"checkpoints (TFInputGraph's six constructors, GraphFunction.load, "
+          f"IsolatedSession, buildSpImageConverter), because this machine has no TensorFlow "
+          f"or protobuf (tensorflow importable here: {tf_here}); tests/test_torch_tf2torch.py, "
+          f"test_torch_graph_*.py, test_torch_tf2_ingestion.py, test_torch_tf_transformers.py")
+    del keras, hi, lo, x, xb, mfn
+    torch.cuda.empty_cache()
+    return {"rows_s": rate, "rel": rel, "rel_cpu": rel_cpu, "ms": ms_hi, "ms_default": ms_lo,
+            "rel_default": rel_lo, "ops": ops, "mlp_rows_s": MLP_ROWS / mlp_s,
+            "mlp_ms": mlp_ms}
+
+
 def _attention_times(q, k, v, mask) -> dict:
     """The flash forward (no grad) against its plain version, SDPA and its
     3xTF32 bound on the same inputs (the work this mask needs:
@@ -3653,6 +4037,7 @@ def main() -> int:
     zoo_rates = phase_zoo(card)
     zoo_bf16 = phase_zoo_bf16(card, stem, attn)
     keras_side = phase_keras(card)
+    tf_side = phase_tf_graph(card)
     phase_vit(card, attn)
     text_rate = phase_text(card, attn)
     hpo = phase_hpo(card)
@@ -3667,6 +4052,9 @@ def main() -> int:
           + ", ".join(f"{n} {z['bf16_ms']:.2f} ms vs {z['f32_ms']:.2f} ms float32 (rel err "
                       f"{z['rel_err']:.1e})" for n, z in zoo_bf16.items())
           + f"; registerKerasImageUDF ResNet50 {keras_side['rows_s']:.1f} rows/s"
+          + f"; TFImageTransformer ResNet50 graph {tf_side['rows_s']:.1f} rows/s "
+          f"({tf_side['ms']:.2f} ms a batch of {TF_BATCH}), TFTransformer MLP "
+          f"{tf_side['mlp_rows_s']:.1f} rows/s"
           + f"; DeepTextFeaturizer BERT-base {text_rate:.1f} examples/s; flash_attention "
           f"at ViT-B/16 B={BATCH} L=197 {attn['vit_ms']:.4f} ms (plain "
           f"{attn['vit_plain_ms']:.4f}, SDPA {attn['vit_library_ms']:.4f}, bound "

@@ -491,6 +491,7 @@ class DeviceFeeder:
             return idx
 
         def packer():
+            exhausted = False  # the source ended (not a stop)
             try:
                 for raw in self._chain(first, it):
                     batch = as_struct(raw) if raw is not first else first
@@ -529,14 +530,18 @@ class DeviceFeeder:
                     FEED_STATS["ring_bytes"] += total
                     ring_batches_m.inc()
                     ring_bytes_m.inc(total)
+                exhausted = True
             except BaseException as e:
                 errors.append(e)
             finally:
                 # end of stream: a committed slot without meta, so the
                 # ring stays open and may serve the next stream (close()
-                # would end it for good); closed only when abandoned
-                idx = acquire_write()
-                if idx is None:
+                # would end it for good); closed when the packer failed
+                # or the consumer stopped, also if the stop came while
+                # acquire_write was waiting for the end slot (that slot
+                # would mark an abandoned stream clean)
+                idx = acquire_write() if exhausted else None
+                if idx is None or stop.is_set():
                     ring.close()
                 else:
                     ring.commit_write(idx, 0, 0)

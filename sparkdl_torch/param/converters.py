@@ -74,6 +74,17 @@ class SparkDLTypeConverters:
         return out
 
     @staticmethod
+    def toTFInputGraph(value: Any):
+        from sparkdl_torch.graph.input import TFInputGraph
+
+        if isinstance(value, TFInputGraph):
+            return value
+        raise TypeError(
+            f"expected a TFInputGraph (see TFInputGraph.from*), got "
+            f"{type(value).__name__}"
+        )
+
+    @staticmethod
     def toChannelOrder(value: Any) -> str:
         v = SparkDLTypeConverters.toString(value)
         if v not in ("RGB", "BGR", "L"):

@@ -5,6 +5,9 @@ from sparkdl_torch.transformers.named_image import (
     DeepImagePredictor,
 )
 from sparkdl_torch.transformers.text_generator import DeepTextGenerator
+from sparkdl_torch.transformers.tf_image import TFImageTransformer
+from sparkdl_torch.transformers.tf_tensor import TFTransformer
 
 __all__ = ["DeepImageFeaturizer", "DeepImagePredictor", "DeepTextGenerator",
-           "KerasImageFileTransformer", "KerasTransformer"]
+           "KerasImageFileTransformer", "KerasTransformer", "TFImageTransformer",
+           "TFTransformer"]

@@ -15,6 +15,7 @@ import dataclasses
 import logging
 import threading
 import time
+import weakref
 from concurrent.futures import TimeoutError as FuturesTimeoutError
 from typing import Any, Callable, Iterator
 
@@ -393,6 +394,23 @@ class BatchResult:
             if self._exc is not None:
                 raise self._exc
             return self._value
+
+
+#: graph object -> {cache key: BatchedRunner}; weak so graphs can be GC'd.
+_GRAPH_RUNNERS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def cached_graph_runner(graph, key, make_runner: Callable[[], BatchedRunner]) -> BatchedRunner:
+    """Process-wide runner cache keyed by (graph identity, key).
+
+    One translation (and one set of CUDA graphs) per (ingested graph,
+    shape/batch/device config) no matter how many partitions, transformer
+    copies, or transformer classes touch it: ``make_runner`` runs on a
+    miss only, and ``key`` must cover every setting it bakes in."""
+    per_graph = _GRAPH_RUNNERS.setdefault(graph, {})
+    if key not in per_graph:
+        per_graph[key] = make_runner()
+    return per_graph[key]
 
 
 def try_extract(extract: Callable[[Any], dict[str, np.ndarray]],

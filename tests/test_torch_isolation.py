@@ -173,3 +173,48 @@ def test_serving_core_modules_import_alone_without_jax(module):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().splitlines()[-1] == "[]", proc.stdout
+
+
+_TRANSLATE_CODE_BUILT = """
+import sys
+import numpy as np
+import chip_smoke
+from sparkdl_torch.graph.tf2torch import translate_graph
+graph = chip_smoke.resnet50_tf_graph(seed=0, size=32)
+x = np.random.default_rng(0).uniform(0, 255, (2, 32, 32, 3)).astype(np.float32)
+(f,) = translate_graph(graph, ["input_1"], ["avg_pool/Mean"], device="cpu")(x)
+assert f.shape == (2, 2048) and bool(f.isfinite().all())
+flow = chip_smoke.control_flow_tf_graph(width=4)
+(y,) = translate_graph(flow, ["x"], ["loop:1"], device="cpu")(np.ones((2, 4), np.float32))
+assert y.shape == (2, 4)
+print(sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN
+             or m.startswith(("tensorflow", "google.protobuf", "keras"))))
+"""
+
+
+def _fresh(code: str):
+    env = dict(os.environ)
+    env.pop("PYTHONSTARTUP", None)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return proc.stdout.strip().splitlines()[-1]
+
+
+def test_translating_a_code_built_graph_loads_no_tensorflow():
+    """chip_smoke's TFGraphs (ResNet50 at 32 px, the If/While graph),
+    translated and run in a fresh interpreter, load no TensorFlow, no
+    protobuf, no Keras and nothing of JAX: the run half of ingestion is
+    what the card's machine (which has no TF) can do."""
+    assert _fresh(_TRANSLATE_CODE_BUILT.replace("FORBIDDEN", repr(FORBIDDEN))) == "[]"
+
+
+def test_importing_the_graph_package_loads_no_tensorflow():
+    """``import sparkdl_torch.graph`` (GraphFunction, IsolatedSession,
+    TFInputGraph, TFGraph) imports TF only when an artifact is read."""
+    code = ("import sys, sparkdl_torch.graph, sparkdl_torch.graph.tf2torch, "
+            "sparkdl_torch.graph.reader, sparkdl_torch.graph.pieces, "
+            "sparkdl_torch.transformers.tf_image\n"
+            "print(sorted(m for m in sys.modules if m.startswith(('tensorflow', "
+            f"'google.protobuf')) or m.split('.')[0] in {FORBIDDEN!r}))")
+    assert _fresh(code) == "[]"

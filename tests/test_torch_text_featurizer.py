@@ -37,6 +37,19 @@ LENGTHS = (5, 16, 0, 20, 1, 9, 30, 12, 3)
 EMPTY = LENGTHS.index(0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _keep_jax_runner_cache():
+    """Give the JAX package's runner cache back as this module found it:
+    the reference runs below fill its eight slots, and a later module in
+    the same process (tests/transformers/test_text.py) counts them."""
+    from sparkdl_tpu.transformers import text as jtext
+
+    saved = list(jtext._RUNNER_CACHE.items())
+    yield
+    jtext._RUNNER_CACHE.clear()
+    jtext._RUNNER_CACHE.update(saved)
+
+
 @pytest.fixture(scope="module")
 def variables():
     model = jbert.BertModel(jbert.BertConfig.tiny(vocab_size=VOCAB), add_pooler=True)
