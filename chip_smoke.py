@@ -17,6 +17,10 @@ went through its kernels and agrees with a kernel-free run:
 - ``finetune_classifier`` over BERT-base, 20 batches of 32 x 128 tokens
   (the flash attention forward and its two backward kernels), one CUDA
   graph a step and, with ``chain_steps=4``, one of four steps;
+- the same BERT-base fine-tune through ``TorchRunner(np=-1)`` (one NCCL
+  worker process) and ``resumable_finetune`` under a ZeRO
+  ``DataParallelPartitioner``, checkpointed every 4 steps, recovering
+  from an injected fault bitwise;
 - the fused ResNet50 train step at 224 px, batch 64 (the fused 1x1-conv
   GEMM + BN-stats kernel), one CUDA graph a step;
 - ``DeepImageFeaturizer``/``DeepImagePredictor`` over ResNet50, Xception,
@@ -1774,7 +1778,275 @@ def phase_train_bert(card: str, dq_entry: dict, dkv_entry: dict, fwd: dict) -> f
     fwd["bert_launches"] = counts[0]
     del chained, graph, eager_model, eager_opt, eager_step, staged
     torch.cuda.empty_cache()
-    return BERT_STEPS * b / secs
+    return BERT_STEPS * b / secs, step_ms
+
+
+TRAIN_DP_STEPS, TRAIN_DP_EVERY, TRAIN_DP_FAULT = 12, 4, 10
+FLOPS_TOL = 1e-3  # the kernel route's model FLOPs against the plain route's
+
+
+def _bert_fwd_bwd(model, batch):
+    """One forward and backward of the classifier (no optimizer step): the
+    work whose model FLOPs compiled_flops counts."""
+    import torch
+
+    logits = model(batch["input_ids"], batch["attention_mask"])
+    torch.nn.functional.cross_entropy(logits, batch["labels"]).backward()
+
+
+def _histogram_mean(name: str) -> float:
+    from sparkdl_torch.observability.registry import registry
+
+    fam = registry().get(name)
+    vals = fam.snapshot_values().get("", {}) if fam is not None else {}
+    return float(vals.get("mean") or math.nan)
+
+
+def train_dp_worker(seed: int = 0) -> dict:
+    """The body of [train_dp]'s one TorchRunner rank (an NCCL process on
+    the card): preflight, check_health, an uninterrupted fine-tune of
+    BERT-base, the same run through resumable_finetune with a fault at
+    step 10 (checkpoints every 4 steps), a timed run, FLOP counts on the
+    kernel and plain routes, and one timed save/wait/verify/restore."""
+    import logging
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sparkdl_torch.checkpoint import CheckpointManager
+    from sparkdl_torch.models.bert import (
+        BertConfig,
+        BertForSequenceClassification,
+        init_bert_,
+    )
+    from sparkdl_torch.observability.health import check_health, preflight
+    from sparkdl_torch.observability.metrics import (
+        StepMeter,
+        aggregate_across_hosts,
+        compiled_flops,
+        device_peak_flops,
+    )
+    from sparkdl_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from sparkdl_torch.partition import DataParallelPartitioner, make_mesh
+    from sparkdl_torch.reliability import RetryPolicy, resumable_finetune
+    from sparkdl_torch.reliability.faults import inject
+    from sparkdl_torch.runtime.dispatch import dispatch_count
+    from sparkdl_torch.train import finetune_classifier
+    from sparkdl_torch.train.finetune import train_state
+
+    metrics_log = logging.getLogger("sparkdl_torch.metrics")
+    metrics_log.setLevel(logging.INFO)
+    metrics_log.addHandler(logging.StreamHandler(sys.stdout))
+    torch.backends.cudnn.allow_tf32 = False  # as phase_card sets them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"preflight": preflight().summary()}
+    health = check_health()
+    if not health.ok:
+        raise RuntimeError(health.summary())
+    out["health"] = health.summary()
+    cfg = BertConfig.base(attn_impl="flash")
+    state = init_bert_(BertForSequenceClassification(cfg, num_labels=2, device="cpu"),
+                       seed=seed).state_dict()
+    rng = np.random.default_rng(9)
+    b, length = BERT_TRAIN_BATCH, BERT_TRAIN_LEN
+    batches = []
+    for _ in range(TRAIN_DP_STEPS):
+        mask = _right_padded_mask(rng, b, length).cpu().numpy()
+        batches.append({
+            "input_ids": rng.integers(0, cfg.vocab_size, (b, length)) * mask,
+            "attention_mask": mask, "labels": rng.integers(0, 2, b)})
+
+    def model(device="cuda"):
+        m = BertForSequenceClassification(cfg, num_labels=2, device=device)
+        m.load_state_dict(state)
+        return m
+
+    def partitioner():
+        return DataParallelPartitioner(make_mesh(dp=1, fsdp=1), zero_axis="fsdp")
+
+    def counts():
+        return (flash_attention.launches, flash_attention_bwd.launches_dq,
+                flash_attention_bwd.launches_dkv)
+
+    root = tempfile.mkdtemp(prefix="sparkdl-train-dp-")
+    try:
+        # the uninterrupted run and the recovered one, bitwise (the
+        # deterministic algorithms: cuDNN's and the embedding's default
+        # backward sum with atomics)
+        with _deterministic():
+            ref_model, ref = finetune_classifier(
+                model(), batches, learning_rate=2e-5, partitioner=partitioner())
+            starts = []
+
+            def note_start(entry, last=[0]):
+                if entry["step"] <= last[0] or not starts:
+                    starts.append(entry["step"] - 1)
+                last[0] = entry["step"]
+
+            _zero_counts()
+            d0 = dispatch_count("train")
+            with inject(f"dispatch:RuntimeError@{TRAIN_DP_FAULT}"):
+                got_model, got = resumable_finetune(
+                    model(), batches, checkpoint_dir=os.path.join(root, "run"),
+                    partitioner=partitioner(), checkpoint_every=TRAIN_DP_EVERY,
+                    keep_checkpoints=2, learning_rate=2e-5, metrics_cb=note_start,
+                    retry=RetryPolicy(max_attempts=2, base_delay_s=0.0))
+            out["launches"] = counts()
+            out["dispatches"] = int(dispatch_count("train") - d0)
+            out["restored_from"] = starts
+            out["bitwise"] = (
+                [(h["step"], h["loss"], h["accuracy"]) for h in got]
+                == [(h["step"], h["loss"], h["accuracy"]) for h in ref]
+                and all(torch.equal(p, q) for p, q in
+                        zip(got_model.parameters(), ref_model.parameters())))
+            out["steps_run"] = TRAIN_DP_FAULT - 1 + len(got) - starts[-1]
+            out["losses"] = [h["loss"] for h in got]
+            del ref_model, got_model
+        out["save_sync_ms"] = _histogram_mean("sparkdl_checkpoint_save_seconds") * 1e3
+        out["restore_ms"] = _histogram_mean("sparkdl_checkpoint_restore_seconds") * 1e3
+
+        # the same steps with no checkpoints: what the saves cost a step
+        bare_meter = StepMeter(warmup_steps=1)
+        _, bare = finetune_classifier(model(), batches, learning_rate=2e-5,
+                                      partitioner=partitioner())
+        for h in bare:
+            bare_meter.record(h["step_time_s"], examples=b)
+        out["bare_step_ms"] = bare_meter.step_time_percentile(50) * 1e3
+
+        # the timed run (default algorithms), checkpointing as above
+        part = partitioner()
+        timed = model()
+        t0 = time.perf_counter()
+        _, hist = finetune_classifier(
+            timed, batches, learning_rate=2e-5, partitioner=part,
+            checkpoint_dir=os.path.join(root, "timed"),
+            checkpoint_every=TRAIN_DP_EVERY, keep_checkpoints=2)
+        # the loop's own rate: every example over the whole call, its
+        # capture and in-loop saves (and the final drain) included
+        out["loop_s"] = time.perf_counter() - t0
+        from sparkdl_torch.observability.registry import registry
+
+        out["opt_state_bytes"] = registry().get(
+            "sparkdl_opt_state_bytes").labelled_values("axis")["fsdp"]
+        staged = {k: torch.as_tensor(v).cuda() for k, v in batches[0].items()}
+        flops = compiled_flops(_bert_fwd_bwd, timed, staged)
+        timed.zero_grad(set_to_none=True)
+        meta = BertForSequenceClassification(cfg, num_labels=2, device="cpu").to("meta")
+        plain = compiled_flops(_bert_fwd_bwd, meta,
+                               {k: v.to("meta") for k, v in staged.items()})
+        meter = StepMeter(flops_per_step=flops, n_chips=1, warmup_steps=1,
+                          peak_flops_per_chip=device_peak_flops(dtype="f32"))
+        for h in hist:
+            meter.record(h["step_time_s"], examples=b)
+        out["flops"], out["plain_flops"] = flops, plain
+        out["meter"] = meter.summary()
+        out["step_ms"] = meter.step_time_percentile(50) * 1e3
+        out["rollup"] = aggregate_across_hosts(meter.summary())
+
+        # one save of the full train state, timed by its halves, then a
+        # verify and a restore into the live tensors
+        opt = torch.optim.AdamW(timed.parameters(), lr=2e-5,
+                                capturable=timed.classifier.weight.is_cuda)
+        from sparkdl_torch.train.finetune import materialize_optimizer_state
+
+        materialize_optimizer_state(opt)
+        live = train_state(timed, opt, TRAIN_DP_STEPS)
+        with CheckpointManager(os.path.join(root, "one"), keep=1) as mgr:
+            t0 = time.perf_counter()
+            mgr.save(TRAIN_DP_STEPS, live, force=True)
+            t1 = time.perf_counter()
+            mgr.wait()
+            t2 = time.perf_counter()
+            ok = mgr.verify(TRAIN_DP_STEPS)
+            t3 = time.perf_counter()
+            mgr.restore(template=live)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+        size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in
+                   os.walk(os.path.join(root, "one")) for f in fs)
+        out["one_save"] = {"sync_ms": (t1 - t0) * 1e3, "wait_ms": (t2 - t1) * 1e3,
+                           "verify_ms": (t3 - t2) * 1e3, "verified": ok,
+                           "restore_ms": (t4 - t3) * 1e3, "bytes": size}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def phase_train_dp(card: str, bert_step_ms: float) -> dict:
+    """[train_dp]: HorovodRunner's story on the card. TorchRunner(np=-1)
+    starts one NCCL rank, which fine-tunes BERT-base through
+    resumable_finetune under a ZeRO DataParallelPartitioner (dp=1,
+    fsdp=1) with checkpoints, recovers from an injected fault bitwise,
+    and reports its launches, FLOPs, MFU and checkpoint times."""
+    import torch
+
+    import chip_smoke as this  # by reference: the rank imports it
+    from sparkdl_torch import TorchRunner
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r = TorchRunner(np=-1, local_platform="cuda", timeout_s=900,
+                    metrics_summary=True).run(this.train_dp_worker, seed=0)
+    wall = time.perf_counter() - t0
+    layers = 12
+    fwd, dq, dkv = r["launches"]
+    want = layers * r["steps_run"]
+    rel = abs(r["flops"] - r["plain_flops"]) / r["plain_flops"]
+    failures = []
+    if not r["bitwise"]:
+        failures.append("the recovered history or final parameters differ from "
+                        "the uninterrupted run's")
+    if r["restored_from"] != [0, TRAIN_DP_FAULT - 1 - (TRAIN_DP_FAULT - 1) % TRAIN_DP_EVERY]:
+        failures.append(f"attempts restored from steps {r['restored_from']}")
+    if (fwd, dq, dkv) != (want, want, want) or r["dispatches"] != r["steps_run"]:
+        failures.append(f"launches forward/dq/dkv {fwd}/{dq}/{dkv}, want {want} each; "
+                        f"train dispatches {r['dispatches']}, want {r['steps_run']}")
+    if rel > FLOPS_TOL:
+        failures.append(f"compiled_flops kernel route {r['flops']:.6e} vs plain "
+                        f"{r['plain_flops']:.6e}: rel {rel:.2e} (tol {FLOPS_TOL})")
+    if not r["one_save"]["verified"]:
+        failures.append("the timed save did not verify")
+    if not all(math.isfinite(x) for x in r["losses"]):
+        failures.append("non-finite losses")
+    if failures:
+        raise AssertionError("[train_dp] " + "; ".join(failures))
+    m, s = r["meter"], r["one_save"]
+    print(f"[train_dp] {card}: TorchRunner(np=-1, local_platform='cuda') -> one NCCL "
+          f"rank ({r['preflight']}), {wall:.1f} s for the whole job; resumable_finetune "
+          f"over BERT-base, attn_impl='flash', {TRAIN_DP_STEPS} batches of "
+          f"B={BERT_TRAIN_BATCH} L={BERT_TRAIN_LEN}, DataParallelPartitioner(make_mesh("
+          f"dp=1, fsdp=1), zero_axis='fsdp'), checkpoint_every={TRAIN_DP_EVERY}, keep 2, "
+          f"fault_point('dispatch') at step {TRAIN_DP_FAULT}: attempts restored from "
+          f"steps {r['restored_from']}, recovered history and final parameters bitwise "
+          f"the uninterrupted run's (deterministic algorithms) {r['bitwise']}; "
+          f"{r['steps_run']} steps run, {r['dispatches']} train dispatches (one graph a "
+          f"step), launches forward/dq/dkv {fwd}/{dq}/{dkv} = {layers} a step as "
+          f"[train_bert]; loss {r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}")
+    loop_rate = TRAIN_DP_STEPS * BERT_TRAIN_BATCH / r["loop_s"]
+    print(f"[train_dp] timed run (default algorithms, checkpointing): the whole "
+          f"finetune_classifier call {r['loop_s'] * 1e3:.1f} ms for {TRAIN_DP_STEPS} "
+          f"steps = {loop_rate:.1f} examples/s (capture, in-loop saves and the final "
+          f"drain included); step-only (the saves excluded): step "
+          f"{r['step_ms']:.2f} ms median after the capture ({r['bare_step_ms']:.2f} ms with "
+          f"no checkpoints; [train_bert] {bert_step_ms:.2f} ms), "
+          f"{m['examples_per_sec']:.1f} examples/s, compiled_flops "
+          f"{r['flops']:.6e} a step on the kernel route, {r['plain_flops']:.6e} on the "
+          f"plain route (meta tensors; rel {rel:.1e}, tol {FLOPS_TOL}), MFU "
+          f"{m['mfu']:.4f} of the f32 peak {67e12:.3e} FLOP/s (device_peak_flops); "
+          f"opt_state_bytes (ZeRO on fsdp=1) {r['opt_state_bytes'] / 2**20:.1f} MiB; "
+          f"in-loop checkpoints: save (drain + snapshot) {r['save_sync_ms']:.1f} ms, "
+          f"restore {r['restore_ms']:.1f} ms (means); one full "
+          f"state ({s['bytes'] / 2**30:.2f} GiB): save {s['sync_ms']:.1f} ms, wait "
+          f"(write + sha256) {s['wait_ms']:.1f} ms, verify {s['verify_ms']:.1f} ms, "
+          f"restore {s['restore_ms']:.1f} ms; aggregate_across_hosts "
+          f"{json.dumps(r['rollup'], sort_keys=True)}")
+    return {"examples_s": m["examples_per_sec"], "loop_examples_s": loop_rate,
+            "mfu": m["mfu"],
+            "step_ms": r["step_ms"], "bare_step_ms": r["bare_step_ms"],
+            "save_ms": s["sync_ms"],
+            "wait_ms": s["wait_ms"], "restore_ms": s["restore_ms"]}
 
 
 def phase_train_resnet(card: str, gemm_entry: dict) -> float:
@@ -4032,7 +4304,8 @@ def main() -> int:
     gemm = phase_fused_gemm_bn(card)
     images_s = phase_main_path(stem, card)
     tokens_s = phase_generate(card, attn, decode)
-    examples_s = phase_train_bert(card, dq, dkv, bert_fwd)
+    examples_s, bert_step_ms = phase_train_bert(card, dq, dkv, bert_fwd)
+    train_dp = phase_train_dp(card, bert_step_ms)
     train_images_s = phase_train_resnet(card, gemm)
     zoo_rates = phase_zoo(card)
     zoo_bf16 = phase_zoo_bf16(card, stem, attn)
@@ -4070,7 +4343,15 @@ def main() -> int:
                       f"{t['bound_ms']:.4f})" for dt, t in tiers.items()))
     print(f"[summary] {card}: featurizer {images_s:.1f} images/s; generator "
           f"{tokens_s:.1f} tokens/s; BERT-base fine-tune {examples_s:.1f} examples/s; "
-          f"ResNet50 training {train_images_s:.1f} images/s; flash_attention at the "
+          f"ResNet50 training {train_images_s:.1f} images/s; [train_dp] BERT-base "
+          f"through TorchRunner/finetune_classifier with checkpoints every "
+          f"{TRAIN_DP_EVERY} steps {train_dp['loop_examples_s']:.1f} examples/s over the "
+          f"whole call (saves included); step-only {train_dp['examples_s']:.1f} "
+          f"examples/s, MFU {train_dp['mfu']:.4f} (f32 peak), step "
+          f"{train_dp['step_ms']:.2f} ms ({train_dp['bare_step_ms']:.2f} with no "
+          f"checkpoints); one checkpoint save {train_dp['save_ms']:.1f} ms / "
+          f"wait {train_dp['wait_ms']:.1f} ms / restore {train_dp['restore_ms']:.1f} ms; "
+          f"flash_attention at the "
           f"GPT-2 prefill {attn['ms']:.4f} ms (SDPA {attn['library_ms']:.4f}, bound "
           f"{attn['bound_ms']:.4f}), at the "
           f"BERT training shape {bert_fwd['ms']:.4f} ms (plain {bert_fwd['plain_ms']:.4f}, "

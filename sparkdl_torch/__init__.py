@@ -18,6 +18,7 @@ _LAZY = {
     "DeepTextFeaturizer": "sparkdl_torch.transformers.text",
     "DeepTextGenerator": "sparkdl_torch.transformers.text_generator",
     "GraphFunction": "sparkdl_torch.graph.builder",
+    "HorovodRunner": "sparkdl_torch.runner.torch_runner",
     "IsolatedSession": "sparkdl_torch.graph.builder",
     "KerasImageFileEstimator": "sparkdl_torch.estimators.keras_image_file_estimator",
     "KerasImageFileTransformer": "sparkdl_torch.transformers.keras_image",
@@ -28,6 +29,7 @@ _LAZY = {
     "TFImageTransformer": "sparkdl_torch.transformers.tf_image",
     "TFInputGraph": "sparkdl_torch.graph.input",
     "TFTransformer": "sparkdl_torch.transformers.tf_tensor",
+    "TorchRunner": "sparkdl_torch.runner.torch_runner",
     "readImages": "sparkdl_torch.image.imageIO",
     "readImagesWithCustomFn": "sparkdl_torch.image.imageIO",
     "registerKerasImageUDF": "sparkdl_torch.udf.keras_image_model",

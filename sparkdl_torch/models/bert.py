@@ -11,17 +11,25 @@ head. Attention dispatches on ``BertConfig.attn_impl``:
   differentiable through its backward kernels (training runs through
   them).
 
+``train=True`` applies dropout at the reference's sites: the embeddings'
+output, the attention probabilities (the ``full`` path only: the flash
+kernels never form them, and ``flash`` warns as the reference does), the
+attention block's and the MLP's outputs, and the pooled [CLS] before the
+classifier. The masks come from an explicit ``torch.Generator`` the
+caller may pass (``generator=``; the device's default generator
+otherwise), so a seed gives the same bits. The JAX fine-tune path runs
+its forward with ``train=False``, as ``finetune_classifier`` does.
+
 The JAX module's tensor-parallel projections are plain ``nn.Linear``
 here. Not ported yet, and raising where asked for: ring attention and
-tensor parallelism (ROADMAP A8), and dropout in training (``train=True``
-with a nonzero dropout rate; A8) — the JAX fine-tune path runs its
-forward with ``train=False``.
+tensor parallelism (ROADMAP A8 parallel).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Any, Optional
 
 import torch
@@ -68,16 +76,19 @@ class BertConfig:
         return cls(**defaults)
 
 
-def _check_train(config: BertConfig, train: bool) -> None:
-    if train and (config.hidden_dropout_prob > 0
-                  or config.attention_probs_dropout_prob > 0):
-        raise NotImplementedError(
-            "train=True with nonzero dropout (hidden "
-            f"{config.hidden_dropout_prob}, attention "
-            f"{config.attention_probs_dropout_prob}): BERT dropout is "
-            + _NOT_PORTED.format(item="A8")
-            + "; fine-tune with train=False as the JAX fine-tune path does, "
-            "or set both dropout rates to 0")
+class Dropout(nn.Dropout):
+    """``nn.Dropout`` whose mask is drawn from an explicit generator:
+    ``forward(x, train=..., generator=...)`` keeps each element with
+    probability ``1 - p`` and scales it by ``1/(1 - p)``, as Flax's
+    ``nn.Dropout`` does; identity when not training or at ``p = 0``."""
+
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                generator: "torch.Generator | None" = None) -> torch.Tensor:
+        if not train or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=generator, device=x.device,
+                          dtype=torch.float32) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
 
 class BertEmbeddings(nn.Module):
@@ -91,12 +102,15 @@ class BertEmbeddings(nn.Module):
         self.token_type_embeddings = nn.Embedding(
             c.type_vocab_size, c.hidden_size, **kw)
         self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps, **kw)
+        self.dropout = Dropout(c.hidden_dropout_prob)
 
-    def forward(self, input_ids, token_type_ids, position_ids):
+    def forward(self, input_ids, token_type_ids, position_ids, *,
+                train: bool = False, generator=None):
         x = (self.word_embeddings(input_ids)
              + self.position_embeddings(position_ids)
              + self.token_type_embeddings(token_type_ids))
-        return self.LayerNorm(x)
+        return self.dropout(self.LayerNorm(x), train=train,
+                            generator=generator)
 
 
 class BertSelfAttention(nn.Module):
@@ -109,8 +123,10 @@ class BertSelfAttention(nn.Module):
         self.key = nn.Linear(h, h, **kw)
         self.value = nn.Linear(h, h, **kw)
         self.output_dense = nn.Linear(h, h, **kw)
+        self.dropout = Dropout(config.attention_probs_dropout_prob)
 
-    def forward(self, x, attention_mask: Optional[torch.Tensor]):
+    def forward(self, x, attention_mask: Optional[torch.Tensor], *,
+                train: bool = False, generator=None):
         c = self.config
         nh = c.num_attention_heads
         hd = c.hidden_size // nh
@@ -118,12 +134,23 @@ class BertSelfAttention(nn.Module):
         q, k, v = (p(x).view(b, l, nh, hd)
                    for p in (self.query, self.key, self.value))
         if c.attn_impl == "flash":
+            if train and c.attention_probs_dropout_prob > 0:
+                # the kernels never form the probability matrix, so
+                # attention-probs dropout cannot apply (the usual
+                # flash-attention trade-off)
+                warnings.warn(
+                    f"attn_impl={c.attn_impl!r} skips attention-probs "
+                    f"dropout (p={c.attention_probs_dropout_prob}); set "
+                    "attention_probs_dropout_prob=0 to silence",
+                    stacklevel=2,
+                )
             ctx = flash_attention(q, k, v, attention_mask)
         else:
             s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(hd)
             if attention_mask is not None:
                 s = torch.where(attention_mask[:, None, None, :], s, NEG_INF)
             p = torch.softmax(s, dim=-1).to(c.dtype)
+            p = self.dropout(p, train=train, generator=generator)
             ctx = torch.einsum("bhqk,bkhd->bqhd", p, v)
         return self.output_dense(ctx.reshape(b, l, c.hidden_size))
 
@@ -140,18 +167,23 @@ class BertLayer(nn.Module):
         self.output = nn.Linear(c.intermediate_size, c.hidden_size, **kw)
         self.output_LayerNorm = nn.LayerNorm(c.hidden_size,
                                              eps=c.layer_norm_eps, **kw)
+        self.dropout = Dropout(c.hidden_dropout_prob)
 
-    def forward(self, x, attention_mask):
-        x = self.attention_LayerNorm(x + self.attention(x, attention_mask))
+    def forward(self, x, attention_mask, *, train: bool = False,
+                generator=None):
+        drop = dict(train=train, generator=generator)
+        a = self.dropout(self.attention(x, attention_mask, **drop), **drop)
+        x = self.attention_LayerNorm(x + a)
         h = self.output(F.gelu(self.intermediate(x)))  # exact GELU
-        return self.output_LayerNorm(x + h)
+        return self.output_LayerNorm(x + self.dropout(h, **drop))
 
 
 class BertModel(nn.Module):
     """Encoder + tanh pooler over [CLS] (HF BertModel shape).
 
     ``forward(input_ids, attention_mask=None, token_type_ids=None,
-    position_ids=None, *, train=False)`` -> (sequence output [B, L, H],
+    position_ids=None, *, train=False, generator=None)`` -> (sequence
+    output [B, L, H],
     pooled [B, H] or None without the pooler). ``attention_mask`` [B, L]:
     nonzero = a real token. Parameters are created on ``device`` with
     torch's default init; use :func:`init_bert_` for Flax's, or load a
@@ -177,17 +209,17 @@ class BertModel(nn.Module):
                        if add_pooler else None)
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
-                position_ids=None, *, train: bool = False):
-        _check_train(self.config, train)
+                position_ids=None, *, train: bool = False, generator=None):
         b, l = input_ids.shape
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         if position_ids is None:
             position_ids = torch.arange(l, device=input_ids.device).expand(b, l)
         mask = None if attention_mask is None else attention_mask.bool()
-        x = self.embeddings(input_ids, token_type_ids, position_ids)
+        x = self.embeddings(input_ids, token_type_ids, position_ids,
+                            train=train, generator=generator)
         for blk in self.layer:
-            x = blk(x, mask)
+            x = blk(x, mask, train=train, generator=generator)
         pooled = None
         if self.pooler is not None:
             pooled = torch.tanh(self.pooler(x[:, 0]))
@@ -206,11 +238,13 @@ class BertForSequenceClassification(nn.Module):
         self.classifier = nn.Linear(config.hidden_size, num_labels,
                                     device=resolve_device(device),
                                     dtype=config.dtype)
+        self.dropout = Dropout(config.hidden_dropout_prob)
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None, *,
-                train: bool = False):
+                train: bool = False, generator=None):
         _, pooled = self.bert(input_ids, attention_mask, token_type_ids,
-                              train=train)
+                              train=train, generator=generator)
+        pooled = self.dropout(pooled, train=train, generator=generator)
         return self.classifier(pooled)
 
 

@@ -23,11 +23,13 @@ tensor on the device, every row at its own depth. A per-slot step writes
 its L columns at ``[idx[b], idx[b] + L)`` of each row, dropping the ones
 past the buffer, and attends with the dense masked path under a per-row
 causal mask. :func:`init_block_pool`, :func:`quantize_kv` and
-:func:`dequantize_kv` are the paged pool's storage. The forward is the
-JAX module's deterministic one (``train=False``): dropout belongs to
-training, which is not ported yet (ROADMAP A8). Not ported yet either,
-and raising where asked for: ring attention and mixture-of-experts MLPs,
-``return_kv`` and ``sp_prefill`` (A8).
+:func:`dequantize_kv` are the paged pool's storage. ``train=True``
+applies ``config.dropout`` at the reference's sites (the embeddings, the
+attention probabilities of the uncached ``full`` path, and the attention
+and MLP outputs before their residual adds), with masks from an explicit
+``torch.Generator`` (``generator=``). Not ported yet, and raising where
+asked for: ring attention and mixture-of-experts MLPs, ``return_kv`` and
+``sp_prefill`` (ROADMAP A8 parallel).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from sparkdl_torch.models.bert import Dropout
 from sparkdl_torch.ops._dispatch import resolve_device
 from sparkdl_torch.ops.flash_attention import NEG_INF, flash_attention
 from sparkdl_torch.ops.flash_decode import flash_decode
@@ -221,13 +224,16 @@ def first_valid_column(key_valid: torch.Tensor) -> torch.Tensor:
     return torch.argmax(key_valid.to(torch.int32), dim=1).to(torch.int32)
 
 
-def _dense_attention(q, k, v, keep):
+def _dense_attention(q, k, v, keep, dropout=None):
     """softmax(q·kᵀ/√D) over [B, L, H, D] with ``keep`` broadcast to
-    [B, H, Lq, Lk]; masked scores are the -1e30 sentinel."""
+    [B, H, Lq, Lk]; masked scores are the -1e30 sentinel. ``dropout``,
+    where given, is applied to the probabilities."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(
         q.shape[-1])
     s = torch.where(keep, s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(v.dtype)
+    if dropout is not None:
+        p = dropout(p)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
@@ -242,11 +248,13 @@ class GPTAttention(nn.Module):
         self.k_proj = nn.Linear(h, h, **kw)
         self.v_proj = nn.Linear(h, h, **kw)
         self.out_proj = nn.Linear(h, h, **kw)
+        self.dropout = Dropout(config.dropout)
 
     def forward(self, x, *, cache: Optional[dict] = None,
                 positions: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
-                start: Optional[torch.Tensor] = None):
+                start: Optional[torch.Tensor] = None,
+                train: bool = False, generator=None):
         c = self.config
         nh = c.num_heads
         hd = c.hidden_size // nh
@@ -319,7 +327,8 @@ class GPTAttention(nn.Module):
                                   device=x.device).tril()[None, None]
                 if attention_mask is not None:
                     keep = keep & attention_mask[:, None, None, :].bool()
-                ctx = _dense_attention(q, k, v, keep)
+                ctx = _dense_attention(q, k, v, keep, lambda p: self.dropout(
+                    p, train=train, generator=generator))
         return self.out_proj(ctx.reshape(b, l, c.hidden_size))
 
 
@@ -333,10 +342,13 @@ class GPTBlock(nn.Module):
         self.ln_2 = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps, **kw)
         self.up = nn.Linear(c.hidden_size, c.intermediate_size, **kw)
         self.down = nn.Linear(c.intermediate_size, c.hidden_size, **kw)
+        self.dropout = Dropout(c.dropout)
 
-    def forward(self, x, **attn_kw):
-        x = x + self.attn(self.ln_1(x), **attn_kw)
-        return x + self.down(F.gelu(self.up(self.ln_2(x)), approximate="tanh"))
+    def forward(self, x, *, train: bool = False, generator=None, **attn_kw):
+        drop = dict(train=train, generator=generator)
+        x = x + self.dropout(self.attn(self.ln_1(x), **drop, **attn_kw), **drop)
+        m = self.down(F.gelu(self.up(self.ln_2(x)), approximate="tanh"))
+        return x + self.dropout(m, **drop)
 
 
 class GPTLMHeadModel(nn.Module):
@@ -376,11 +388,13 @@ class GPTLMHeadModel(nn.Module):
         self.h = nn.ModuleList(GPTBlock(c, i, device=dev)
                                for i in range(c.num_layers))
         self.ln_f = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps, **kw)
+        self.dropout = Dropout(c.dropout)
 
     def forward(self, input_ids, *, cache: Optional[dict] = None,
                 positions: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
-                return_kv: bool = False):
+                return_kv: bool = False, train: bool = False,
+                generator: "torch.Generator | None" = None):
         if return_kv:
             raise NotImplementedError(
                 "return_kv (the sequence-parallel prefill's building block) "
@@ -407,9 +421,11 @@ class GPTLMHeadModel(nn.Module):
             start = cache.get("start")
             if start is None:
                 start = first_valid_column(attention_mask)
+        x = self.dropout(x, train=train, generator=generator)
         for blk in self.h:
             x = blk(x, cache=cache, positions=positions,
-                    attention_mask=attention_mask, start=start)
+                    attention_mask=attention_mask, start=start,
+                    train=train, generator=generator)
         x = self.ln_f(x)
         logits = F.linear(x, self.wte.weight).float()  # weight-tied LM head
         if cache is not None:

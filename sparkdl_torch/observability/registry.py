@@ -540,10 +540,26 @@ def flatten_snapshot(snap: "dict | None" = None) -> "dict[str, float]":
 
 
 def snapshot_across_hosts() -> dict:
-    """All-hosts mean/min/max of every numeric series. The reference
-    rolls per-host registries up with a JAX collective; the port's
-    multi-host runner has not been ported, so this raises."""
-    raise NotImplementedError(
-        "snapshot_across_hosts (the cross-host metrics roll-up) is not "
-        "ported to sparkdl_torch yet (ROADMAP A8 runner); "
-        "flatten_snapshot() gives this process's series")
+    """All-ranks mean/min/max of every numeric series, over the default
+    process group (every rank must call it, like any collective).
+
+    ``aggregate_across_hosts`` needs an IDENTICAL key set on every rank,
+    but registries diverge under data-dependent instrumentation (a
+    failure counter exists only on the rank that saw a failure), so the
+    key sets are unioned first (an all-gather of each rank's keys) and a
+    missing series rides as None (NaN in the reduce). The runner's
+    epilogue (``TorchRunner(metrics_summary=True)``) rolls the ranks'
+    registries up with it.
+    """
+    import torch.distributed as dist
+
+    from sparkdl_torch.observability.metrics import aggregate_across_hosts
+
+    flat = flatten_snapshot()
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        key_lists: "list[list[str] | None]" = [None] * dist.get_world_size()
+        dist.all_gather_object(key_lists, sorted(flat))
+        union = sorted({k for ks in key_lists for k in (ks or [])})
+        flat = {k: flat.get(k) for k in union}
+    return aggregate_across_hosts(flat)

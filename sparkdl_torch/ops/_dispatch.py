@@ -59,12 +59,13 @@ def resolve_device(device) -> torch.device:
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
     """True for tensors all on one CUDA device (launch the kernel), False
-    for CPU tensors (run the plain version); raises for anything else or
-    a mix."""
+    for CPU tensors (run the plain version) and for meta tensors (the
+    plain version on shapes only: FLOP counts); raises for anything else
+    or a mix."""
     devices = {t.device for t in tensors}
     if len(devices) == 1:
         kind = next(iter(devices)).type
-        if kind in ("cpu", "cuda"):
+        if kind in ("cpu", "cuda", "meta"):
             return kind == "cuda"
     raise ValueError(
         f"expected all tensors on the CPU or all on one CUDA device, got "
@@ -216,6 +217,30 @@ def capture_tally():
     finally:
         with _COUNT_LOCK:
             _CAPTURE["tally"] = outer
+
+
+_FLOPS: "dict[str, list | None]" = {"tally": None}
+
+
+def note_flops(n: float) -> None:
+    """A kernel's model FLOPs, for :func:`flop_tally` (the FLOPs its
+    plain version's matmuls would show ``FlopCounterMode``, which does
+    not see a kernel called through ctypes)."""
+    tally = _FLOPS["tally"]
+    if tally is not None:
+        with _COUNT_LOCK:
+            tally[0] += n
+
+
+@contextlib.contextmanager
+def flop_tally():
+    """``[total]``: the FLOPs kernels noted inside the block."""
+    tally = [0.0]
+    outer, _FLOPS["tally"] = _FLOPS["tally"], tally
+    try:
+        yield tally
+    finally:
+        _FLOPS["tally"] = outer
 
 
 def count_launches(fn, *names: str) -> None:

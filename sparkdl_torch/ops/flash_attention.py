@@ -28,6 +28,7 @@ import torch
 from sparkdl_torch.ops._dispatch import (
     count_launches,
     load_library,
+    note_flops,
     note_launch,
     on_cuda,
     stream_handle,
@@ -160,6 +161,8 @@ def _forward(q, k, v, kv_mask, causal, scale, q_offset, return_lse):
             raise RuntimeError(
                 f"flash_attention kernel launch failed: cudaError {rc}")
         note_launch(flash_attention)
+        # the plain version's two products, S = QK^T and O = PV
+        note_flops(4.0 * b * h * lq * lk * d)
     return (out, lse) if return_lse else out
 
 
@@ -271,6 +274,8 @@ def flash_attention_bwd(q, k, v, kv_mask, o, lse, do, *, causal=False,
             raise RuntimeError(f"flash_attention_bwd kernel {counter[9:]} "
                                f"launch failed: cudaError {rc}")
         note_launch(flash_attention_bwd, counter)
+    # the plain version's five products: S rebuilt, dV, dP, dQ, dK
+    note_flops(10.0 * b * h * lq * lk * d)
     return dq, dk, dv
 
 

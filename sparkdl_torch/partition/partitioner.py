@@ -1,41 +1,731 @@
-"""The one-device partitioner (the reference's
-``sparkdl_tpu.partition.partitioner.SingleDevicePartitioner``).
+"""The Partitioner: one object that owns every placement decision (the
+port of ``sparkdl_tpu.partition.partitioner``).
 
-On a TPU the reference's partitioner decides the sharding of every jit
-boundary; with one ``torch.device`` there is nothing to shard: a batch is
-moved to the device, params are the module's own, and an apply function
-runs as it is. ``describe()`` keeps the reference's keys so operator
-views read the same in both packages.
+- **where a batch goes** (:meth:`~Partitioner.shard_batch`, the
+  placements of :meth:`~Partitioner.batch_sharding`),
+- **where params and optimizer state live** (:meth:`shard_params`,
+  :meth:`shard_opt_state`; specs from the rule tables of
+  ``partition/rules.py`` and the ZeRO policy of ``partition/zero.py``),
+- **how a step runs across ranks** (:meth:`wrap_step` and the
+  :class:`ShardedOptimizer` that :meth:`shard_opt_state` returns),
+- **how state leaves the mesh** (:meth:`gather_for_checkpoint`).
+
+The reference lets XLA derive the collectives from shardings. The port
+runs one process per card over a ``torch.distributed`` process group
+(``runner/``), and writes its collectives out, on flat buffers, inside
+the train step, so that a step stays one CUDA graph on the card: the
+gradient all-reduce over the data axes, and for state sharded on an axis
+(ZeRO, or rule-placed params) a reduce-scatter of the gradients into
+each rank's shard, the optimizer step on the shard, and an all-gather of
+the updated parameters. Parameters stay whole in every rank's module
+(they are the all-gather's destination); what a rank owns alone is its
+shard of the optimizer state, so ``opt_state_bytes_per_chip`` falls to
+~1/n on an n-way shard. Each rank feeds its local shard of the global
+batch, as under the reference's multi-process runner.
+
+Implementations:
+
+- :class:`SingleDevicePartitioner`: no mesh, one device. What each
+  executor of a :class:`~sparkdl_torch.serving.replicas.ReplicaPool`
+  runs, and ``finetune_classifier``'s default without a process group.
+- :class:`DataParallelPartitioner`: batch over the data axes, params
+  replicated; ``zero_axis="fsdp"`` shards the optimizer state on that
+  axis.
+- :class:`SPMDPartitioner`: params placed by a rule table on the fsdp
+  axis (their optimizer state with them), plus ZeRO on ``zero_axis``
+  where a rule left a leaf replicated.
+
+A mesh whose ``tp``, ``pp``, ``sp`` or ``ep`` axis is larger than 1
+raises ``NotImplementedError`` (ROADMAP A8 parallel: Megatron, pipeline,
+ring and expert parallelism).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable
+import contextlib
+import inspect
+from typing import Any, Callable, Sequence
 
 import torch
 
 from sparkdl_torch.ops._dispatch import resolve_device
+from sparkdl_torch.partition.mesh_factory import axis_sizes
+from sparkdl_torch.partition.rules import (
+    match_partition_rules,
+    tree_path_names,
+    unflatten_names,
+)
+from sparkdl_torch.partition.zero import (
+    export_opt_state_bytes,
+    zero_partition_specs,
+)
+from sparkdl_torch.runtime.mesh import (
+    Mesh,
+    MeshShapeError,
+    PartitionSpec as P,
+    _pg_up,
+    mesh_context,
+    rank_device,
+    spec_placements,
+    world_size,
+)
 from sparkdl_torch.runtime.tree import tree_map
 
-__all__ = ["SingleDevicePartitioner"]
+__all__ = [
+    "Partitioner",
+    "SingleDevicePartitioner",
+    "DataParallelPartitioner",
+    "SPMDPartitioner",
+    "ShardedOptimizer",
+]
+
+#: axes the port cannot split yet (their collectives live in parallel/)
+_MODEL_AXES = ("pp", "sp", "tp", "ep")
 
 
-class SingleDevicePartitioner:
+def _parts(entry: Any) -> tuple:
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+class Partitioner:
+    """Base class: a mesh (possibly None), the batch axes, and the spec
+    policies. Subclasses override the ``*_specs`` hooks; the placement
+    and collective mechanics live here once."""
+
+    def __init__(self, mesh: "Mesh | None" = None, *,
+                 batch_axes: Sequence[str] = ("dp", "fsdp"),
+                 zero_axis: "str | None" = None, device: Any = None):
+        self.mesh = mesh
+        if mesh is not None:
+            missing = [a for a in batch_axes if a not in mesh.axis_names]
+            if missing:
+                raise MeshShapeError(
+                    f"batch axes {missing} not in mesh axes "
+                    f"{tuple(mesh.axis_names)}"
+                )
+            if zero_axis is not None and zero_axis not in mesh.axis_names:
+                raise MeshShapeError(
+                    f"zero_axis {zero_axis!r} not in mesh axes "
+                    f"{tuple(mesh.axis_names)}"
+                )
+            split = {a: s for a, s in mesh.shape.items()
+                     if a in _MODEL_AXES and s > 1}
+            if split:
+                raise NotImplementedError(
+                    f"mesh axes {split} (tensor, pipeline, sequence or "
+                    "expert parallelism) are not ported to sparkdl_torch "
+                    "yet (ROADMAP A8 parallel); the port splits the batch "
+                    "and the optimizer state over dp and fsdp")
+            idle = {a: s for a, s in mesh.shape.items()
+                    if s > 1 and a not in batch_axes}
+            if idle:
+                raise NotImplementedError(
+                    f"mesh axes {idle} outside the batch axes "
+                    f"{tuple(batch_axes)}: the port's data-parallel step "
+                    "splits the batch over every axis of size > 1 "
+                    "(ROADMAP A8 parallel)")
+        self.batch_axes = tuple(batch_axes)
+        self.zero_axis = zero_axis
+        if device is not None:
+            self.device = resolve_device(device)
+        elif _pg_up():
+            self.device = rank_device()  # its card under NCCL, gloo's CPU
+        else:
+            # as SingleDevicePartitioner: the card, raising without one;
+            # the CPU only when asked for
+            self.device = resolve_device("cuda")
+
+    # -- spec policy hooks ---------------------------------------------------
+    def batch_spec(self) -> P:
+        """Leading (batch) dim split over the data axes."""
+        return P(self.batch_axes)
+
+    def param_specs(self, params: Any, *, count_hits: bool = False) -> Any:
+        """Tree of :class:`PartitionSpec` for the params (a module, or a
+        tree of tensors). Replicated here; :class:`SPMDPartitioner`
+        consults its rule table. ``count_hits`` lands matches in the
+        rule-hit metric: only :meth:`shard_params` sets it."""
+        del count_hits
+        return unflatten_names(params, [P() for _ in tree_path_names(params)])
+
+    def opt_specs(self, opt_state: Any, *, count_hits: bool = False) -> Any:
+        """Specs for the optimizer state (a tree keyed by parameter name,
+        each leaf shaped like its parameter): the param rules re-matched
+        over the state's names, then, with ``zero_axis`` set,
+        ZeRO-sharded along that axis wherever still replicated."""
+        base = self._opt_base_specs(opt_state, count_hits=count_hits)
+        if self.zero_axis is None:
+            return base
+        return zero_partition_specs(
+            opt_state, axis=self.zero_axis,
+            axis_size=self._axis_size(self.zero_axis), base_specs=base,
+        )
+
+    def _opt_base_specs(self, opt_state: Any, *,
+                        count_hits: bool = False) -> Any:
+        del count_hits
+        return unflatten_names(
+            opt_state, [P() for _ in tree_path_names(opt_state)])
+
+    # -- derived shardings ---------------------------------------------------
+    def _named(self, spec: P) -> tuple:
+        assert self.mesh is not None
+        return spec_placements(spec, self.mesh)
+
+    def batch_sharding(self) -> tuple:
+        """Placements of a batch on the mesh (``Shard(0)`` on the data
+        axes)."""
+        return self._named(self.batch_spec())
+
+    def chain_batch_sharding(self) -> tuple:
+        """For a stacked ``[K, batch, ...]`` fused-dispatch feed: K is the
+        chained dim (unsharded), batch stays on the data axes."""
+        return self._named(P(None, self.batch_axes))
+
+    def replicated_sharding(self) -> tuple:
+        return self._named(P())
+
+    # -- placement -----------------------------------------------------------
+    def data_index(self) -> int:
+        """This rank's index among the ``data_axis_size`` batch shards."""
+        if self.mesh is None:
+            return 0
+        idx = 0
+        for a in self.batch_axes:
+            idx = idx * self._axis_size(a) + self.mesh.coordinate(a)
+        return idx
+
+    def shard_batch(self, arrays: Any, *, check: bool = True,
+                    local: bool = False) -> Any:
+        """Host batch -> this rank's rows on its device.
+
+        ``arrays`` is the GLOBAL batch: each leaf's leading dim is split
+        into ``data_axis_size`` contiguous shards and this rank keeps its
+        own, loud on a leading dim the data axes cannot divide.
+        ``local=True``: the leaves are this rank's shard already (each
+        rank feeds its own, as ``finetune_classifier`` takes them) and
+        move whole. ``check=False`` skips the divisibility walk."""
+        n = self.data_axis_size
+        if check and n > 1 and not local:
+            for name, leaf in tree_path_names(arrays):
+                dim = tuple(getattr(leaf, "shape", (0,)))
+                if dim and dim[0] % n != 0:
+                    raise MeshShapeError(
+                        f"batch leaf {name!r} has leading dim {dim[0]}, "
+                        f"not divisible by the {n}-way data axes "
+                        f"{self.batch_axes} of the "
+                        f"{self.mesh.size}-device mesh"
+                    )
+        i = 0 if local else self.data_index()
+
+        def put(a):
+            t = torch.as_tensor(a)
+            if n > 1 and not local:
+                step = t.shape[0] // n
+                t = t[i * step:(i + 1) * step]
+            return t.to(self.device, non_blocking=True)
+
+        return tree_map(put, arrays)
+
+    def shard_params(self, model: torch.nn.Module) -> torch.nn.Module:
+        """Place ``model`` for training: on this rank's device, its
+        parameters checked against their specs (the one placement that
+        counts rule hits) and, on a live process group, every parameter
+        and buffer broadcast from rank 0 so the replicas start equal
+        (HorovodRunner's ``broadcast_parameters``). A model on the card
+        is never moved off it: a partitioner on the CPU raises for one."""
+        on = {t.device for t in (*model.parameters(), *model.buffers())}
+        if self.device.type != "cuda" and any(d.type == "cuda" for d in on):
+            raise ValueError(
+                f"the model lives on {sorted(map(str, on))} and this "
+                f"partitioner on {self.device}: pass device= for the card "
+                "(the partitioner does not move a model off it)")
+        model.to(self.device)
+        specs = self.param_specs(model, count_hits=True)
+        self._check_divisible(model, specs, "param")
+        group = self._group(None)
+        if group is not None and world_size() > 1:
+            import torch.distributed as dist
+
+            with torch.no_grad():
+                tensors = [*model.parameters(), *model.buffers()]
+                for flat, views in _flat_groups(tensors):
+                    dist.broadcast(flat, src=0)
+                    _copy_back(flat, views)
+        return model
+
+    def shard_opt_state(self, optimizer: torch.optim.Optimizer,
+                        model: torch.nn.Module) -> "ShardedOptimizer":
+        """The optimizer step for ``model`` under this mesh: a
+        :class:`ShardedOptimizer` that averages the gradients over the
+        data axes and keeps each parameter's optimizer state on the
+        shard its spec gives this rank."""
+        named = dict(model.named_parameters())
+        specs = self.opt_specs(named, count_hits=True)
+        self._check_divisible(named, specs, "opt")
+        return ShardedOptimizer(self, model, optimizer, specs)
+
+    def shard_replicated(self, tree: Any) -> Any:
+        """Small replicated leaves (step counters) on this rank's device."""
+        return tree_map(lambda a: torch.as_tensor(a).to(self.device), tree)
+
+    def gather_for_checkpoint(self, tree: Any) -> Any:
+        """``tree`` with every sharded (DTensor) leaf gathered whole:
+        what a layout-independent export wants. The
+        :class:`~sparkdl_torch.checkpoint.CheckpointManager` saves
+        sharded state directly (DCP records the layout)."""
+        leaves = [leaf.full_tensor() if hasattr(leaf, "full_tensor") else leaf
+                  for _, leaf in tree_path_names(tree)]
+        return unflatten_names(tree, leaves)
+
+    # -- the step ------------------------------------------------------------
+    def wrap_step(self, step_fn: Callable, state: Any = None) -> Callable:
+        """``step(batch) -> metrics`` whose metrics are the mean over the
+        data axes (each rank's step saw its local shard; the mean of the
+        shards' means is the global batch's, the shards being equal).
+        The gradient collectives live in the :class:`ShardedOptimizer`."""
+        del state
+        if self.mesh is not None and self.mesh.size != world_size():
+            raise MeshShapeError(
+                f"a step over the {self.mesh.size}-device mesh needs a "
+                f"process group of {self.mesh.size} ranks, got "
+                f"{world_size()}: run it under TorchRunner")
+        group = self._group(None)
+        n = self.data_axis_size
+        if group is None or n == 1:
+            return step_fn  # nothing to average
+
+        def wrapped(batch):
+            import torch.distributed as dist
+
+            metrics = step_fn(batch)
+            keys = sorted(metrics)
+            flat = torch.stack([metrics[k].float() for k in keys])
+            dist.all_reduce(flat, group=group)
+            flat = flat / n
+            return {k: flat[i] for i, k in enumerate(keys)}
+
+        wrapped.graph_key = getattr(step_fn, "graph_key", None)
+        return wrapped
+
+    def wrap_apply(self, apply_fn: Callable, params: Any = None) -> Callable:
+        """``f(params, batch)``: ``apply_fn`` over this rank's rows of the
+        global ``batch`` (its output is this rank's rows)."""
+        del params
+        return lambda p, batch: apply_fn(p, self.shard_batch(batch))
+
+    # -- introspection / context ---------------------------------------------
+    def _axis_size(self, axis: str) -> int:
+        if self.mesh is None:
+            return 1
+        return int(self.mesh.shape[axis])
+
+    def _group(self, axis: "str | None"):
+        """The process group of ``axis`` (None: every rank), or None when
+        no process group is up (nothing to communicate)."""
+        import torch.distributed as dist
+
+        if self.mesh is None or not (dist.is_available()
+                                     and dist.is_initialized()):
+            return None
+        if axis is None:
+            return dist.group.WORLD
+        return self.mesh.group(axis)
+
+    @property
+    def data_axis_size(self) -> int:
+        """Ways the batch dim is split (1 = no splitting)."""
+        n = 1
+        for a in self.batch_axes:
+            n *= self._axis_size(a)
+        return n
+
+    def mesh_context(self):
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return mesh_context(self.mesh)
+
+    def describe(self) -> "dict[str, Any]":
+        """Operator/bench view: kind, axis sizes, batch/zero policy."""
+        return {
+            "kind": type(self).__name__,
+            "axes": axis_sizes(self.mesh),
+            "batch_axes": list(self.batch_axes),
+            "zero_axis": self.zero_axis,
+            "data_axis_size": self.data_axis_size,
+        }
+
+    def export_opt_state_bytes(self, opt_state: Any) -> int:
+        """Per-rank optimizer-state bytes into the spine
+        (``sparkdl_opt_state_bytes{axis=...}``)."""
+        return export_opt_state_bytes(opt_state, axis=self.zero_axis)
+
+    # -- validation ----------------------------------------------------------
+    def _check_divisible(self, tree: Any, specs: Any, what: str) -> None:
+        if self.mesh is None:
+            return
+        for (name, leaf), (_, spec) in zip(tree_path_names(tree),
+                                           tree_path_names(specs)):
+            shape = tuple(getattr(leaf, "shape", ()))
+            for i, part in enumerate(spec):
+                if part is None or i >= len(shape):
+                    continue
+                n = 1
+                for a in _parts(part):
+                    n *= self._axis_size(a)
+                if n > 1 and shape[i] % n != 0:
+                    raise MeshShapeError(
+                        f"{what} leaf {name!r} shape {shape}: dim {i} "
+                        f"({shape[i]}) not divisible by the {n}-way "
+                        f"{_parts(part)} split on the "
+                        f"{self.mesh.size}-device mesh"
+                    )
+
+
+class SingleDevicePartitioner(Partitioner):
     """Everything on one device (``device``, the card by default, which
-    raises where CUDA is absent)."""
+    raises where CUDA is absent).
+
+    What a :class:`~sparkdl_torch.serving.replicas.ReplicaPool` executor
+    runs (the pool scales by replicating single-device partitioners, not
+    by splitting batches), and ``finetune_classifier``'s default where no
+    process group is up."""
 
     def __init__(self, device: Any = None):
-        self.device = resolve_device(device if device is not None else "cuda")
+        super().__init__(mesh=None, batch_axes=(),
+                         device=device if device is not None else "cuda")
 
-    def shard_batch(self, arrays: Any, *, check: bool = True) -> Any:
+    def batch_spec(self) -> P:
+        return P()
+
+    def _named(self, spec: P) -> Any:
+        # no mesh: every derived "sharding" is the one device
+        return self.device
+
+    def shard_batch(self, arrays: Any, *, check: bool = True,
+                    local: bool = False) -> Any:
         """Every leaf of ``arrays`` as a tensor on the device."""
-        del check
+        del check, local
         return tree_map(lambda a: torch.as_tensor(a).to(self.device), arrays)
+
+    def shard_opt_state(self, optimizer: torch.optim.Optimizer,
+                        model: torch.nn.Module) -> torch.optim.Optimizer:
+        return optimizer  # one device: the optimizer runs as it is
+
+    def gather_for_checkpoint(self, tree: Any) -> Any:
+        return tree
+
+    def wrap_step(self, step_fn: Callable, state: Any = None) -> Callable:
+        return step_fn  # nothing to reduce on one device
 
     def wrap_apply(self, apply_fn: Callable, params: Any = None) -> Callable:
         return apply_fn  # the module's weights already live on the device
 
     def describe(self) -> "dict[str, Any]":
-        return {"kind": type(self).__name__, "axes": {}, "batch_axes": [],
-                "zero_axis": None, "data_axis_size": 1,
-                "device": str(self.device)}
+        out = super().describe()
+        out["device"] = str(self.device)
+        return out
+
+
+class DataParallelPartitioner(Partitioner):
+    """Batch over the data axes, params replicated (the reference-parity
+    layout), with an optional ZeRO twist: ``zero_axis="fsdp"`` shards the
+    optimizer state, and so the weight update, along the fsdp axis while
+    params stay replicated. Default mesh: every rank on ``dp``."""
+
+    def __init__(self, mesh: "Mesh | None" = None, *,
+                 batch_axes: Sequence[str] = ("dp", "fsdp"),
+                 zero_axis: "str | None" = None, device: Any = None):
+        if mesh is None:
+            from sparkdl_torch.runtime.mesh import data_parallel_mesh
+
+            mesh = data_parallel_mesh()
+        super().__init__(mesh, batch_axes=batch_axes, zero_axis=zero_axis,
+                         device=device)
+
+
+class SPMDPartitioner(Partitioner):
+    """Params placed by a regex rule table (partition/rules.py), batch
+    over the data axes, optimizer state rule-matched the same way plus
+    ZeRO sharding along ``zero_axis`` where replicated. On the port's
+    meshes the rules' fsdp entries are the live ones (tp > 1 raises)."""
+
+    def __init__(self, mesh: Mesh, rules: "Sequence[tuple[str, P]]", *,
+                 batch_axes: Sequence[str] = ("dp", "fsdp"),
+                 zero_axis: "str | None" = None, device: Any = None):
+        super().__init__(mesh, batch_axes=batch_axes, zero_axis=zero_axis,
+                         device=device)
+        self.rules = tuple(rules)
+
+    def param_specs(self, params: Any, *, count_hits: bool = False) -> Any:
+        return match_partition_rules(self.rules, params,
+                                     count_hits=count_hits)
+
+    def _opt_base_specs(self, opt_state: Any, *,
+                        count_hits: bool = False) -> Any:
+        return match_partition_rules(self.rules, opt_state,
+                                     count_hits=count_hits)
+
+    def describe(self) -> "dict[str, Any]":
+        out = super().describe()
+        out["n_rules"] = len(self.rules)
+        return out
+
+
+# -- the collectives of a step ------------------------------------------------
+
+def _flat_groups(tensors: "list[torch.Tensor]"):
+    """``[(flat, views)]``: the tensors concatenated per dtype into one
+    flat buffer each, with the list of tensors each one came from."""
+    by_dtype: "dict[torch.dtype, list[torch.Tensor]]" = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    return [(torch.cat([t.reshape(-1) for t in ts]), ts)
+            for ts in by_dtype.values()]
+
+
+def _grad_buffers(params: "list[torch.nn.Parameter]"):
+    """``[(flat, params, views)]``: one zeroed flat buffer per dtype, and
+    a view of it shaped like each parameter, for its gradient."""
+    by_dtype: "dict[torch.dtype, list[torch.nn.Parameter]]" = {}
+    for p in params:
+        by_dtype.setdefault(p.dtype, []).append(p)
+    out = []
+    for ps in by_dtype.values():
+        flat = torch.zeros(sum(p.numel() for p in ps), dtype=ps[0].dtype,
+                           device=ps[0].device)
+        views, offset = [], 0
+        for p in ps:
+            views.append(flat[offset:offset + p.numel()].view_as(p))
+            offset += p.numel()
+        out.append((flat, ps, views))
+    return out
+
+
+def _copy_back(flat: torch.Tensor, targets: "list[torch.Tensor]") -> None:
+    offset = 0
+    for t in targets:
+        n = t.numel()
+        t.copy_(flat[offset:offset + n].view_as(t))
+        offset += n
+
+
+class _Sharded:
+    """One parameter whose optimizer state lives split along ``dim``."""
+
+    def __init__(self, name: str, param: torch.nn.Parameter, axis: str,
+                 dim: int, n: int, index: int):
+        self.name, self.param, self.dim, self.n = name, param, dim, n
+        self.axis = axis
+        self.index = index
+        full = param.shape[dim]
+        self.rows = full // n
+        moved = param.detach().movedim(dim, 0)
+        self.moved_shape = (self.rows,) + tuple(moved.shape[1:])
+        self.numel = param.numel() // n
+        shard = moved[index * self.rows:(index + 1) * self.rows]
+        #: this rank's slice, the parameter its optimizer steps
+        self.owned = torch.nn.Parameter(
+            shard.movedim(0, dim).contiguous().clone())
+
+    def reload(self) -> None:
+        """This rank's slice taken again from the whole parameter."""
+        rows = self.param.detach().movedim(self.dim, 0)
+        self.owned.detach().copy_(
+            rows[self.index * self.rows:(self.index + 1) * self.rows]
+            .movedim(0, self.dim))
+
+    def grad_columns(self) -> torch.Tensor:
+        """The full gradient as [n, numel/n]: row r is rank r's shard."""
+        g = self.param.grad
+        if g is None:
+            g = torch.zeros_like(self.param)
+        return g.movedim(self.dim, 0).reshape(self.n, self.numel)
+
+    def set_grad(self, shard: torch.Tensor) -> None:
+        self.owned.grad = shard.view(self.moved_shape).movedim(0, self.dim)
+
+    def owned_flat(self) -> torch.Tensor:
+        return self.owned.detach().movedim(self.dim, 0).reshape(-1)
+
+    def write_gathered(self, block: torch.Tensor) -> None:
+        """``block`` [n, numel/n]: every rank's updated shard."""
+        full = block.reshape((self.n * self.rows,) + self.moved_shape[1:])
+        self.param.detach().copy_(full.movedim(0, self.dim))
+
+
+class ShardedOptimizer:
+    """The update of a data-parallel step, with its collectives.
+
+    ``step()`` (called where the train step calls ``optimizer.step()``,
+    after the backward):
+
+    1. the gradients of replicated parameters: one all-reduce over the
+       data axes, then /n, in place on a flat buffer per dtype that the
+       backward accumulated into (each ``p.grad`` is a view of it, bound
+       by :meth:`zero_grad`);
+    2. the gradients of parameters whose state is sharded on an axis:
+       one reduce-scatter of a flat buffer (rank r receives the sum of
+       its shard's rows), an all-reduce over the remaining data axis
+       where there is one, then /n;
+    3. the wrapped optimizer's step: the replicated parameters in place,
+       the sharded ones on this rank's slices;
+    4. one all-gather of the updated slices into every rank's whole
+       parameters.
+
+    All of it is tensor work on the step's stream, so a CUDA graph of the
+    step captures the collectives with it. On a one-way data axis only
+    step 3 runs: the plain optimizer step. The wrapped optimizer is the one
+    given when nothing is sharded; otherwise one of its class with its
+    ``defaults`` over the owned tensors (one parameter group required).
+    """
+
+    def __init__(self, partitioner: Partitioner, model: torch.nn.Module,
+                 optimizer: torch.optim.Optimizer, specs: "dict[str, P]"):
+        self.model = model
+        named = [(n, p) for n, p in model.named_parameters()
+                 if p.requires_grad]
+        self._mesh = partitioner.mesh
+        self._data_group = partitioner._group(None)
+        self._n = partitioner.data_axis_size
+        self.replicated: "list[torch.nn.Parameter]" = []
+        self.sharded: "list[_Sharded]" = []
+        self.shard_axis: "str | None" = None
+        for name, p in named:
+            axes = [(d, a) for d, part in enumerate(specs.get(name, P()))
+                    for a in _parts(part)
+                    if a is not None and partitioner._axis_size(a) > 1]
+            if not axes:
+                self.replicated.append(p)
+                continue
+            if len(axes) > 1 or (self.shard_axis not in (None, axes[0][1])):
+                raise NotImplementedError(
+                    f"param {name!r} spec {specs[name]!r}: one shard axis a "
+                    "step is ported (ROADMAP A8 parallel)")
+            dim, axis = axes[0]
+            self.shard_axis = axis
+            self.sharded.append(_Sharded(
+                name, p, axis, dim, partitioner._axis_size(axis),
+                partitioner.mesh.coordinate(axis)))
+        #: the replicated gradients' flat buffers, all-reduced in place
+        self._grad_flats = (
+            _grad_buffers(self.replicated)
+            if self._data_group is not None and self._n > 1 else [])
+        self._shard_group = self._replica_group = None
+        if self.sharded:
+            self._shard_group = partitioner._group(self.shard_axis)
+            rest = [a for a in partitioner.batch_axes
+                    if a != self.shard_axis and partitioner._axis_size(a) > 1]
+            if rest:
+                self._replica_group = partitioner._group(rest[0])
+            if len(optimizer.param_groups) != 1:
+                raise ValueError(
+                    "a sharded optimizer state takes an optimizer with one "
+                    f"parameter group, got {len(optimizer.param_groups)}")
+            owned = {id(s.param): s.owned for s in self.sharded}
+            accepted = inspect.signature(type(optimizer)).parameters
+            optimizer = type(optimizer)(
+                [owned.get(id(p), p) for _, p in named],
+                **{k: v for k, v in optimizer.param_groups[0].items()
+                   if k != "params" and k in accepted})
+        self.optimizer = optimizer
+
+    @property
+    def param_groups(self):
+        """The wrapped optimizer's groups (what ``optimizer_settings`` and
+        ``require_capturable`` read)."""
+        return self.optimizer.param_groups
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.model.zero_grad(set_to_none=set_to_none)
+        for flat, params, views in self._grad_flats:
+            flat.zero_()
+            for p, v in zip(params, views):
+                p.grad = v  # the backward accumulates into the buffer
+        for s in self.sharded:
+            s.owned.grad = None
+
+    @torch.no_grad()
+    def step(self) -> None:
+        import torch.distributed as dist
+
+        for flat, params, views in self._grad_flats:
+            for p, v in zip(params, views):
+                if p.grad is None:
+                    v.zero_()
+                    p.grad = v
+                elif p.grad is not v:  # set outside zero_grad: take it in
+                    v.copy_(p.grad)
+                    p.grad = v
+            dist.all_reduce(flat, group=self._data_group)
+            flat.div_(self._n)
+        if self.sharded:
+            if self._shard_group is None:
+                raise MeshShapeError(
+                    f"optimizer state sharded {self.sharded[0].n} ways on "
+                    f"{self.shard_axis!r} needs a process group of "
+                    f"{self._mesh.size} ranks: run the step under "
+                    "TorchRunner")
+            cols = torch.cat([s.grad_columns() for s in self.sharded], dim=1)
+            shard = torch.empty(cols.shape[1], dtype=cols.dtype,
+                                device=cols.device)
+            dist.reduce_scatter_tensor(shard, cols.reshape(-1),
+                                       group=self._shard_group)
+            if self._replica_group is not None:
+                dist.all_reduce(shard, group=self._replica_group)
+            shard.div_(self._n)
+            offset = 0
+            for s in self.sharded:
+                s.set_grad(shard[offset:offset + s.numel])
+                offset += s.numel
+        self.optimizer.step()
+        if self.sharded:
+            mine = torch.cat([s.owned_flat() for s in self.sharded])
+            n = self.sharded[0].n
+            gathered = torch.empty(n * mine.numel(), dtype=mine.dtype,
+                                   device=mine.device)
+            dist.all_gather_into_tensor(gathered, mine,
+                                        group=self._shard_group)
+            block = gathered.view(n, mine.numel())
+            offset = 0
+            for s in self.sharded:
+                s.write_gathered(block[:, offset:offset + s.numel])
+                offset += s.numel
+
+    def reload_shards(self) -> None:
+        """Take each owned slice again from the module's parameters, after
+        they were written from outside the step (a checkpoint restore)."""
+        for s in self.sharded:
+            s.reload()
+
+    def state_by_name(self) -> "dict[str, dict]":
+        """Parameter name -> its optimizer state (the live tensors). The
+        state of a parameter sharded across ranks is a DTensor over this
+        rank's slice, placed on the mesh, so a checkpoint of it reshards
+        to any world size or layout."""
+        from torch.distributed.tensor import DTensor
+
+        shards = {s.name: s for s in self.sharded}
+        owned = {n: p for n, p in self.model.named_parameters()
+                 if p.requires_grad}
+        owned.update({s.name: s.owned for s in self.sharded})
+        out: "dict[str, dict]" = {}
+        for name, p in owned.items():
+            st = self.optimizer.state.get(p)
+            if not st:
+                continue
+            s = shards.get(name)
+            entry = {}
+            for key, v in st.items():
+                if (s is not None and isinstance(v, torch.Tensor)
+                        and v.shape == s.owned.shape):
+                    spec = [None] * s.param.dim()
+                    spec[s.dim] = s.axis
+                    v = DTensor.from_local(
+                        v, self._mesh.device_mesh,
+                        spec_placements(P(*spec), self._mesh),
+                        run_check=False, shape=s.param.shape,
+                        stride=s.param.stride())
+                entry[key] = v
+            out[name] = entry
+        return out

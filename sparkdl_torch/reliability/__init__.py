@@ -1,9 +1,9 @@
 """Reliability pieces of the port, copied from ``sparkdl_tpu.reliability``
 (all framework-free): named fault-injection sites (``faults.py``,
 ``fault_point``), the shared retry loop with its per-process budget
-(``retry.py``) and the quarantine/probation circuit breaker the
-ReplicaPool runs (``breaker.py``). The reference's ``resumable_finetune``
-supervisor is not ported yet (ROADMAP A5).
+(``retry.py``), the quarantine/probation circuit breaker the
+ReplicaPool runs (``breaker.py``), and ``supervisor.py``'s
+:func:`resumable_finetune` (crash -> restore -> replay -> continue).
 """
 
 from sparkdl_torch.reliability.breaker import ProbationBreaker
@@ -23,6 +23,7 @@ from sparkdl_torch.reliability.retry import (
     process_retry_budget,
     record_retry,
 )
+from sparkdl_torch.reliability.supervisor import resumable_finetune
 
 __all__ = [
     "FaultPlan",
@@ -38,4 +39,5 @@ __all__ = [
     "inject",
     "process_retry_budget",
     "record_retry",
+    "resumable_finetune",
 ]

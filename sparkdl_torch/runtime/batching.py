@@ -119,3 +119,10 @@ def _stack(rows: list[dict[str, np.ndarray]], buckets: Sequence[int]) -> PaddedB
             for k in rows[0]
         }
     return PaddedBatch(arrays, n, bucket)
+
+
+def pad_batch_to_multiple(arrays: dict[str, np.ndarray], multiple: int) -> PaddedBatch:
+    """Pad so the leading dim divides ``multiple`` (for sharded batch dims)."""
+    n = next(iter(arrays.values())).shape[0]
+    bucket = ((n + multiple - 1) // multiple) * multiple
+    return pad_to_bucket(arrays, [bucket])

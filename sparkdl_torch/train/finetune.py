@@ -16,10 +16,15 @@ dispatch later (``runtime/completion.py``), as the reference reads them.
 
 Input readahead (``input_prefetch``, ``autotune``) runs the batch source
 through the ingest pipeline (sparkdl_torch/ingest), as the JAX loop does.
-The JAX loop's options that have no counterpart in the port yet keep
-their names and raise ``NotImplementedError`` naming their ROADMAP item:
-``mesh``/``partitioner`` (A8 partition) and ``checkpoint_dir`` (A8
-checkpoint).
+
+Across ranks (``TorchRunner``, ``partition/``) each rank feeds its local
+shard of the global batch and the partitioner writes the step's
+collectives: the gradient all-reduce, or for ZeRO the reduce-scatter,
+the sharded update and the all-gather, inside the same CUDA graph.
+``checkpoint_dir`` saves the train state asynchronously every
+``checkpoint_every`` steps and at the end, and resumes from it
+(``checkpoint/``, driven across crashes by
+``reliability.supervisor.resumable_finetune``).
 """
 
 from __future__ import annotations
@@ -45,8 +50,6 @@ from sparkdl_torch.runtime.dispatch import (
     shape_key,
     storage_key,
 )
-
-_NOT_PORTED = "not ported to sparkdl_torch yet (ROADMAP {item})"
 
 _METRICS = None
 
@@ -101,6 +104,64 @@ def _device_of(model: torch.nn.Module) -> torch.device:
     raise ValueError("the model has no parameters to train")
 
 
+def _inner(optimizer) -> torch.optim.Optimizer:
+    """The torch optimizer a :class:`ShardedOptimizer` wraps (or itself)."""
+    return getattr(optimizer, "optimizer", optimizer)
+
+
+@torch.no_grad()
+def materialize_optimizer_state(optimizer) -> None:
+    """Create ``optimizer``'s per-parameter state now, shaped and placed
+    as after its first step, so that a checkpoint can be restored into
+    it in place (or its bytes measured) before any step. One step at lr
+    0 over zero gradients makes the tensors (the parameters do not move:
+    the update is scaled by lr); every state tensor is then zeroed.
+
+    The values are placeholders, not a fresh optimizer's (NAdam's
+    ``mu_product`` starts at 1, SGD's momentum buffer at the first
+    gradient): restore into them, or clear ``optimizer.state``, before
+    stepping."""
+    opt = _inner(optimizer)
+    if opt.state:
+        return
+    params = [p for g in opt.param_groups for p in g["params"]]
+    saved = [p.grad for p in params]
+    for p in params:
+        p.grad = torch.zeros_like(p)
+    lrs = [g["lr"] for g in opt.param_groups]
+    for g in opt.param_groups:
+        g["lr"] = torch.zeros_like(g["lr"]) if isinstance(g["lr"], torch.Tensor) else 0.0
+    try:
+        opt.step()
+    finally:
+        for g, lr in zip(opt.param_groups, lrs):
+            g["lr"] = lr
+        for p, g in zip(params, saved):
+            p.grad = g
+    for st in opt.state.values():
+        for v in st.values():
+            if isinstance(v, torch.Tensor):
+                v.zero_()
+
+
+def train_state(model: torch.nn.Module, optimizer, step: int) -> dict:
+    """The checkpointed train state: ``{"model": state_dict, "optim":
+    {param name: {state key: tensor}}, "step": int64 tensor}``. Every
+    tensor is the live one (a restore writes into it in place); a
+    :class:`~sparkdl_torch.partition.ShardedOptimizer` gives the state of
+    a parameter sharded across ranks as a DTensor over this rank's slice,
+    so a checkpoint reshards across world sizes and layouts."""
+    by_name = getattr(optimizer, "state_by_name", None)
+    if by_name is not None:
+        optim = by_name()
+    else:
+        optim = {name: dict(optimizer.state[p])
+                 for name, p in model.named_parameters()
+                 if optimizer.state.get(p)}
+    return {"model": model.state_dict(), "optim": optim,
+            "step": torch.tensor(int(step), dtype=torch.int64)}
+
+
 def finetune_classifier(
     model: torch.nn.Module,
     batches: "Iterator[dict] | list[dict]",
@@ -112,6 +173,8 @@ def finetune_classifier(
     partitioner=None,
     metrics_cb: "Callable[[dict], None] | None" = None,
     checkpoint_dir: "str | None" = None,
+    checkpoint_every: int = 100,
+    keep_checkpoints: int = 3,
     chain_steps: "int | None" = 1,
     input_prefetch: "int | None" = None,
     autotune: "bool | None" = None,
@@ -148,6 +211,29 @@ def finetune_classifier(
     time over its K steps: from the batches' transfer to the device
     finishing the dispatch.
 
+    ``partitioner`` owns every placement decision (partition/): where
+    the model and each batch live, and the collectives of the step.
+    Default: :class:`~sparkdl_torch.partition.DataParallelPartitioner`
+    over ``mesh`` (or every rank) when a ``torch.distributed`` process
+    group is up or ``mesh`` is given, else a
+    :class:`~sparkdl_torch.partition.SingleDevicePartitioner` on the
+    model's device. Under a data-parallel partitioner each rank's
+    ``batches`` are its local shard of the global batch, and the history
+    holds the global batch's metrics (the mean over the ranks). Pass
+    ``DataParallelPartitioner(make_mesh(dp=4, fsdp=2), zero_axis="fsdp")``
+    for ZeRO-sharded optimizer state (per-rank optimizer memory ~1/fsdp,
+    measured into ``sparkdl_opt_state_bytes{axis}``). The loss
+    trajectory is invariant across partitioners up to float reduction
+    order.
+
+    With ``checkpoint_dir`` set, the full train state is saved
+    asynchronously every ``checkpoint_every`` steps (at a dispatch
+    boundary; a save is forced once a full interval passed since the
+    last one landed, so chaining can thin the cadence but never disable
+    it) and once at the end, keeping the newest ``keep_checkpoints``;
+    an existing checkpoint there is restored first and the steps it
+    covers are skipped in ``batches``.
+
     ``input_prefetch`` is the input iterator's host-side readahead depth
     (sparkdl_torch/ingest): a background producer keeps that many batches
     ready ahead of the step loop, so a slow ``batches`` source overlaps
@@ -160,20 +246,29 @@ def finetune_classifier(
     """
     if chain_steps is not None and chain_steps < 1:
         raise ValueError(f"chain_steps must be >= 1, got {chain_steps}")
-    if mesh is not None or partitioner is not None:
-        raise NotImplementedError(
-            "mesh= / partitioner= (data- and model-parallel placement) is "
-            + _NOT_PORTED.format(item="A8 partition"))
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "checkpoint_dir (save and resume) is "
-            + _NOT_PORTED.format(item="A8 checkpoint"))
     from sparkdl_torch import ingest
     from sparkdl_torch.ingest.pipeline import resolve_pin
-
+    from sparkdl_torch.partition import (
+        DataParallelPartitioner,
+        SingleDevicePartitioner,
+    )
+    if partitioner is None:
+        if _process_group_up():
+            # this rank's device: its card under NCCL, else the CPU
+            partitioner = DataParallelPartitioner(mesh=mesh)
+        elif mesh is not None:
+            partitioner = DataParallelPartitioner(mesh=mesh,
+                                                  device=_device_of(model))
+        else:
+            partitioner = SingleDevicePartitioner(_device_of(model))
+    elif mesh is not None and partitioner.mesh != mesh:
+        raise ValueError(
+            "pass either mesh= or partitioner= (the partitioner owns "
+            "its mesh), not both")
     feed_depth, feed_pinned, _ = resolve_pin(
         input_prefetch, "SPARKDL_TORCH_PREFETCH", 2, what="input_prefetch")
-    dev = _device_of(model)
+    model = partitioner.shard_params(model)
+    dev = partitioner.device
     on_card = dev.type == "cuda"
     if optimizer is None:
         # capturable: the step count stays on the card, so the eager step
@@ -183,7 +278,44 @@ def finetune_classifier(
                                       capturable=on_card)
     elif on_card:
         require_capturable(optimizer, "train")
-    chained = chain_carry(classification_train_step(model, optimizer))
+    optimizer = partitioner.shard_opt_state(optimizer, model)
+    ckpt = None
+    resume_step = 0
+    if checkpoint_dir is not None:
+        from sparkdl_torch.checkpoint import CheckpointManager
+
+        ckpt = CheckpointManager(checkpoint_dir, keep=keep_checkpoints,
+                                 save_interval_steps=checkpoint_every)
+        if ckpt.latest_step() is not None:
+            # into the live tensors, before any capture: a graph replays
+            # the storage it captured. The optimizer's state is made to
+            # be written over; a fresh run keeps it lazy (its first step
+            # makes it as the optimizer's class does)
+            materialize_optimizer_state(optimizer)
+            try:
+                state = ckpt.restore(
+                    template=train_state(model, optimizer, 0))
+            except BaseException:
+                _inner(optimizer).state.clear()
+                ckpt.close()
+                raise
+            resume_step = int(state["step"])
+            if hasattr(optimizer, "reload_shards"):
+                optimizer.reload_shards()  # the restored parameters
+    # the ZeRO memory win (or its absence) is a measured number:
+    # sparkdl_opt_state_bytes{axis} per rank, set once the state exists
+    # (at init after a restore, else after the first step)
+    bytes_unset = True
+
+    def export_opt_bytes() -> None:
+        nonlocal bytes_unset
+        if bytes_unset and _inner(optimizer).state:
+            partitioner.export_opt_state_bytes(_inner(optimizer))
+            bytes_unset = False
+
+    export_opt_bytes()
+    chained = chain_carry(partitioner.wrap_step(
+        classification_train_step(model, optimizer)))
     policy = ChainPolicy(
         max_chain=chain_steps if chain_steps is not None else 32)
     if chain_steps is None:
@@ -200,7 +332,8 @@ def finetune_classifier(
         batches = input_pipe
     steps_total, examples_total, step_seconds = _train_metrics()
     history: list[dict] = []
-    host_step = 0
+    host_step = resume_step
+    last_saved = resume_step
     # each dispatch's metrics start their copy to the host at once and are
     # collected one dispatch later, behind the next one
     fetcher = AsyncFetcher(window=2, path="train")
@@ -240,17 +373,35 @@ def finetune_classifier(
                 # as the reference's block on the step count
                 torch.cuda.current_stream(dev).synchronize()
             wall = time.perf_counter() - t0
+        export_opt_bytes()
         record_dispatch("train", k, wall)
         policy.record(wall, k)
         deferred.append((fetcher.submit(metrics), wall, k, host_step,
                          n_examples))
         host_step += k
+        maybe_checkpoint()
         collect(fetcher.window - 1)
+
+    def maybe_checkpoint() -> None:
+        # at the dispatch boundary: the state is current here
+        nonlocal last_saved
+        if ckpt is None:
+            return
+        state = train_state(model, optimizer, host_step)
+        if ckpt.save(host_step, state):
+            last_saved = host_step
+        elif host_step - last_saved >= checkpoint_every:
+            # chain boundaries (step = K, 2K, ...) may never align with
+            # the interval: force once a full interval has passed
+            if ckpt.save(host_step, state, force=True):
+                last_saved = host_step
 
     pending: "list[dict]" = []
     pending_key = None
     try:
-        for batch in batches:
+        for i, batch in enumerate(batches):
+            if i < resume_step:  # deterministic replay on resume
+                continue
             if chain_steps == 1:
                 dispatch([batch])
                 continue
@@ -278,11 +429,25 @@ def finetune_classifier(
         except BaseException:
             pass
         raise
+    else:
+        collect(0)  # drain the async window: history complete
+        if (ckpt is not None and host_step > resume_step
+                and last_saved != host_step):
+            # the final state lands whatever the interval
+            ckpt.save(host_step, train_state(model, optimizer, host_step),
+                      force=True)
     finally:
         if input_pipe is not None:
             input_pipe.close()
-    collect(0)  # drain the async window: history complete
+        if ckpt is not None:
+            ckpt.close()
     return model, history
+
+
+def _process_group_up() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
 
 
 def batches_from_arrays(

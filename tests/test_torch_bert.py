@@ -163,8 +163,9 @@ def test_unported_options_raise_naming_their_roadmap_item():
     base = tbert.BertForSequenceClassification(
         tbert.BertConfig.tiny(hidden_dropout_prob=0.1), device="cpu")
     ids = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="dropout.*A8"):
-        base(ids, train=True)
+    # dropout is ported: train=True draws masks, train=False does not
+    g = torch.Generator().manual_seed(0)
+    assert not torch.equal(base(ids, train=True, generator=g), base(ids))
     assert base(ids).shape == (1, 2)  # train=False: the JAX fine-tune forward
     no_dropout = tbert.BertForSequenceClassification(tbert.BertConfig.tiny(),
                                                      device="cpu")

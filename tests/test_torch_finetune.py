@@ -105,14 +105,20 @@ def test_custom_optimizer_updates_in_place(start):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(mesh=object()), "A8 partition"),
-    (dict(partitioner=object()), "A8 partition"),
-    (dict(checkpoint_dir="ckpt"), "A8 checkpoint"),
+    (dict(tp=2), "A8 parallel"),
+    (dict(sp=2), "A8 parallel"),
+    (dict(pp=2), "A8 parallel"),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(start, kwargs, item):
+    """mesh=, partitioner= and checkpoint_dir= are ported; a mesh that
+    splits the model (tensor, sequence, pipeline parallelism) raises
+    naming its ROADMAP item."""
+    from sparkdl_torch.partition import make_mesh
+
     _, variables = start
     with pytest.raises(NotImplementedError, match=item):
-        finetune_classifier(_port_model(variables), [], **kwargs)
+        finetune_classifier(_port_model(variables), [], mesh=make_mesh(
+            dp=1, devices=[0, 1], **kwargs))
 
 
 @pytest.mark.parametrize("kwargs", [dict(input_prefetch=2),
@@ -140,3 +146,70 @@ def test_no_readahead_is_the_default(start):
     assert [h["loss"] for h in a] == [h["loss"] for h in b]
     with pytest.raises(ValueError, match="chain_steps"):
         finetune_classifier(_port_model(variables), batches, chain_steps=0)
+
+
+#: caller-supplied optimizers whose fresh state is not all zeros (NAdam's
+#: mu_product starts at 1, a dampened SGD's momentum buffer at the first
+#: gradient), and the default's class
+_OPTIMIZERS = {
+    "nadam": lambda ps: torch.optim.NAdam(ps, lr=1e-3),
+    "sgd_dampened": lambda ps: torch.optim.SGD(ps, lr=0.05, momentum=0.9,
+                                               dampening=0.5),
+    "adamw": lambda ps: torch.optim.AdamW(ps, lr=1e-3, eps=1e-8),
+}
+
+
+def _by_hand(model, optimizer, batches):
+    """The loss of each step a fresh ``optimizer`` takes, written out."""
+    losses = []
+    for b in batches:
+        t = {k: torch.as_tensor(v) for k, v in b.items()}
+        optimizer.zero_grad(set_to_none=True)
+        logits = model(input_ids=t["input_ids"],
+                       attention_mask=t["attention_mask"])
+        loss = torch.nn.functional.cross_entropy(logits.float(),
+                                                 t["labels"].long())
+        loss.backward()
+        optimizer.step()
+        losses.append(float(loss))
+    return losses
+
+
+@pytest.mark.parametrize("name", sorted(_OPTIMIZERS))
+def test_caller_optimizer_steps_from_its_fresh_state(start, name):
+    """The loop makes no optimizer state ahead of the first step: a
+    caller's optimizer takes exactly the steps it takes by hand (bitwise
+    on the CPU, history and final weights)."""
+    data, variables = start
+    batches = list(batches_from_arrays(data, 16))
+    ref = _port_model(variables)
+    want = _by_hand(ref, _OPTIMIZERS[name](ref.parameters()), batches)
+    model = _port_model(variables)
+    _, got = finetune_classifier(
+        model, batches, optimizer=_OPTIMIZERS[name](model.parameters()))
+    assert [h["loss"] for h in got] == want
+    assert all(torch.equal(p, q) for p, q in
+               zip(model.parameters(), ref.parameters()))
+
+
+@pytest.mark.parametrize("name", sorted(_OPTIMIZERS))
+def test_caller_optimizer_resumes_bitwise(start, name, tmp_path):
+    """A resumed run (a new model and optimizer, as a new process makes)
+    restores the optimizer's whole state from the checkpoint: the steps
+    after it are the uninterrupted run's, bitwise on the CPU."""
+    data, variables = start
+    batches = list(batches_from_arrays(data, 16))
+
+    def run(stream, ckpt=None):
+        m = _port_model(variables)
+        _, hist = finetune_classifier(
+            m, stream, optimizer=_OPTIMIZERS[name](m.parameters()),
+            checkpoint_dir=ckpt, checkpoint_every=2)
+        return m, [(h["step"], h["loss"]) for h in hist]
+
+    ref, want = run(batches)
+    run(batches[:2], str(tmp_path))  # saves step 2
+    got_model, got = run(batches, str(tmp_path))
+    assert got == want[2:]
+    assert all(torch.equal(p, q) for p, q in
+               zip(got_model.parameters(), ref.parameters()))

@@ -232,10 +232,21 @@ class TestGlobalRegistry:
 
 
 def test_cross_host_rollup_is_not_ported():
-    from sparkdl_torch.observability.registry import snapshot_across_hosts
+    """The roll-up is ported (ROADMAP A8, TorchRunner): with no process
+    group it is this process's series as mean = min = max
+    (tests/test_torch_runner.py rolls two ranks up)."""
+    from sparkdl_torch.observability.registry import (
+        flatten_snapshot,
+        snapshot_across_hosts,
+    )
 
-    with pytest.raises(NotImplementedError, match="A8 runner"):
-        snapshot_across_hosts()
+    registry().counter("sparkdl_rollup_probe_total").inc(3)
+    agg = snapshot_across_hosts()
+    flat = flatten_snapshot()
+    assert set(agg) <= set(flat)
+    assert agg["sparkdl_rollup_probe_total"]["mean"] == \
+        agg["sparkdl_rollup_probe_total"]["min"] == \
+        flat["sparkdl_rollup_probe_total"]
 
 
 def test_snapshot_and_exposition_match_the_jax_registry():
