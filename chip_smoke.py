@@ -21,6 +21,12 @@ went through its kernels and agrees with a kernel-free run:
   worker process) and ``resumable_finetune`` under a ZeRO
   ``DataParallelPartitioner``, checkpointed every 4 steps, recovering
   from an injected fault bitwise;
+- model parallelism (``parallel/``): a mixture-of-experts GPT-2 small
+  (6 MoE layers of 8 experts) generating through the flash forward and
+  flash decode, one CUDA graph a generate; the ring's fold at L=4096;
+  ``sp_prefill`` over a one-rank NCCL group (``TorchRunner(np=-1)``),
+  each held to the dense path (and, with two or more cards,
+  ``tools/parallel4_probe.py``'s multi-rank checks);
 - the fused ResNet50 train step at 224 px, batch 64 (the fused 1x1-conv
   GEMM + BN-stats kernel), one CUDA graph a step;
 - ``DeepImageFeaturizer``/``DeepImagePredictor`` over ResNet50, Xception,
@@ -2047,6 +2053,333 @@ def phase_train_dp(card: str, bert_step_ms: float) -> dict:
             "step_ms": r["step_ms"], "bare_step_ms": r["bare_step_ms"],
             "save_ms": s["sync_ms"],
             "wait_ms": s["wait_ms"], "restore_ms": s["restore_ms"]}
+
+
+# -- [parallel]: model parallelism (parallel/) on the card ----------------------
+
+MOE_EXPERTS, MOE_EVERY, MOE_K, MOE_CF = 8, 2, 2, 2.0
+MOE_ROWS, MOE_LEN, MOE_NEW = 16, 128, 32
+RING_LEN, RING_SHARDS = 4096, 4
+RING_TOL = 1e-5   # f32 online softmax vs the dense softmax, relative to max|ref|
+
+
+def _moe_config():
+    """GPT-2 small with six mixture-of-experts layers (every second one):
+    8 experts of the dense MLP's shape, top-2, capacity factor 2."""
+    from sparkdl_torch.models.gpt import GPTConfig
+
+    return GPTConfig(positions="learned", attn_impl="flash", flash_decode=True,
+                     num_experts=MOE_EXPERTS, moe_every=MOE_EVERY, moe_k=MOE_K,
+                     moe_capacity_factor=MOE_CF)
+
+
+def _moe_check(card: str) -> dict:
+    """[moe]: the MoE GPT generating through the flash forward and flash
+    decode, the whole generate one CUDA graph, against the eager "full"
+    path's greedy tokens; one forward's logits against "full"; an MoE
+    layer's device time against a dense MLP layer's."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from sparkdl_torch.models.gpt import GPTLMHeadModel, generate, init_gpt_
+    from sparkdl_torch.ops.flash_attention import flash_attention
+    from sparkdl_torch.ops.flash_decode import flash_decode
+    from sparkdl_torch.transformers.text_generator import (
+        GENERATE_GRAPHS,
+        graphed_generate,
+    )
+
+    cfg = _moe_config()
+    full = dataclasses.replace(cfg, attn_impl="full", flash_decode=False)
+    t0 = time.perf_counter()
+    state = init_gpt_(GPTLMHeadModel(cfg, device="cpu"), seed=0).state_dict()
+    init_s = time.perf_counter() - t0
+    mods = {}
+    for name, c in (("flash", cfg), ("full", full)):
+        mods[name] = GPTLMHeadModel(c, device="cuda")
+        mods[name].load_state_dict(state)
+        mods[name].eval()
+    mod = mods["flash"]
+    # parameters beyond the dense model: each MoE layer's experts and
+    # router in place of one dense MLP
+    n_moe = sum(hasattr(blk, "moe_mlp") for blk in mod.h)
+    dense_mlp = sum(p.numel() for p in (*mod.h[0].up.parameters(), *mod.h[0].down.parameters()))
+    extra = sum(p.numel() for n, p in mod.named_parameters() if "moe_mlp" in n) - n_moe * dense_mlp
+
+    rng = np.random.default_rng(11)
+    lens = rng.integers(8, MOE_LEN + 1, MOE_ROWS)
+    ids = torch.zeros((MOE_ROWS, MOE_LEN), dtype=torch.long)
+    mask = torch.zeros((MOE_ROWS, MOE_LEN), dtype=torch.bool)
+    for i, n in enumerate(lens):
+        ids[i, MOE_LEN - n:] = torch.from_numpy(rng.integers(0, cfg.vocab_size, n))
+        mask[i, MOE_LEN - n:] = True
+    ids, mask = ids.cuda(), mask.cuda()
+
+    GENERATE_GRAPHS.clear()
+    captures0 = GENERATE_GRAPHS.captures
+    graphed_generate(mod, ids, mask, MOE_NEW)  # eager, then captured
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    got = graphed_generate(mod, ids, mask, MOE_NEW)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n_attn, n_dec = flash_attention.launches, flash_decode.launches
+    layers = cfg.num_layers
+    failures = []
+    if GENERATE_GRAPHS.captures != captures0 + 1:
+        failures.append(f"{GENERATE_GRAPHS.captures - captures0} captures, want 1")
+    if n_attn != layers or n_dec != layers * (MOE_NEW - 1):
+        failures.append(f"launches flash_attention {n_attn} (want {layers}), flash_decode "
+                        f"{n_dec} (want {layers * (MOE_NEW - 1)})")
+    want = generate(mods["full"], ids, MOE_NEW, attention_mask=mask)
+    same_rows = int((got == want).all(dim=1).sum())
+    if same_rows != MOE_ROWS:
+        failures.append(f"greedy tokens differ from the eager 'full' path in "
+                        f"{MOE_ROWS - same_rows} rows")
+    plain_ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (MOE_ROWS, MOE_LEN))).cuda()
+    with torch.inference_mode():
+        logits = {n: m(plain_ids)[0] for n, m in mods.items()}
+    _, logit_rel = _rel_err(logits["flash"], logits["full"])
+    if not torch.isfinite(logits["flash"]).all() or logit_rel > LOGIT_TOL:
+        failures.append(f"forward logits vs 'full': rel err {logit_rel:.3e} (tol {LOGIT_TOL})")
+    if failures:
+        raise AssertionError("[moe] " + "; ".join(failures))
+
+    h = torch.randn((MOE_ROWS, MOE_LEN, cfg.hidden_size), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1))
+    moe_blk, dense_blk = mod.h[MOE_EVERY - 1].moe_mlp, mod.h[0]
+    with torch.inference_mode():
+        moe_ms = _device_ms(lambda: moe_blk(h), calls=10)
+        dense_ms = _device_ms(lambda: dense_blk.down(F.gelu(dense_blk.up(h), approximate="tanh")),
+                              calls=10)
+    tokens_s = MOE_ROWS * MOE_NEW / secs
+    print(f"[moe] {card}: GPT-2 small ({layers}x{cfg.hidden_size}, {cfg.num_heads} heads, "
+          f"learned positions, float32, random init seed 0 in {init_s:.1f} s) with "
+          f"{n_moe} MoE layers (every {MOE_EVERY}nd: {MOE_EXPERTS} experts, top-{MOE_K}, "
+          f"capacity factor {MOE_CF}; {extra / 1e6:.1f} M parameters more than dense), "
+          f"attn_impl='flash', flash_decode; B={MOE_ROWS} left-padded prompts of "
+          f"{int(lens.min())}..{int(lens.max())} tokens, {MOE_NEW} greedy tokens, the whole "
+          f"generate one CUDA graph: {tokens_s:.1f} tokens/s (a replay, {secs * 1e3:.1f} ms); "
+          f"launches flash_attention {n_attn} = {layers} layers x 1 prefill, flash_decode "
+          f"{n_dec} = {layers} x {MOE_NEW - 1}; tokens equal to eager attn_impl='full' in "
+          f"{same_rows}/{MOE_ROWS} rows; forward logits rel err {logit_rel:.2e} (tol "
+          f"{LOGIT_TOL}); device ms at [{MOE_ROWS}, {MOE_LEN}, {cfg.hidden_size}]: MoE layer "
+          f"{moe_ms:.3f} (capacity {moe_blk.capacity(MOE_LEN)} a group), dense MLP layer "
+          f"{dense_ms:.3f} ({moe_ms / dense_ms:.2f}x)")
+    GENERATE_GRAPHS.clear()
+    del mods, mod
+    torch.cuda.empty_cache()
+    return {"tokens_s": tokens_s, "attn_launches": n_attn, "decode_launches": n_dec,
+            "moe_ms": moe_ms, "dense_ms": dense_ms}
+
+
+def _ring_arithmetic() -> dict:
+    """The ring's fold at GPT-2-small width, B=1, L=4096, causal, on one
+    card: each of RING_SHARDS query shards folds the K/V shards in the
+    order its rank would receive them (its own first), against the dense
+    causal softmax; and the all-gather schedule's per-shard products
+    against the whole sequence's rows (does cuBLAS round a block of rows
+    as it rounds them inside the whole?)."""
+    import torch
+    import torch.nn.functional as F
+
+    from sparkdl_torch.ops.flash_attention import NEG_INF
+    from sparkdl_torch.parallel.ring_attention import _block_attend
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((1, RING_LEN, HEADS, HEAD_DIM), device="cuda", generator=g)
+               for _ in range(3))
+    scale = HEAD_DIM ** -0.5
+    n = RING_LEN // RING_SHARDS
+
+    def dense(qs, q0):
+        s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float()) / math.sqrt(HEAD_DIM)
+        q_pos = q0 + torch.arange(qs.shape[1], device="cuda")
+        keep = torch.arange(RING_LEN, device="cuda")[None, :] <= q_pos[:, None]
+        p = torch.softmax(torch.where(keep[None, None], s, NEG_INF), dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
+
+    def ring():
+        outs = []
+        for r in range(RING_SHARDS):
+            qs = q[:, r * n:(r + 1) * n]
+            o = torch.zeros_like(qs)
+            m = torch.full((1, HEADS, n), NEG_INF, device="cuda")
+            l = torch.zeros((1, HEADS, n), device="cuda")
+            for hop in range(RING_SHARDS):
+                owner = (r - hop) % RING_SHARDS
+                o, m, l = _block_attend(
+                    qs, k[:, owner * n:(owner + 1) * n], v[:, owner * n:(owner + 1) * n],
+                    o, m, l, q_offset=r * n, k_offset=owner * n, causal=True, scale=scale)
+            outs.append(o / l.clamp_min(1e-30).transpose(1, 2)[..., None])
+        return torch.cat(outs, dim=1)
+
+    with torch.inference_mode():
+        ref = dense(q, 0)
+        got = ring()
+        err, rel = _rel_err(got, ref)
+        shards = [dense(q[:, r * n:(r + 1) * n], r * n) for r in range(RING_SHARDS)]
+        attn_diff = max((s - ref[:, r * n:(r + 1) * n]).abs().max().item()
+                        for r, s in enumerate(shards))
+        # GPT-2 small's products (in, out): q/k/v/out_proj, up, down, and a
+        # fused q/k/v
+        lin_diff = {}
+        for din, dout in ((768, 768), (768, 3072), (3072, 768), (768, 2304)):
+            w = torch.randn((dout, din), device="cuda", generator=g) * din ** -0.5
+            x = torch.randn((1, RING_LEN, din), device="cuda", generator=g)
+            whole = F.linear(x, w)
+            lin_diff[f"{din}x{dout}"] = max(
+                (F.linear(x[:, r * n:(r + 1) * n], w) - whole[:, r * n:(r + 1) * n])
+                .abs().max().item() for r in range(RING_SHARDS))
+        ring_ms = _time_ms(ring, warmup=1, reps=3)
+        dense_ms = _time_ms(lambda: dense(q, 0), warmup=1, reps=3)
+    if not torch.isfinite(got).all() or rel > RING_TOL:
+        raise AssertionError(f"[ring] the fold vs dense attention: rel err {rel:.3e} "
+                             f"(tol {RING_TOL})")
+    return {"err": err, "rel": rel, "attn_diff": attn_diff, "lin_diff": lin_diff,
+            "ring_ms": ring_ms, "dense_ms": dense_ms}
+
+
+def parallel_worker(seed: int = 0) -> dict:
+    """Rank body of [ring] (one NCCL rank): allgather_self_attention over
+    the process group's sp axis against the dense path, then sp_prefill of
+    a 4096-token prompt through GPT-2 small with RoPE under each sp_mode
+    against the "full" forward, and 32 greedy tokens from its cache
+    against plain generate's."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from sparkdl_torch.models.gpt import (
+        GPTConfig,
+        GPTLMHeadModel,
+        generate,
+        generate_from_cache,
+        init_gpt_,
+        sp_prefill,
+    )
+    from sparkdl_torch.parallel.ring_attention import allgather_self_attention
+    from sparkdl_torch.partition import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(dp=1, sp=dist.get_world_size())
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((2, 512, HEADS, HEAD_DIM), device="cuda", generator=g)
+               for _ in range(3))
+    with torch.inference_mode():
+        got = allgather_self_attention(q, k, v, causal=True, mesh=mesh)
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(HEAD_DIM)
+        keep = torch.ones((512, 512), dtype=torch.bool, device="cuda").tril()
+        from sparkdl_torch.ops.flash_attention import NEG_INF
+
+        want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(
+            torch.where(keep, s, NEG_INF), dim=-1), v)
+    out["allgather_bitwise"] = bool(torch.equal(got, want))
+    cfg = GPTConfig()  # GPT-2 small widths, RoPE
+    state = init_gpt_(GPTLMHeadModel(cfg, device="cpu"), seed=seed).state_dict()
+    plain = GPTLMHeadModel(cfg, device="cuda")
+    plain.load_state_dict(state)
+    plain.eval()
+    ids = torch.randint(0, cfg.vocab_size, (1, RING_LEN), device="cuda", generator=g)
+    with torch.inference_mode():
+        full = plain(ids)[0]
+    want_toks = generate(plain, ids, GEN_NEW)[:, RING_LEN:]
+    for mode in ("allgather", "ring"):
+        model = GPTLMHeadModel(dataclasses.replace(cfg, attn_impl="ring", sp_mode=mode),
+                               device="cuda")
+        model.load_state_dict(state)
+        model.eval()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = sp_prefill(model, ids, mesh)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        toks = generate_from_cache(model, logits, cache, GEN_NEW)
+        err, rel = _rel_err(logits, full)
+        out[mode] = {"bitwise": bool(torch.equal(logits, full)), "err": err, "rel": rel,
+                     "tokens_equal": bool(torch.equal(toks, want_toks)), "ms": ms,
+                     "finite": bool(torch.isfinite(logits).all()),
+                     "cache": list(cache["k"].shape)}
+        del model, logits, cache
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_parallel(card: str, attn_entry: dict, decode_entry: dict) -> dict:
+    """[parallel]: model parallelism on the card. [moe] generates with a
+    mixture-of-experts GPT-2 small through both flash kernels; [ring]
+    checks the ring's fold at full width, the all-gather schedule's
+    products, and sp_prefill over a one-rank NCCL group
+    (TorchRunner(np=-1)); with two or more cards, tools/parallel4_probe.py's
+    multi-rank checks run too."""
+    import torch
+
+    import chip_smoke as this  # by reference: the rank imports it
+    from sparkdl_torch import TorchRunner
+
+    t_all = time.perf_counter()
+    moe = _moe_check(card)
+    attn_entry["moe_launches"] = moe["attn_launches"]
+    decode_entry["moe_launches"] = moe["decode_launches"]
+
+    t0 = time.perf_counter()
+    arith = _ring_arithmetic()
+    r = TorchRunner(np=-1, local_platform="cuda", timeout_s=600).run(
+        this.parallel_worker, seed=0)
+    failures = []
+    if not r["allgather_bitwise"]:
+        failures.append("allgather_self_attention over the one-rank group differs from "
+                        "the dense path")
+    for mode in ("allgather", "ring"):
+        m = r[mode]
+        if not m["finite"] or m["rel"] > LOGIT_TOL:
+            failures.append(f"sp_prefill {mode} logits rel err {m['rel']:.3e} (tol {LOGIT_TOL})")
+        if not m["tokens_equal"]:
+            failures.append(f"{GEN_NEW} greedy tokens after sp_prefill {mode} differ from "
+                            "plain generate's")
+    if not r["allgather"]["bitwise"]:
+        failures.append("sp_prefill allgather logits not bitwise the 'full' forward's")
+    if failures:
+        raise AssertionError("[ring] " + "; ".join(failures))
+    print(f"[ring] {card}: the ring's fold (_block_attend) at GPT-2-small width, B=1 "
+          f"L={RING_LEN} causal, {RING_SHARDS} shards folded in ring order (own first, "
+          f"the causal future's shards adding exp(-1e30 - m) = 0): max abs err "
+          f"{arith['err']:.2e}, rel {arith['rel']:.2e} of the dense softmax (tol "
+          f"{RING_TOL}), {arith['ring_ms']:.2f} ms for the 16 block folds vs "
+          f"{arith['dense_ms']:.2f} ms dense (both plain torch on one card); the "
+          f"all-gather schedule's products for a shard of L/{RING_SHARDS} rows vs the same "
+          f"rows of the whole: attention max diff {arith['attn_diff']:.3e}; a linear "
+          f"layer's [{RING_LEN // RING_SHARDS} x in]x[in x out] max diff "
+          + ", ".join(f"{k} {v:.3e}" for k, v in arith["lin_diff"].items())
+          + " (0 = bitwise: cuBLAS may pick another algorithm for another row count)")
+    print(f"[ring] TorchRunner(np=-1) -> one {r['backend']} rank: allgather_self_attention "
+          f"over its sp axis bitwise the dense path {r['allgather_bitwise']}; sp_prefill of a "
+          f"{RING_LEN}-token prompt, GPT-2 small with RoPE (float32, seed 0): allgather "
+          f"bitwise the 'full' forward {r['allgather']['bitwise']} ({r['allgather']['ms']:.1f} "
+          f"ms host wall), ring rel err {r['ring']['rel']:.2e} ({r['ring']['ms']:.1f} ms); "
+          f"cache {r['allgather']['cache']}; {GEN_NEW} greedy tokens from each cache equal to "
+          f"plain generate's: allgather {r['allgather']['tokens_equal']}, ring "
+          f"{r['ring']['tokens_equal']}; {time.perf_counter() - t0:.1f} s")
+    count = torch.cuda.device_count()
+    if count >= 2:
+        sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+        import parallel4_probe
+
+        parallel4_probe.run_checks(card, np=min(4, count))
+    else:
+        print(f"[parallel] {count} card: a world of one rank (sp, tp, ep and pp of 1, every "
+              "collective a no-op); the multi-rank checks need two or more cards "
+              "(tools/parallel4_probe.py on four)")
+    print(f"[parallel] {time.perf_counter() - t_all:.1f} s")
+    return {"moe_tokens_s": moe["tokens_s"], "moe_ms": moe["moe_ms"],
+            "dense_ms": moe["dense_ms"], "ring_rel": arith["rel"]}
 
 
 def phase_train_resnet(card: str, gemm_entry: dict) -> float:
@@ -4306,6 +4639,7 @@ def main() -> int:
     tokens_s = phase_generate(card, attn, decode)
     examples_s, bert_step_ms = phase_train_bert(card, dq, dkv, bert_fwd)
     train_dp = phase_train_dp(card, bert_step_ms)
+    parallel = phase_parallel(card, attn, decode)
     train_images_s = phase_train_resnet(card, gemm)
     zoo_rates = phase_zoo(card)
     zoo_bf16 = phase_zoo_bf16(card, stem, attn)
@@ -4343,7 +4677,9 @@ def main() -> int:
                       f"{t['bound_ms']:.4f})" for dt, t in tiers.items()))
     print(f"[summary] {card}: featurizer {images_s:.1f} images/s; generator "
           f"{tokens_s:.1f} tokens/s; BERT-base fine-tune {examples_s:.1f} examples/s; "
-          f"ResNet50 training {train_images_s:.1f} images/s; [train_dp] BERT-base "
+          f"ResNet50 training {train_images_s:.1f} images/s; MoE GPT-2 small "
+          f"{parallel['moe_tokens_s']:.1f} tokens/s (an MoE layer {parallel['moe_ms']:.3f} "
+          f"ms vs a dense MLP {parallel['dense_ms']:.3f}); [train_dp] BERT-base "
           f"through TorchRunner/finetune_classifier with checkpoints every "
           f"{TRAIN_DP_EVERY} steps {train_dp['loop_examples_s']:.1f} examples/s over the "
           f"whole call (saves included); step-only {train_dp['examples_s']:.1f} "

@@ -20,9 +20,15 @@ caller may pass (``generator=``; the device's default generator
 otherwise), so a seed gives the same bits. The JAX fine-tune path runs
 its forward with ``train=False``, as ``finetune_classifier`` does.
 
-The JAX module's tensor-parallel projections are plain ``nn.Linear``
-here. Not ported yet, and raising where asked for: ring attention and
-tensor parallelism (ROADMAP A8 parallel).
+``"ring"`` (``parallel/ring_attention``): attention over a sequence
+split on the ``sp_axis`` of the mesh, the key mask riding the ring with
+its block; under it ``position_ids`` default to the shard's global
+positions, and attention-probs dropout is skipped as under ``flash``.
+Under a mesh (``mesh=``, default the ambient ``mesh_context``) whose
+``tp`` axis is larger than 1, query/key/value and ``intermediate`` are
+column-parallel and ``output_dense`` and ``output`` row-parallel
+(``parallel/tensor_parallel``), as the JAX module annotates them: each
+rank holds ``num_attention_heads/tp`` heads.
 """
 
 from __future__ import annotations
@@ -38,8 +44,10 @@ import torch.nn.functional as F
 
 from sparkdl_torch.ops._dispatch import resolve_device
 from sparkdl_torch.ops.flash_attention import NEG_INF, flash_attention
-
-_NOT_PORTED = "not ported to sparkdl_torch yet (ROADMAP {item})"
+from sparkdl_torch.parallel.collectives import axis_group
+from sparkdl_torch.parallel.ring_attention import ring_self_attention
+from sparkdl_torch.parallel.tensor_parallel import dense_pair, shared_input, tp_size
+from sparkdl_torch.runtime.mesh import Mesh, current_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +62,8 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     hidden_dropout_prob: float = 0.1
     attention_probs_dropout_prob: float = 0.1
-    #: "full" | "flash" (hand-written CUDA kernels) | "ring" (not ported)
+    #: "full" | "flash" (hand-written CUDA kernels) | "ring" (the
+    #: sequence split over ``sp_axis``)
     attn_impl: str = "full"
     sp_axis: str = "sp"
     dtype: Any = torch.float32
@@ -114,37 +123,46 @@ class BertEmbeddings(nn.Module):
 
 
 class BertSelfAttention(nn.Module):
-    def __init__(self, config: BertConfig, device=None):
+    def __init__(self, config: BertConfig, device=None,
+                 mesh: "Mesh | None" = None):
         super().__init__()
         self.config = config
+        self.mesh = mesh
+        self.heads = config.num_attention_heads // tp_size(mesh)
         h = config.hidden_size
-        kw = dict(device=device, dtype=config.dtype)
-        self.query = nn.Linear(h, h, **kw)
-        self.key = nn.Linear(h, h, **kw)
-        self.value = nn.Linear(h, h, **kw)
-        self.output_dense = nn.Linear(h, h, **kw)
+        column, row = dense_pair(mesh, device=device, dtype=config.dtype)
+        # q, k and v read one input: one gradient all-reduce for the three
+        self.query = column(h, h, copy_input=False)
+        self.key = column(h, h, copy_input=False)
+        self.value = column(h, h, copy_input=False)
+        self.output_dense = row(h, h)
         self.dropout = Dropout(config.attention_probs_dropout_prob)
 
     def forward(self, x, attention_mask: Optional[torch.Tensor], *,
                 train: bool = False, generator=None):
         c = self.config
-        nh = c.num_attention_heads
-        hd = c.hidden_size // nh
+        nh = self.heads
+        hd = c.hidden_size // c.num_attention_heads
         b, l = x.shape[0], x.shape[1]
-        q, k, v = (p(x).view(b, l, nh, hd)
+        xs = shared_input(x, self.query)
+        q, k, v = (p(xs).view(b, l, nh, hd)
                    for p in (self.query, self.key, self.value))
-        if c.attn_impl == "flash":
+        if c.attn_impl in ("flash", "ring"):
             if train and c.attention_probs_dropout_prob > 0:
-                # the kernels never form the probability matrix, so
-                # attention-probs dropout cannot apply (the usual
-                # flash-attention trade-off)
+                # the kernels and the ring's online softmax never form the
+                # probability matrix, so attention-probs dropout cannot
+                # apply (the usual flash-attention trade-off)
                 warnings.warn(
                     f"attn_impl={c.attn_impl!r} skips attention-probs "
                     f"dropout (p={c.attention_probs_dropout_prob}); set "
                     "attention_probs_dropout_prob=0 to silence",
                     stacklevel=2,
                 )
+        if c.attn_impl == "flash":
             ctx = flash_attention(q, k, v, attention_mask)
+        elif c.attn_impl == "ring":
+            ctx = ring_self_attention(q, k, v, attention_mask,
+                                      axis_name=c.sp_axis, mesh=self.mesh)
         else:
             s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(hd)
             if attention_mask is not None:
@@ -152,19 +170,21 @@ class BertSelfAttention(nn.Module):
             p = torch.softmax(s, dim=-1).to(c.dtype)
             p = self.dropout(p, train=train, generator=generator)
             ctx = torch.einsum("bhqk,bkhd->bqhd", p, v)
-        return self.output_dense(ctx.reshape(b, l, c.hidden_size))
+        return self.output_dense(ctx.reshape(b, l, nh * hd))
 
 
 class BertLayer(nn.Module):
-    def __init__(self, config: BertConfig, device=None):
+    def __init__(self, config: BertConfig, device=None,
+                 mesh: "Mesh | None" = None):
         super().__init__()
         c = config
         kw = dict(device=device, dtype=c.dtype)
-        self.attention = BertSelfAttention(c, device=device)
+        self.attention = BertSelfAttention(c, device=device, mesh=mesh)
         self.attention_LayerNorm = nn.LayerNorm(c.hidden_size,
                                                 eps=c.layer_norm_eps, **kw)
-        self.intermediate = nn.Linear(c.hidden_size, c.intermediate_size, **kw)
-        self.output = nn.Linear(c.intermediate_size, c.hidden_size, **kw)
+        column, row = dense_pair(mesh, device=device, dtype=c.dtype)
+        self.intermediate = column(c.hidden_size, c.intermediate_size)
+        self.output = row(c.intermediate_size, c.hidden_size)
         self.output_LayerNorm = nn.LayerNorm(c.hidden_size,
                                              eps=c.layer_norm_eps, **kw)
         self.dropout = Dropout(c.hidden_dropout_prob)
@@ -187,22 +207,28 @@ class BertModel(nn.Module):
     pooled [B, H] or None without the pooler). ``attention_mask`` [B, L]:
     nonzero = a real token. Parameters are created on ``device`` with
     torch's default init; use :func:`init_bert_` for Flax's, or load a
-    converted state dict.
+    converted state dict (a rank's slice of one under a ``tp`` mesh:
+    ``convert.shard_state_dict``). ``mesh``: where the ring and the
+    tensor-parallel layers find their axes (default the ambient
+    ``mesh_context``).
     """
 
     def __init__(self, config: BertConfig, add_pooler: bool = True, *,
-                 device="cuda"):
+                 device="cuda", mesh: "Mesh | None" = None):
         super().__init__()
-        if config.attn_impl == "ring":
-            raise NotImplementedError(
-                "attn_impl='ring' (sequence-parallel attention) is "
-                + _NOT_PORTED.format(item="A8"))
-        if config.attn_impl not in ("full", "flash"):
+        if config.attn_impl not in ("full", "flash", "ring"):
             raise ValueError(f"unknown attn_impl {config.attn_impl!r}")
+        mesh = mesh if mesh is not None else current_mesh()
+        tp = tp_size(mesh)
+        if config.num_attention_heads % tp:
+            raise ValueError(
+                f"num_attention_heads {config.num_attention_heads} is not "
+                f"divisible by the {tp}-way tp axis")
         dev = resolve_device(device)
         self.config = config
+        self.mesh = mesh
         self.embeddings = BertEmbeddings(config, device=dev)
-        self.layer = nn.ModuleList(BertLayer(config, device=dev)
+        self.layer = nn.ModuleList(BertLayer(config, device=dev, mesh=mesh)
                                    for _ in range(config.num_hidden_layers))
         self.pooler = (nn.Linear(config.hidden_size, config.hidden_size,
                                  device=dev, dtype=config.dtype)
@@ -214,7 +240,11 @@ class BertModel(nn.Module):
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         if position_ids is None:
-            position_ids = torch.arange(l, device=input_ids.device).expand(b, l)
+            start = 0
+            if self.config.attn_impl == "ring":  # this shard's global positions
+                start = axis_group(self.config.sp_axis, self.mesh).index * l
+            position_ids = (start + torch.arange(
+                l, device=input_ids.device)).expand(b, l)
         mask = None if attention_mask is None else attention_mask.bool()
         x = self.embeddings(input_ids, token_type_ids, position_ids,
                             train=train, generator=generator)
@@ -230,11 +260,11 @@ class BertForSequenceClassification(nn.Module):
     """Fine-tune head: pooled [CLS] -> logits [B, num_labels]."""
 
     def __init__(self, config: BertConfig, num_labels: int = 2, *,
-                 device="cuda"):
+                 device="cuda", mesh: "Mesh | None" = None):
         super().__init__()
         self.config = config
         self.num_labels = num_labels
-        self.bert = BertModel(config, device=device)
+        self.bert = BertModel(config, device=device, mesh=mesh)
         self.classifier = nn.Linear(config.hidden_size, num_labels,
                                     device=resolve_device(device),
                                     dtype=config.dtype)

@@ -127,9 +127,13 @@ def torch_to_flax(state_dict: dict) -> dict:
 #   h_{i} / attn / {q,k,v,out}_proj     h.{i}.attn.{q,k,v,out}_proj
 #   h_{i} / up|down                     h.{i}.up|down
 #     kernel [in, out] | bias             .weight [out, in] | .bias
+#   h_{i} / moe_mlp / router / kernel   h.{i}.moe_mlp.router.weight [E, M]
+#   h_{i} / moe_mlp / wi|wo             h.{i}.moe_mlp.wi|wo (as they are:
+#                                         [E, M, H] and [E, H, M])
 
 _GPT_MODULE = re.compile(
-    r"^(wte|wpe|ln_f|h_(\d+)/(ln_1|ln_2|attn/(q|k|v|out)_proj|up|down))$")
+    r"^(wte|wpe|ln_f|h_(\d+)/(ln_1|ln_2|attn/(q|k|v|out)_proj|up|down|"
+    r"moe_mlp(/router)?))$")
 _GPT_FIELDS = {"embedding": ("weight",), "scale": ("weight", "bias"),
                "kernel": ("weight", "bias")}
 
@@ -162,13 +166,23 @@ def gpt_flax_to_torch(variables: dict,
         by_module.setdefault(mod, {})[field] = leaf
     out: dict[str, torch.Tensor] = {}
     for mod, fields in sorted(by_module.items()):
+        key = re.sub(r"^h_(\d+)", r"h.\1", mod).replace("/", ".")
+        if mod.endswith("moe_mlp") or mod.endswith("moe_mlp/router"):
+            want = {"kernel"} if mod.endswith("router") else {"wi", "wo"}
+            if set(fields) != want:
+                raise ValueError(f"{mod}: fields {sorted(fields)} are not {sorted(want)}")
+            for name, a in fields.items():
+                a = np.asarray(a, dtype=np.float32)
+                field = "weight" if name == "kernel" else name
+                out[f"{key}.{field}"] = torch.from_numpy(
+                    np.array(a.T if name == "kernel" else a, order="C"))
+            continue
         kind = next((f for f in _GPT_FIELDS if f in fields), None)
         want = {"embedding"} if kind == "embedding" else {kind, "bias"}
         if kind is None or set(fields) != want:
             raise ValueError(
                 f"{mod}: fields {sorted(fields)} are not one of "
                 "{embedding}, {scale, bias}, {kernel, bias}")
-        key = re.sub(r"^h_(\d+)", r"h.\1", mod).replace("/", ".")
         w = np.asarray(fields[kind], dtype=np.float32)
         out[f"{key}.weight"] = torch.from_numpy(
             np.array(w.T if kind == "kernel" else w, order="C"))
@@ -193,10 +207,13 @@ def gpt_torch_to_flax(state_dict: dict) -> dict:
     for key, v in state_dict.items():
         mod, _, field = key.rpartition(".")
         path = re.sub(r"^h\.(\d+)", r"h_\1", mod).replace(".", "/")
-        if not _GPT_MODULE.match(path) or field not in ("weight", "bias"):
+        moe = path.endswith("moe_mlp") and field in ("wi", "wo")
+        if not _GPT_MODULE.match(path) or not (moe or field in ("weight", "bias")):
             raise ValueError(f"unknown GPT parameter {key!r}")
         a = v.detach().cpu().float().numpy()
-        if field == "bias":
+        if moe:
+            name = field
+        elif field == "bias":
             name = "bias"
         elif path in ("wte", "wpe"):
             name = "embedding"
@@ -396,3 +413,42 @@ def vit_torch_to_flax(state_dict: dict) -> dict:
             node = node.setdefault(part, {})
         node[name] = np.ascontiguousarray(a)
     return {"params": params}
+
+
+# ---------------------------------------------------------------------------
+# one rank's slice of a whole state dict, under a mesh
+# ---------------------------------------------------------------------------
+
+def shard_state_dict(state: dict, module: "torch.nn.Module",
+                     rules: "tuple | None" = None) -> dict:
+    """The slice of the whole ``state`` dict (as :func:`gpt_flax_to_torch`
+    or :func:`bert_flax_to_torch` give it) that this rank's ``module``
+    holds: each parameter its tensor-parallel layers hold split over
+    ``tp``, or its expert stacks over ``ep`` (``parallel.tensor_parallel.
+    split_params``), cut to this rank's coordinate on that axis of the
+    module's mesh; everything else whole. ``rules`` (a partition rule
+    table, ``partition/rules.py``), where given, must name that axis on
+    that dim for every split parameter: a layout the table does not
+    describe raises. Every layout of a mesh loads the same weights so."""
+    from sparkdl_torch.parallel.tensor_parallel import split_params
+    from sparkdl_torch.partition.rules import match_partition_rules
+
+    split = split_params(module)
+    specs = (match_partition_rules(rules, state, count_hits=False)
+             if rules is not None else {})
+    out = {}
+    for name, t in state.items():
+        if name not in split:
+            out[name] = t
+            continue
+        axis, dim, mesh = split[name]
+        spec = tuple(specs.get(name, ())) if rules is not None else None
+        if spec is not None and (dim >= len(spec) or axis not in (
+                spec[dim] if isinstance(spec[dim], (tuple, list)) else (spec[dim],))):
+            raise ValueError(
+                f"{name!r} is split on dim {dim} over {axis!r}, which the "
+                f"rule table's spec {spec!r} does not name")
+        n = mesh.shape[axis]
+        rows = t.shape[dim] // n
+        out[name] = t.narrow(dim, mesh.coordinate(axis) * rows, rows).contiguous()
+    return out

@@ -27,9 +27,30 @@ causal mask. :func:`init_block_pool`, :func:`quantize_kv` and
 applies ``config.dropout`` at the reference's sites (the embeddings, the
 attention probabilities of the uncached ``full`` path, and the attention
 and MLP outputs before their residual adds), with masks from an explicit
-``torch.Generator`` (``generator=``). Not ported yet, and raising where
-asked for: ring attention and mixture-of-experts MLPs, ``return_kv`` and
-``sp_prefill`` (ROADMAP A8 parallel).
+``torch.Generator`` (``generator=``).
+
+Model parallelism (``parallel/``), as the reference's config asks for it:
+
+- ``"ring"``: the uncached forward's attention over a sequence split
+  on the ``sp_axis`` of the mesh, by ``sp_mode``: ``"ring"`` rotates the
+  K/V blocks (exact up to float summation order), ``"allgather"``
+  gathers them once and runs the ``"full"`` path's operations on the
+  local queries. Positions default to the shard's global ones (its
+  ``sp`` index times its length, onward), which the ring's causal
+  offsets assume; the cached paths run the dense masked path.
+  :func:`sp_prefill` runs a prompt so, split over ``sp``, and returns an
+  :func:`init_cache`-shaped cache that :func:`generate_from_cache`
+  decodes from on every rank.
+- ``return_kv=True``: an uncached forward also returns its post-RoPE K/V
+  stacked over layers (``{"k", "v", "idx"}``).
+- ``num_experts > 0``: every layer with ``layer_idx % moe_every ==
+  moe_every - 1`` runs ``parallel.MoEMlpBlock`` (``moe_k``,
+  ``moe_capacity_factor``; its experts split over ``ep``) in place of
+  the dense MLP, on every path, the graphed ``generate`` included.
+- A mesh (``mesh=``, default the ambient ``mesh_context``) whose ``tp``
+  axis is larger than 1 builds q/k/v and ``up`` column-parallel and
+  ``out_proj`` and ``down`` row-parallel: each rank holds
+  ``num_heads/tp`` heads, and its KV cache those heads only.
 """
 
 from __future__ import annotations
@@ -46,8 +67,14 @@ from sparkdl_torch.models.bert import Dropout
 from sparkdl_torch.ops._dispatch import resolve_device
 from sparkdl_torch.ops.flash_attention import NEG_INF, flash_attention
 from sparkdl_torch.ops.flash_decode import flash_decode
-
-_NOT_PORTED = "not ported to sparkdl_torch yet (ROADMAP {item})"
+from sparkdl_torch.parallel.collectives import axis_group, gather_replicated
+from sparkdl_torch.parallel.expert_parallel import MoEMlpBlock
+from sparkdl_torch.parallel.ring_attention import (
+    allgather_self_attention,
+    ring_self_attention,
+)
+from sparkdl_torch.parallel.tensor_parallel import dense_pair, shared_input, tp_size
+from sparkdl_torch.runtime.mesh import Mesh, current_mesh, mesh_context
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,13 +90,16 @@ class GPTConfig:
     rope_base: float = 10000.0
     layer_norm_eps: float = 1e-5
     dropout: float = 0.0
-    #: "full" | "flash" (hand-written CUDA kernels) | "ring" (not ported)
+    #: "full" | "flash" (hand-written CUDA kernels) | "ring" (split over
+    #: ``sp_axis``: the uncached forward only)
     attn_impl: str = "full"
     #: the ops/flash_decode kernel for the single-token cached step
     flash_decode: bool = False
     sp_axis: str = "sp"
+    #: the ring's collective schedule: "ring" (K/V blocks rotate, online
+    #: softmax) or "allgather" (K/V gathered once, the full path's ops)
     sp_mode: str = "ring"
-    #: 0 = dense MLPs; >0 = mixture of experts (not ported)
+    #: 0 = dense MLPs; >0 = mixture of experts on every moe_every-th layer
     num_experts: int = 0
     moe_every: int = 2
     moe_k: int = 2
@@ -108,16 +138,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def init_cache(config: GPTConfig, batch: int, max_len: int,
-               per_slot: bool = False, *, device="cuda") -> dict:
+               per_slot: bool = False, *, device="cuda",
+               num_heads: Optional[int] = None) -> dict:
     """Zeroed KV cache for :func:`generate` / incremental decode:
     ``k``/``v`` ``[num_layers, B, max_len, H, D]`` on ``device`` and
     ``idx``, the number of positions written: a host int 0, or with
     ``per_slot=True`` an int32 ``[B]`` tensor of zeros on ``device``
     (continuous batching: every row, a serving slot, decodes at its own
     depth). Forward calls write their keys/values in place and advance
-    ``idx`` (the tensor in place)."""
+    ``idx`` (the tensor in place). ``num_heads``: the heads a rank
+    holds, ``config.num_heads / tp`` under tensor parallelism
+    (``GPTLMHeadModel.local_heads``); default all of them."""
     hd = config.hidden_size // config.num_heads
-    shape = (config.num_layers, batch, max_len, config.num_heads, hd)
+    heads = config.num_heads if num_heads is None else num_heads
+    shape = (config.num_layers, batch, max_len, heads, hd)
     dev = resolve_device(device)
     return {
         "k": torch.zeros(shape, dtype=config.dtype, device=dev),
@@ -204,11 +238,6 @@ def write_columns(buf: torch.Tensor, new: torch.Tensor,
     buf[rows, cols] = torch.where(keep, new.to(buf.dtype), buf[rows, cols])
 
 
-def sp_prefill(*args, **kwargs):
-    raise NotImplementedError("sequence-parallel prefill is "
-                              + _NOT_PORTED.format(item="A8"))
-
-
 def _default_positions(idx, b: int, l: int, device) -> torch.Tensor:
     """[B, L] positions counting from the cache depth: a host int shared
     by every row, or each row's own (a per-slot ``[B]`` tensor)."""
@@ -237,29 +266,42 @@ def _dense_attention(q, k, v, keep, dropout=None):
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
+def _ring_positions(mesh, axis: str, b: int, l: int, device) -> torch.Tensor:
+    """[B, L] global positions of this rank's shard of a sequence split
+    contiguously over ``axis``."""
+    ag = axis_group(axis, mesh)
+    return (ag.index * l + torch.arange(l, device=device)).expand(b, l)
+
+
 class GPTAttention(nn.Module):
-    def __init__(self, config: GPTConfig, layer_idx: int, device=None):
+    def __init__(self, config: GPTConfig, layer_idx: int, device=None,
+                 mesh: "Mesh | None" = None):
         super().__init__()
         self.config = config
         self.layer_idx = layer_idx
+        self.mesh = mesh
         h = config.hidden_size
-        kw = dict(device=device, dtype=config.dtype)
-        self.q_proj = nn.Linear(h, h, **kw)
-        self.k_proj = nn.Linear(h, h, **kw)
-        self.v_proj = nn.Linear(h, h, **kw)
-        self.out_proj = nn.Linear(h, h, **kw)
+        self.heads = config.num_heads // tp_size(mesh)
+        column, row = dense_pair(mesh, device=device, dtype=config.dtype)
+        # q, k and v read one input: one gradient all-reduce for the three
+        self.q_proj = column(h, h, copy_input=False)
+        self.k_proj = column(h, h, copy_input=False)
+        self.v_proj = column(h, h, copy_input=False)
+        self.out_proj = row(h, h)
         self.dropout = Dropout(config.dropout)
 
     def forward(self, x, *, cache: Optional[dict] = None,
                 positions: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
                 start: Optional[torch.Tensor] = None,
+                kv_sink: Optional[list] = None,
                 train: bool = False, generator=None):
         c = self.config
-        nh = c.num_heads
-        hd = c.hidden_size // nh
+        nh = self.heads
+        hd = c.hidden_size // c.num_heads
         b, l = x.shape[0], x.shape[1]
-        q, k, v = (p(x).view(b, l, nh, hd)
+        xs = shared_input(x, self.q_proj)
+        q, k, v = (p(xs).view(b, l, nh, hd)
                    for p in (self.q_proj, self.k_proj, self.v_proj))
         idx = cache["idx"] if cache is not None else 0
         per_slot = isinstance(idx, torch.Tensor)
@@ -313,6 +355,8 @@ class GPTAttention(nn.Module):
                     keep = keep & attention_mask[:, None, None, :]
                 ctx = _dense_attention(q, ck, cv, keep)
         else:
+            if kv_sink is not None:  # return_kv: this call's post-RoPE K/V
+                kv_sink.append((k.to(c.dtype), v.to(c.dtype)))
             if attention_mask is not None and c.attn_impl != "full":
                 raise ValueError(
                     "attention_mask on the uncached forward requires "
@@ -322,6 +366,11 @@ class GPTAttention(nn.Module):
                 )
             if c.attn_impl == "flash":
                 ctx = flash_attention(q, k, v, causal=True)
+            elif c.attn_impl == "ring":
+                attend = (allgather_self_attention if c.sp_mode == "allgather"
+                          else ring_self_attention)
+                ctx = attend(q, k, v, axis_name=c.sp_axis, causal=True,
+                             mesh=self.mesh)
             else:
                 keep = torch.ones((l, l), dtype=torch.bool,
                                   device=x.device).tril()[None, None]
@@ -329,25 +378,36 @@ class GPTAttention(nn.Module):
                     keep = keep & attention_mask[:, None, None, :].bool()
                 ctx = _dense_attention(q, k, v, keep, lambda p: self.dropout(
                     p, train=train, generator=generator))
-        return self.out_proj(ctx.reshape(b, l, c.hidden_size))
+        return self.out_proj(ctx.reshape(b, l, nh * hd))
 
 
 class GPTBlock(nn.Module):
-    def __init__(self, config: GPTConfig, layer_idx: int, device=None):
+    def __init__(self, config: GPTConfig, layer_idx: int, device=None,
+                 mesh: "Mesh | None" = None):
         super().__init__()
         c = config
         kw = dict(device=device, dtype=c.dtype)
         self.ln_1 = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps, **kw)
-        self.attn = GPTAttention(c, layer_idx, device=device)
+        self.attn = GPTAttention(c, layer_idx, device=device, mesh=mesh)
         self.ln_2 = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps, **kw)
-        self.up = nn.Linear(c.hidden_size, c.intermediate_size, **kw)
-        self.down = nn.Linear(c.intermediate_size, c.hidden_size, **kw)
+        if c.num_experts > 0 and layer_idx % c.moe_every == c.moe_every - 1:
+            self.moe_mlp = MoEMlpBlock(
+                c.hidden_size, c.num_experts, c.intermediate_size, k=c.moe_k,
+                capacity_factor=c.moe_capacity_factor, mesh=mesh, **kw)
+        else:
+            column, row = dense_pair(mesh, device=device, dtype=c.dtype)
+            self.up = column(c.hidden_size, c.intermediate_size)
+            self.down = row(c.intermediate_size, c.hidden_size)
         self.dropout = Dropout(c.dropout)
 
     def forward(self, x, *, train: bool = False, generator=None, **attn_kw):
         drop = dict(train=train, generator=generator)
         x = x + self.dropout(self.attn(self.ln_1(x), **drop, **attn_kw), **drop)
-        m = self.down(F.gelu(self.up(self.ln_2(x)), approximate="tanh"))
+        h = self.ln_2(x)
+        if hasattr(self, "moe_mlp"):
+            m = self.moe_mlp(h)
+        else:
+            m = self.down(F.gelu(self.up(h), approximate="tanh"))
         return x + self.dropout(m, **drop)
 
 
@@ -359,33 +419,42 @@ class GPTLMHeadModel(nn.Module):
     ``idx`` and returns the same cache. A per-slot cache (``idx`` a [B]
     tensor) decodes every row at its own depth, always on the dense
     masked path, whatever ``attn_impl`` says. ``positions``: optional [B, L]
-    token positions (RoPE or the learned table). ``attention_mask``:
-    optional key validity (False = masked), [B, L] on the uncached
-    forward, [B, max_len] over buffer columns on the cached path.
+    token positions (RoPE or the learned table); under ``attn_impl="ring"``
+    the uncached forward defaults them to the shard's global positions.
+    ``attention_mask``: optional key validity (False = masked), [B, L] on
+    the uncached forward, [B, max_len] over buffer columns on the cached
+    path. ``return_kv=True`` on the uncached forward returns, in place of
+    the (absent) cache, ``{"k", "v"}`` ``[layers, B, L, H, D]`` (the
+    post-RoPE keys and values of this call's tokens) and ``"idx"``: L.
+    ``mesh`` (default the ambient ``mesh_context``) is where the ring and
+    the tensor- and expert-parallel layers find their axes.
     Parameters are created on ``device`` with torch's default init; use
-    :func:`init_gpt_` for Flax's, or load a converted state dict.
+    :func:`init_gpt_` for Flax's, or load a converted state dict (a
+    rank's slice of one under a mesh: ``convert.shard_state_dict``).
     """
 
-    def __init__(self, config: GPTConfig, *, device="cuda"):
+    def __init__(self, config: GPTConfig, *, device="cuda",
+                 mesh: "Mesh | None" = None):
         super().__init__()
-        if config.attn_impl == "ring":
-            raise NotImplementedError(
-                "attn_impl='ring' (sequence-parallel attention) is "
-                + _NOT_PORTED.format(item="A8"))
-        if config.attn_impl not in ("full", "flash"):
+        if config.attn_impl not in ("full", "flash", "ring"):
             raise ValueError(f"unknown attn_impl {config.attn_impl!r}")
-        if config.num_experts > 0:
-            raise NotImplementedError(
-                "mixture-of-experts MLPs (num_experts > 0) are "
-                + _NOT_PORTED.format(item="A8"))
+        mesh = mesh if mesh is not None else current_mesh()
+        tp = tp_size(mesh)
+        if config.num_heads % tp:
+            raise ValueError(
+                f"num_heads {config.num_heads} is not divisible by the "
+                f"{tp}-way tp axis")
         dev = resolve_device(device)
         c = config
         kw = dict(device=dev, dtype=c.dtype)
         self.config = c
+        self.mesh = mesh
+        #: the attention heads this rank holds (all of them unless tp > 1)
+        self.local_heads = c.num_heads // tp
         self.wte = nn.Embedding(c.vocab_size, c.hidden_size, **kw)
         self.wpe = (nn.Embedding(c.max_seq_len, c.hidden_size, **kw)
                     if c.positions == "learned" else None)
-        self.h = nn.ModuleList(GPTBlock(c, i, device=dev)
+        self.h = nn.ModuleList(GPTBlock(c, i, device=dev, mesh=mesh)
                                for i in range(c.num_layers))
         self.ln_f = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps, **kw)
         self.dropout = Dropout(c.dropout)
@@ -395,13 +464,11 @@ class GPTLMHeadModel(nn.Module):
                 attention_mask: Optional[torch.Tensor] = None,
                 return_kv: bool = False, train: bool = False,
                 generator: "torch.Generator | None" = None):
-        if return_kv:
-            raise NotImplementedError(
-                "return_kv (the sequence-parallel prefill's building block) "
-                "is " + _NOT_PORTED.format(item="A8"))
         c = self.config
         b, l = input_ids.shape
         x = self.wte(input_ids)
+        if positions is None and cache is None and c.attn_impl == "ring":
+            positions = _ring_positions(self.mesh, c.sp_axis, b, l, x.device)
         if self.wpe is not None:
             idx = cache["idx"] if cache is not None else 0
             pos = positions
@@ -421,23 +488,27 @@ class GPTLMHeadModel(nn.Module):
             start = cache.get("start")
             if start is None:
                 start = first_valid_column(attention_mask)
+        kv_sink = [] if return_kv and cache is None else None
         x = self.dropout(x, train=train, generator=generator)
         for blk in self.h:
             x = blk(x, cache=cache, positions=positions,
                     attention_mask=attention_mask, start=start,
-                    train=train, generator=generator)
+                    kv_sink=kv_sink, train=train, generator=generator)
         x = self.ln_f(x)
         logits = F.linear(x, self.wte.weight).float()  # weight-tied LM head
         if cache is not None:
             cache["idx"] += l
+        elif kv_sink is not None:
+            cache = {"k": torch.stack([kv[0] for kv in kv_sink]),
+                     "v": torch.stack([kv[1] for kv in kv_sink]), "idx": l}
         return logits, cache
 
 
 def init_gpt_(module: GPTLMHeadModel, seed: int = 0) -> GPTLMHeadModel:
     """Flax's default initialisation, from a seeded CPU generator (so the
     weights do not depend on the device): lecun-normal dense kernels and
-    zero biases, LayerNorm scale 1 and bias 0, and ``nn.Embed``'s
-    N(0, 1/hidden) for the token and position tables."""
+    expert stacks, zero biases, LayerNorm scale 1 and bias 0, and
+    ``nn.Embed``'s N(0, 1/hidden) for the token and position tables."""
     from sparkdl_torch.models.common import lecun_normal_
 
     g = torch.Generator().manual_seed(seed)
@@ -446,7 +517,16 @@ def init_gpt_(module: GPTLMHeadModel, seed: int = 0) -> GPTLMHeadModel:
             if isinstance(m, nn.Linear):
                 w = torch.empty(m.weight.shape, dtype=torch.float32)
                 m.weight.copy_(lecun_normal_(w, g))
-                m.bias.zero_()
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, MoEMlpBlock):
+                # stacked [E, in, out] kernels: flax's fan-in counts the
+                # expert dim as receptive field, in * E
+                for w in (m.wi, m.wo):
+                    std = math.sqrt(1.0 / (w.shape[1] * m.num_experts)) / 0.87962566103423978
+                    t = torch.empty(w.shape, dtype=torch.float32)
+                    nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=g)
+                    w.copy_(t)
             elif isinstance(m, nn.LayerNorm):
                 m.reset_parameters()
             elif isinstance(m, nn.Embedding):
@@ -685,16 +765,112 @@ def generate_unchecked(model: GPTLMHeadModel, prompt_ids: torch.Tensor,
         return sample_logits(logits, generator, temperature=temperature,
                              top_k=top_k, top_p=top_p)
 
-    cache = init_cache(model.config, b, max_len, device=dev)
+    cache = init_cache(model.config, b, max_len, device=dev,
+                       num_heads=model.local_heads)
     if key_valid is not None:
         cache["start"] = first_valid_column(key_valid)
     logits, cache = model(prompt_ids, cache=cache, positions=positions,
                           attention_mask=key_valid)
-    toks = [sample(logits[:, -1])]
+    new = _decode(model, logits[:, -1], cache, max_new_tokens, sample,
+                  key_valid=key_valid, pad_len=pad_len)
+    return torch.cat([prompt_ids, new.to(prompt_ids.dtype)], dim=1)
+
+
+def _decode(model: GPTLMHeadModel, last_logits: torch.Tensor, cache: dict,
+            max_new_tokens: int, sample, *, key_valid=None,
+            pad_len=None) -> torch.Tensor:
+    """[B, max_new_tokens] tokens sampled from ``last_logits`` [B, V] and
+    then from one cached forward per further token."""
+    toks = [sample(last_logits)]
     for _ in range(max_new_tokens - 1):
         pos = None if pad_len is None else (cache["idx"] - pad_len)[:, None]
         logits, cache = model(toks[-1][:, None], cache=cache, positions=pos,
                               attention_mask=key_valid)
         toks.append(sample(logits[:, -1]))
-    new = torch.stack(toks, dim=1).to(prompt_ids.dtype)
-    return torch.cat([prompt_ids, new], dim=1)
+    return torch.stack(toks, dim=1)
+
+
+@torch.inference_mode()
+def generate_from_cache(model: GPTLMHeadModel, logits: torch.Tensor,
+                        cache: dict, max_new_tokens: int, *,
+                        temperature: float = 0.0, top_k: Optional[int] = None,
+                        top_p: Optional[float] = None,
+                        generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
+    """Decode ``max_new_tokens`` from a prefilled lockstep cache: the
+    prefill's ``logits`` [B, L, V] (the last column seeds the first
+    token) and its :func:`init_cache`-shaped ``cache`` (``idx`` = L), as
+    :func:`sp_prefill` returns them. The cache is copied into buffers of
+    ``L + max_new_tokens`` columns first where it has fewer. Returns the
+    [B, max_new_tokens] new tokens, :func:`generate`'s continuation of the
+    same prompt."""
+    check_generate_args(model.config, (logits.shape[0], int(cache["idx"])),
+                        max_new_tokens, temperature=temperature, top_k=top_k,
+                        top_p=top_p, generator=generator)
+    if max_new_tokens == 0:
+        return logits.new_zeros((logits.shape[0], 0), dtype=torch.long)
+    idx = int(cache["idx"])
+    need = idx + max_new_tokens - 1
+    if cache["k"].shape[2] < need:
+        grown = init_cache(model.config, cache["k"].shape[1], need,
+                           device=cache["k"].device, num_heads=cache["k"].shape[3])
+        grown["k"][:, :, :idx] = cache["k"][:, :, :idx]
+        grown["v"][:, :, :idx] = cache["v"][:, :, :idx]
+        cache = grown
+    else:
+        cache = dict(cache)
+    cache["idx"] = idx
+
+    def sample(last):
+        return sample_logits(last, generator, temperature=temperature,
+                             top_k=top_k, top_p=top_p)
+
+    return _decode(model, logits[:, -1], cache, max_new_tokens, sample)
+
+
+@torch.no_grad()
+def sp_prefill(model: GPTLMHeadModel, prompt_ids: torch.Tensor,
+               mesh: "Mesh | None" = None) -> "tuple[torch.Tensor, dict]":
+    """Sequence-parallel prompt prefill: the prompt's TOKENS split
+    contiguously over the ``sp`` axis of ``mesh`` (default the ambient
+    one), every rank running one uncached forward of its shard at its
+    global positions with ``return_kv=True``, attention by
+    ``config.sp_mode`` (``"ring"``: exact up to float summation order;
+    ``"allgather"``: the ``"full"`` path's operations on each query
+    shard). Every rank of the axis calls it with the whole prompt.
+
+    Requires ``config.attn_impl == "ring"``. A prompt whose length ``sp``
+    does not divide is right-padded first: the pad keys sit causally after
+    every real query, so they stay invisible without a mask, and the pad
+    positions are cut from what comes back. Returns ``(logits [B, L, V],
+    cache)``, both gathered on every rank: ``cache`` is
+    :func:`init_cache`-shaped (``k``/``v`` ``[layers, B, L, H, D]``,
+    ``idx = L``), ready for :func:`generate_from_cache`. A one-shot call:
+    it is not captured in a CUDA graph.
+    """
+    c = model.config
+    if c.attn_impl != "ring":
+        raise ValueError(
+            f"sp_prefill requires attn_impl='ring' (sp_mode="
+            f"'ring'|'allgather'), got attn_impl={c.attn_impl!r}")
+    mesh = mesh if mesh is not None else (
+        model.mesh if model.mesh is not None else current_mesh())
+    ag = axis_group(c.sp_axis, mesh)
+    b, l = prompt_ids.shape
+    pad = (-l) % ag.size
+    lpad = l + pad
+    if c.positions == "learned" and lpad > c.max_seq_len:
+        raise ValueError(
+            f"prompt_len {l} (padded to {lpad} for sp={ag.size}) exceeds the "
+            f"learned position table (max_seq_len={c.max_seq_len})")
+    ids = F.pad(prompt_ids, (0, pad))
+    n = lpad // ag.size
+    mine = ids[:, ag.index * n:(ag.index + 1) * n]
+    positions = (ag.index * n + torch.arange(n, device=ids.device)).expand(b, n)
+    with mesh_context(mesh):
+        logits, kv = model(mine, positions=positions, return_kv=True)
+    logits = gather_replicated(logits, ag, 1)[:, :l]
+    cache = {"k": gather_replicated(kv["k"], ag, 2)[:, :, :l].contiguous(),
+             "v": gather_replicated(kv["v"], ag, 2)[:, :, :l].contiguous(),
+             "idx": l}
+    return logits, cache

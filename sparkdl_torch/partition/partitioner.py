@@ -35,9 +35,15 @@ Implementations:
   axis (their optimizer state with them), plus ZeRO on ``zero_axis``
   where a rule left a leaf replicated.
 
-A mesh whose ``tp``, ``pp``, ``sp`` or ``ep`` axis is larger than 1
-raises ``NotImplementedError`` (ROADMAP A8 parallel: Megatron, pipeline,
-ring and expert parallelism).
+A mesh whose ``tp`` axis is larger than 1 runs Megatron's tensor
+parallelism: the model is built under the mesh (its tensor-parallel
+layers hold this rank's slices, ``parallel/tensor_parallel``), such a
+parameter keeps its slice and its optimizer state follows it, and the
+gradients are reduced over the batch axes only (each data shard's
+``tp`` ranks run one model between them; their collectives live in the
+layers). A mesh whose ``pp``, ``sp`` or ``ep`` axis is larger than 1
+raises ``NotImplementedError`` (ROADMAP A8 parallel), and so does a
+parameter split on ``tp`` and on a sharded data axis at once.
 """
 
 from __future__ import annotations
@@ -79,8 +85,10 @@ __all__ = [
     "ShardedOptimizer",
 ]
 
-#: axes the port cannot split yet (their collectives live in parallel/)
-_MODEL_AXES = ("pp", "sp", "tp", "ep")
+#: axes a train step cannot split yet (their collectives live in parallel/)
+_MODEL_AXES = ("pp", "sp", "ep")
+#: the axis whose placement the model's own layers hold
+_TP = "tp"
 
 
 def _parts(entry: Any) -> tuple:
@@ -112,12 +120,13 @@ class Partitioner:
                      if a in _MODEL_AXES and s > 1}
             if split:
                 raise NotImplementedError(
-                    f"mesh axes {split} (tensor, pipeline, sequence or "
-                    "expert parallelism) are not ported to sparkdl_torch "
-                    "yet (ROADMAP A8 parallel); the port splits the batch "
-                    "and the optimizer state over dp and fsdp")
+                    f"mesh axes {split} (pipeline, sequence or expert "
+                    "parallelism) are not ported to a train step of "
+                    "sparkdl_torch yet (ROADMAP A8 parallel); the port "
+                    "splits the batch and the optimizer state over dp and "
+                    "fsdp, and the model over tp")
             idle = {a: s for a, s in mesh.shape.items()
-                    if s > 1 and a not in batch_axes}
+                    if s > 1 and a not in batch_axes and a != _TP}
             if idle:
                 raise NotImplementedError(
                     f"mesh axes {idle} outside the batch axes "
@@ -242,17 +251,51 @@ class Partitioner:
                 "(the partitioner does not move a model off it)")
         model.to(self.device)
         specs = self.param_specs(model, count_hits=True)
+        local = self._tp_local(model)
         self._check_divisible(model, specs, "param")
         group = self._group(None)
         if group is not None and world_size() > 1:
             import torch.distributed as dist
 
             with torch.no_grad():
-                tensors = [*model.parameters(), *model.buffers()]
-                for flat, views in _flat_groups(tensors):
-                    dist.broadcast(flat, src=0)
-                    _copy_back(flat, views)
+                # whole tensors from rank 0; a tp slice from the first
+                # rank of its data group, which holds the same slice
+                whole = [t for n, t in (*model.named_parameters(),
+                                        *model.named_buffers())
+                         if n not in local]
+                sliced = [p for n, p in model.named_parameters() if n in local]
+                for tensors, grp, src in (
+                        (whole, group, 0),
+                        (sliced, self._data_group(), None)):
+                    if grp is None:
+                        continue  # a tp slice with no data-parallel peer
+                    if src is None:  # the first rank holding this slice
+                        src = self.mesh.axis_ranks(self._data_axes())[0]
+                    for flat, views in _flat_groups(tensors):
+                        dist.broadcast(flat, src=src, group=grp)
+                        _copy_back(flat, views)
         return model
+
+    def _tp_local(self, model: torch.nn.Module) -> "set[str]":
+        """Names of the parameters ``model`` holds as this rank's ``tp``
+        slice; raises under a ``tp`` axis > 1 for a model with none (one
+        built without the mesh: every rank would hold it whole)."""
+        from sparkdl_torch.parallel.tensor_parallel import split_params
+
+        split = split_params(model)
+        local = {n for n, (axis, _, _) in split.items() if axis == _TP}
+        for n, (axis, _, _) in split.items():
+            if axis != _TP:
+                raise NotImplementedError(
+                    f"param {n!r} is split over {axis!r}: a train step over "
+                    "that axis is not ported yet (ROADMAP A8 parallel)")
+        if self._axis_size(_TP) > 1 and not local:
+            raise ValueError(
+                f"the mesh splits tp {self._axis_size(_TP)} ways and the model "
+                "holds no tensor-parallel layer: build it under the mesh "
+                "(mesh= or mesh_context) and load its slice "
+                "(models.convert.shard_state_dict)")
+        return local
 
     def shard_opt_state(self, optimizer: torch.optim.Optimizer,
                         model: torch.nn.Module) -> "ShardedOptimizer":
@@ -262,8 +305,9 @@ class Partitioner:
         shard its spec gives this rank."""
         named = dict(model.named_parameters())
         specs = self.opt_specs(named, count_hits=True)
+        local = self._tp_local(model)
         self._check_divisible(named, specs, "opt")
-        return ShardedOptimizer(self, model, optimizer, specs)
+        return ShardedOptimizer(self, model, optimizer, specs, tp_local=local)
 
     def shard_replicated(self, tree: Any) -> Any:
         """Small replicated leaves (step counters) on this rank's device."""
@@ -290,7 +334,7 @@ class Partitioner:
                 f"a step over the {self.mesh.size}-device mesh needs a "
                 f"process group of {self.mesh.size} ranks, got "
                 f"{world_size()}: run it under TorchRunner")
-        group = self._group(None)
+        group = self._data_group()
         n = self.data_axis_size
         if group is None or n == 1:
             return step_fn  # nothing to average
@@ -332,6 +376,19 @@ class Partitioner:
             return dist.group.WORLD
         return self.mesh.group(axis)
 
+    def _data_axes(self) -> "tuple[str, ...]":
+        """The batch axes this mesh splits (size > 1)."""
+        return tuple(a for a in self.batch_axes if self._axis_size(a) > 1)
+
+    def _data_group(self):
+        """The process group of this rank's data-parallel peers: every
+        rank without a ``tp`` split, else the ranks of this rank's ``tp``
+        coordinate (None when no process group is up)."""
+        if self._axis_size(_TP) == 1 or self._group(None) is None:
+            return self._group(None)
+        axes = self._data_axes()
+        return self.mesh.group(axes) if axes else None
+
     @property
     def data_axis_size(self) -> int:
         """Ways the batch dim is split (1 = no splitting)."""
@@ -362,6 +419,10 @@ class Partitioner:
 
     # -- validation ----------------------------------------------------------
     def _check_divisible(self, tree: Any, specs: Any, what: str) -> None:
+        """Loud on a dim its spec splits more ways than it divides. A
+        ``tp`` entry is not counted: the model's layers hold their slices
+        (each layer checked its whole when it was built), and a parameter
+        they hold whole is replicated over ``tp``."""
         if self.mesh is None:
             return
         for (name, leaf), (_, spec) in zip(tree_path_names(tree),
@@ -372,7 +433,8 @@ class Partitioner:
                     continue
                 n = 1
                 for a in _parts(part):
-                    n *= self._axis_size(a)
+                    if a != _TP:
+                        n *= self._axis_size(a)
                 if n > 1 and shape[i] % n != 0:
                     raise MeshShapeError(
                         f"{what} leaf {name!r} shape {shape}: dim {i} "
@@ -447,8 +509,13 @@ class DataParallelPartitioner(Partitioner):
 class SPMDPartitioner(Partitioner):
     """Params placed by a regex rule table (partition/rules.py), batch
     over the data axes, optimizer state rule-matched the same way plus
-    ZeRO sharding along ``zero_axis`` where replicated. On the port's
-    meshes the rules' fsdp entries are the live ones (tp > 1 raises)."""
+    ZeRO sharding along ``zero_axis`` where replicated: dp x tp x fsdp,
+    the reference's general form. A rule's ``tp`` entry is live where the
+    model's tensor-parallel layers hold that parameter's slice; a
+    parameter they hold whole (the embeddings) is replicated over ``tp``.
+    The rules' fsdp entries shard the optimizer state of whole
+    parameters; a ``tp`` slice sharded on fsdp too raises (ROADMAP A8
+    parallel)."""
 
     def __init__(self, mesh: Mesh, rules: "Sequence[tuple[str, P]]", *,
                  batch_axes: Sequence[str] = ("dp", "fsdp"),
@@ -581,20 +648,29 @@ class ShardedOptimizer:
     """
 
     def __init__(self, partitioner: Partitioner, model: torch.nn.Module,
-                 optimizer: torch.optim.Optimizer, specs: "dict[str, P]"):
+                 optimizer: torch.optim.Optimizer, specs: "dict[str, P]",
+                 tp_local: "set[str]" = frozenset()):
         self.model = model
         named = [(n, p) for n, p in model.named_parameters()
                  if p.requires_grad]
         self._mesh = partitioner.mesh
-        self._data_group = partitioner._group(None)
+        self._data_group = partitioner._data_group()
         self._n = partitioner.data_axis_size
         self.replicated: "list[torch.nn.Parameter]" = []
         self.sharded: "list[_Sharded]" = []
         self.shard_axis: "str | None" = None
         for name, p in named:
+            # tp is the layers' placement: a slice is this rank's tensor,
+            # a whole parameter is the same on every tp rank
             axes = [(d, a) for d, part in enumerate(specs.get(name, P()))
                     for a in _parts(part)
-                    if a is not None and partitioner._axis_size(a) > 1]
+                    if a is not None and a != _TP
+                    and partitioner._axis_size(a) > 1]
+            if axes and name in tp_local:
+                raise NotImplementedError(
+                    f"param {name!r} spec {specs[name]!r}: a tp slice sharded "
+                    f"on {axes[0][1]!r} too (two axes) is not ported yet "
+                    "(ROADMAP A8 parallel)")
             if not axes:
                 self.replicated.append(p)
                 continue

@@ -158,8 +158,13 @@ def rule_hit_counts() -> "dict[str, float]":
 
 #: GPT decoder family (models/gpt.py names). q/k/v and the MLP up
 #: projection column-parallel (out dim on tp), out_proj and the MLP down
-#: projection row-parallel (in dim on tp): the Megatron pairing.
+#: projection row-parallel (in dim on tp): the Megatron pairing. The
+#: expert stacks of a mixture-of-experts layer (``moe_mlp.wi``/``wo``,
+#: [E, ...]) split their expert dim over ep; their rule comes first, as
+#: the ``(up|wi)``/``(down|wo)`` rules, written for ``.weight`` names,
+#: never reach them.
 GPT_RULES: "tuple[tuple[str, P], ...]" = (
+    (r"moe_mlp\.(wi|wo)$", P("ep")),
     (r"attn\.(q_proj|k_proj|v_proj)\.weight$", P("tp", "fsdp")),
     (r"attn\.out_proj\.weight$", P("fsdp", "tp")),
     (r"(^|\.)(up|wi)\.weight$", P("tp", "fsdp")),

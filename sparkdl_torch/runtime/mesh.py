@@ -16,10 +16,11 @@ over the same canonical axes:
   ``ep``    | expert parallel (MoE expert split)
 
 A :class:`Mesh` is plain data until a collective needs it: its
-``torch.distributed.device_mesh.DeviceMesh`` (and the per-axis process
-groups) is built on first use, and only when a process group is up. A
-world of one needs no ``init_process_group``, and importing this module
-never starts one. A sharding is a tuple of placements
+``torch.distributed.device_mesh.DeviceMesh`` (and the process group of
+each axis, or of a tuple of axes) is built on first use, and only when a
+process group is up. A world of one needs no ``init_process_group``, and
+importing this module never starts one; ``parallel/``'s collectives over
+an axis of size 1 are no-ops. A sharding is a tuple of placements
 (``Shard(dim)``/``Replicate()``), one per mesh axis; a
 :class:`PartitionSpec` names, per tensor dim, the mesh axes it is split
 over, as the reference's ``PartitionSpec`` does.
@@ -149,6 +150,7 @@ class Mesh:
         self.shape = {a: int(s) for a, s in zip(self.axis_names,
                                                 self.devices.shape)}
         self._device_mesh = None
+        self._groups: "dict[tuple[str, ...], Any]" = {}
 
     @property
     def size(self) -> int:
@@ -189,11 +191,58 @@ class Mesh:
                 mesh_dim_names=self.axis_names)
         return self._device_mesh
 
-    def group(self, axis: str):
-        """The process group of this rank's peers along ``axis`` (None
-        when no process group is up)."""
-        dm = self.device_mesh
-        return None if dm is None else dm.get_group(axis)
+    def group(self, axis: "str | Sequence[str]"):
+        """The process group of this rank's peers along ``axis``, or along
+        a tuple of axes (the ranks that differ from this one only on
+        those axes). None when no process group is up. Every rank must
+        ask for a group the first time together: it is made then."""
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
+        if len(axes) == 1:
+            dm = self.device_mesh
+            return None if dm is None else dm.get_group(axes[0])
+        if not _pg_up():
+            return None
+        if axes not in self._groups:
+            import torch.distributed as dist
+
+            if world_size() != self.size:
+                raise MeshShapeError(
+                    f"{self!r} has {self.size} devices, the process group "
+                    f"{world_size()} ranks")
+            mine = None
+            for ranks in self._blocks(axes):  # every rank makes every group
+                g = dist.new_group(ranks)
+                if world_rank() in ranks:
+                    mine = g
+            self._groups[axes] = mine
+        return self._groups[axes]
+
+    def _blocks(self, axes: "tuple[str, ...]") -> "list[list[int]]":
+        """The rank array cut into its groups along ``axes``: each row the
+        ranks that differ only on those axes, flattened in their order."""
+        keep = [self.axis_names.index(a) for a in axes]
+        rest = [i for i in range(len(self.axis_names)) if i not in keep]
+        size = int(np.prod([self.devices.shape[i] for i in keep]))
+        return np.transpose(self.devices, rest + keep).reshape(-1, size).tolist()
+
+    def axis_ranks(self, axis: "str | Sequence[str]",
+                   rank: "int | None" = None) -> "list[int]":
+        """The global ranks along ``axis`` (or a tuple of axes, flattened
+        in their order) through ``rank`` (default this process's): entry
+        ``i`` sits at index ``i`` along them."""
+        rank = world_rank() if rank is None else rank
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
+        for row in self._blocks(axes):
+            if rank in row:
+                return [int(r) for r in row]
+        raise MeshShapeError(f"rank {rank} is not on {self!r}")
+
+    def ring_neighbours(self, axis: str) -> "tuple[int, int]":
+        """(previous, next) global ranks of this rank on the ring of
+        ``axis`` (itself twice on an axis of size 1)."""
+        ranks = self.axis_ranks(axis)
+        i = self.coordinate(axis)
+        return ranks[(i - 1) % len(ranks)], ranks[(i + 1) % len(ranks)]
 
 
 def _pg_up() -> bool:

@@ -222,9 +222,14 @@ def finetune_classifier(
     holds the global batch's metrics (the mean over the ranks). Pass
     ``DataParallelPartitioner(make_mesh(dp=4, fsdp=2), zero_axis="fsdp")``
     for ZeRO-sharded optimizer state (per-rank optimizer memory ~1/fsdp,
-    measured into ``sparkdl_opt_state_bytes{axis}``). The loss
-    trajectory is invariant across partitioners up to float reduction
-    order.
+    measured into ``sparkdl_opt_state_bytes{axis}``). A mesh whose ``tp``
+    axis is larger than 1 (``SPMDPartitioner(make_mesh(dp=2, tp=2),
+    BERT_RULES)``) takes a model built under it, holding its
+    tensor-parallel slices (``models/convert.py`` ``shard_state_dict``):
+    its layers' all-reduces run inside the step's graph beside the
+    gradient all-reduce over the data axes, and each data shard's ``tp``
+    ranks feed the same rows. The loss trajectory is invariant across
+    partitioners up to float reduction order.
 
     With ``checkpoint_dir`` set, the full train state is saved
     asynchronously every ``checkpoint_every`` steps (at a dispatch

@@ -158,8 +158,19 @@ def test_weight_bridge_round_trip_and_errors(clf_variables):
 
 
 def test_unported_options_raise_naming_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A8"):
-        tbert.BertModel(tbert.BertConfig.tiny(attn_impl="ring"), device="cpu")
+    """Ring attention was a deferral (ROADMAP A8); ported, on a one-rank
+    mesh it is the full path's attention (tests/test_torch_parallel_
+    four_ranks.py holds it to the JAX package at sp = 4)."""
+    from sparkdl_torch.runtime.mesh import MeshSpec
+
+    full = tbert.init_bert_(tbert.BertModel(tbert.BertConfig.tiny(), device="cpu"))
+    ring = tbert.BertModel(tbert.BertConfig.tiny(attn_impl="ring"), device="cpu",
+                           mesh=MeshSpec(dp=1).build())
+    ring.load_state_dict(full.state_dict())
+    ids, mask = torch.tensor([[5, 6, 7, 8]]), torch.tensor([[1, 1, 1, 0]])
+    with torch.no_grad():
+        torch.testing.assert_close(ring(ids, mask)[0], full(ids, mask)[0],
+                                   atol=1e-5, rtol=0)
     base = tbert.BertForSequenceClassification(
         tbert.BertConfig.tiny(hidden_dropout_prob=0.1), device="cpu")
     ids = torch.zeros((1, 4), dtype=torch.long)

@@ -251,15 +251,28 @@ def test_generate_argument_errors():
 
 
 def test_unported_options_raise_naming_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A8"):
-        tgpt.GPTLMHeadModel(tgpt.GPTConfig.tiny(attn_impl="ring"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        tgpt.GPTLMHeadModel(tgpt.GPTConfig.tiny(num_experts=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        tgpt.sp_prefill(None, None, None)
-    module = tgpt.GPTLMHeadModel(tgpt.GPTConfig.tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        module(torch.tensor([[1, 2]]), return_kv=True)
+    """Once deferrals (ROADMAP A8), now ported: ring attention, experts,
+    sp_prefill and return_kv, each on a one-rank mesh where it needs one
+    (tests/test_torch_parallel_*.py hold them to the JAX package across
+    ranks)."""
+    from sparkdl_torch.runtime.mesh import MeshSpec, mesh_context
+
+    module = tgpt.init_gpt_(tgpt.GPTLMHeadModel(tgpt.GPTConfig.tiny(), device="cpu"))
+    ids = torch.tensor([[1, 2, 3, 4]])
+    with torch.no_grad():
+        full = module(ids)[0]
+        ring = tgpt.GPTLMHeadModel(tgpt.GPTConfig.tiny(attn_impl="ring"), device="cpu")
+        ring.load_state_dict(module.state_dict())
+        with pytest.raises(ValueError, match="unbound"):
+            ring(ids)  # the ring needs a mesh, as the reference's a shard_map
+        with mesh_context(MeshSpec(dp=1).build()):
+            torch.testing.assert_close(ring(ids)[0], full, atol=1e-5, rtol=0)
+        moe = tgpt.GPTLMHeadModel(tgpt.GPTConfig.tiny(num_experts=4), device="cpu")
+        assert moe(ids)[0].shape == (1, 4, 128)
+        with pytest.raises(ValueError, match="attn_impl='ring'"):
+            tgpt.sp_prefill(module, ids, MeshSpec(dp=1).build())
+        _, kv = module(torch.tensor([[1, 2]]), return_kv=True)
+        assert kv["k"].shape == (2, 1, 2, 2, 16) and kv["idx"] == 2
     with pytest.raises(ValueError, match="sp_mode"):
         tgpt.GPTConfig.tiny(sp_mode="ringg")
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -326,7 +326,10 @@ def test_batch_axes_must_exist_and_model_axes_raise():
         DataParallelPartitioner(mesh)
     assert DataParallelPartitioner(mesh, batch_axes=("data",),
                                    device="cpu").data_axis_size == 8
-    for kw in (dict(tp=2), dict(sp=2), dict(pp=2), dict(ep=2)):
+    # tp is ported: the batch splits over dp only, the model over tp
+    assert DataParallelPartitioner(make_mesh(dp=4, tp=2, devices=EIGHT),
+                                   device="cpu").data_axis_size == 4
+    for kw in (dict(sp=2), dict(pp=2), dict(ep=2)):
         with pytest.raises(NotImplementedError, match="A8 parallel"):
             DataParallelPartitioner(make_mesh(dp=4, devices=EIGHT, **kw))
 

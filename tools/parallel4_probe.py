@@ -1,0 +1,403 @@
+#!/usr/bin/env python3
+"""Model parallelism across the GPUs of one host, against one GPU.
+
+    python3 tools/parallel4_probe.py                    # four cards, NCCL
+    python3 tools/parallel4_probe.py --platform cpu --tiny   # four gloo processes
+
+``TorchRunner(np=-4)`` starts four ranks, one card each. Every check
+holds a parallel layout against one card's run of the same weights
+(random, from seed 0), which each rank also computes:
+
+- ``sp_prefill`` at sp = 2 and 4 (GPT-2 small widths with RoPE, one
+  4096-token prompt): ring logits within 1e-4 of the "full" forward
+  (relative to its largest), all-gather logits too, with whether they
+  are bitwise and their largest difference (ROADMAP C15), then 32 greedy
+  tokens from the cache against plain ``generate``'s;
+- GPT-2 small at tp = 2 and 4 (``attn_impl="flash"``, flash decode; heads
+  split): forward logits within 1e-4, 32 greedy tokens identical;
+- BERT-base fine-tuning (B=32, L=128, 8 steps, flash) at dp=2 x tp=2 and
+  at tp=4 through ``SPMDPartitioner(BERT_RULES)``: losses within 1e-5
+  relative of one card's, the step's median ms, its train dispatches
+  (one CUDA graph a step) and the all-reduces a step runs;
+- the mixture-of-experts GPT-2 small of chip_smoke's [moe] at ep = 4
+  (8 experts, 2 a rank, each rank its quarter of the batch): logits
+  within 1e-4 and 16 greedy tokens identical;
+- ``pipeline_apply`` at pp = 4 over GPT-2 small's 12 blocks (3 a stage),
+  8 microbatches: within 1e-5 of the sequential blocks.
+
+Prints one line a check and exits non-zero when one fails. chip_smoke's
+[parallel] phase runs the same checks where it finds two or more cards.
+``--platform cpu --tiny`` rehearses the control flow on the CPU (gloo,
+the kernels' plain versions, tiny widths).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+TOL = 1e-4        # logits after 12 float32 layers, sums reordered across ranks
+PIPE_TOL = 1e-5   # the same blocks, microbatched
+LOSS_TOL = 1e-5   # relative, per step
+
+
+def sizes(tiny: bool) -> dict:
+    if tiny:
+        return dict(gpt=dict(vocab_size=256, hidden_size=64, num_layers=4, num_heads=4,
+                             intermediate_size=128, max_seq_len=256),
+                    bert=dict(vocab_size=128, hidden_size=32, num_hidden_layers=2,
+                              num_attention_heads=4, intermediate_size=64,
+                              max_position_embeddings=64, hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0),
+                    ring_len=64, new=8, rows=8, length=16, batch=8, steps=3)
+    return dict(gpt={}, bert={}, ring_len=4096, new=32, rows=8, length=128, batch=32,
+                steps=8)
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def _device():
+    import torch
+
+    from sparkdl_torch.runtime.mesh import rank_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return rank_device()
+
+
+def _gpt(cfg, state, dev, mesh=None):
+    from sparkdl_torch.models.convert import shard_state_dict
+    from sparkdl_torch.models.gpt import GPTLMHeadModel
+    from sparkdl_torch.partition.rules import GPT_RULES
+
+    m = GPTLMHeadModel(cfg, device=dev, mesh=mesh)
+    m.load_state_dict(shard_state_dict(state, m, GPT_RULES))
+    return m.eval()
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def check_sp_prefill(s: dict, dev) -> dict:
+    import torch
+    import torch.distributed as dist
+
+    from sparkdl_torch.models.gpt import (
+        GPTConfig,
+        GPTLMHeadModel,
+        generate,
+        generate_from_cache,
+        init_gpt_,
+        sp_prefill,
+    )
+    from sparkdl_torch.partition import make_mesh
+
+    world = dist.get_world_size()
+    cfg = GPTConfig(**s["gpt"])
+    state = init_gpt_(GPTLMHeadModel(cfg, device="cpu"), seed=0).state_dict()
+    plain = _gpt(cfg, state, dev)
+    ids = torch.randint(0, cfg.vocab_size, (1, s["ring_len"]),
+                        generator=torch.Generator().manual_seed(1)).to(dev)
+    with torch.inference_mode():
+        full = plain(ids)[0]
+    want = generate(plain, ids, s["new"])[:, ids.shape[1]:]
+    out = {}
+    for sp in (2, 4):
+        if world % sp:
+            continue
+        mesh = make_mesh(dp=world // sp, sp=sp)
+        for mode in ("ring", "allgather"):
+            model = _gpt(dataclasses.replace(cfg, attn_impl="ring", sp_mode=mode), state,
+                         dev, mesh)
+            sp_prefill(model, ids, mesh)  # warm: the communicators
+            _sync(dev)
+            t0 = time.perf_counter()
+            logits, cache = sp_prefill(model, ids, mesh)
+            _sync(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            toks = generate_from_cache(model, logits, cache, s["new"])
+            out[f"sp{sp}_{mode}"] = {
+                "rel": _rel(logits, full), "bitwise": bool(torch.equal(logits, full)),
+                "max_diff": float((logits - full).abs().max()), "ms": ms,
+                "tokens_equal": bool(torch.equal(toks, want)),
+                "argmax_equal": bool(torch.equal(logits.argmax(-1), full.argmax(-1)))}
+            del model, logits, cache
+    return out
+
+
+def check_tp(s: dict, dev) -> dict:
+    import torch
+    import torch.distributed as dist
+
+    from sparkdl_torch.models.gpt import GPTConfig, GPTLMHeadModel, generate, init_gpt_
+    from sparkdl_torch.partition import make_mesh
+
+    world = dist.get_world_size()
+    cfg = GPTConfig(**s["gpt"], attn_impl="flash", flash_decode=True)
+    state = init_gpt_(GPTLMHeadModel(cfg, device="cpu"), seed=0).state_dict()
+    plain = _gpt(cfg, state, dev)
+    ids = torch.randint(0, cfg.vocab_size, (s["rows"], s["length"]),
+                        generator=torch.Generator().manual_seed(2)).to(dev)
+    with torch.inference_mode():
+        ref = plain(ids)[0]
+    want = generate(plain, ids, s["new"])
+    out = {}
+    for tp in (2, 4):
+        if world % tp or cfg.num_heads % tp:
+            continue
+        model = _gpt(cfg, state, dev, make_mesh(dp=world // tp, tp=tp))
+        with torch.inference_mode():
+            logits = model(ids)[0]
+            _sync(dev)
+            t0 = time.perf_counter()
+            model(ids)
+            _sync(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+        toks = generate(model, ids, s["new"])
+        out[f"tp{tp}"] = {"rel": _rel(logits, ref), "tokens_equal": bool(torch.equal(toks, want)),
+                          "forward_ms": ms, "heads": model.local_heads}
+        del model
+    return out
+
+
+def _bert_batches(s: dict, vocab: int) -> "list[dict]":
+    import numpy as np
+
+    rng = np.random.default_rng(9)
+    out = []
+    for _ in range(s["steps"]):
+        lens = rng.integers(s["length"] // 8, s["length"] + 1, s["batch"])
+        mask = (np.arange(s["length"])[None, :] < lens[:, None]).astype(np.int64)
+        out.append({"input_ids": rng.integers(0, vocab, (s["batch"], s["length"])) * mask,
+                    "attention_mask": mask, "labels": rng.integers(0, 2, s["batch"])})
+    return out
+
+
+def _count_all_reduces(model, batch, dev) -> int:
+    """All-reduces one eager forward + backward of ``model`` runs."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    calls = [0]
+    real = dist.all_reduce
+
+    def counting(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    dist.all_reduce = counting
+    try:
+        inputs = {k: torch.as_tensor(v).to(dev) for k, v in batch.items() if k != "labels"}
+        F.cross_entropy(model(**inputs), torch.as_tensor(batch["labels"]).to(dev)).backward()
+    finally:
+        dist.all_reduce = real
+    model.zero_grad(set_to_none=True)
+    return calls[0]
+
+
+def check_bert(s: dict, dev) -> dict:
+    import torch.distributed as dist
+
+    from sparkdl_torch.models.bert import BertConfig, BertForSequenceClassification, init_bert_
+    from sparkdl_torch.models.convert import shard_state_dict
+    from sparkdl_torch.partition import SPMDPartitioner, SingleDevicePartitioner, make_mesh
+    from sparkdl_torch.partition.rules import BERT_RULES
+    from sparkdl_torch.runtime.dispatch import dispatch_count
+    from sparkdl_torch.train import finetune_classifier
+
+    world = dist.get_world_size()
+    cfg = BertConfig.base(**s["bert"], attn_impl="flash")
+    state = init_bert_(BertForSequenceClassification(cfg, device="cpu"), seed=0).state_dict()
+    batches = _bert_batches(s, cfg.vocab_size)
+    ref_model = BertForSequenceClassification(cfg, device=dev)
+    ref_model.load_state_dict(state)
+    _, hist = finetune_classifier(ref_model, batches, learning_rate=2e-5,
+                                  partitioner=SingleDevicePartitioner(dev))
+    out = {"one_card": [h["loss"] for h in hist],
+           "one_card_step_ms": sorted(h["step_time_s"] for h in hist[1:])[
+               (len(hist) - 1) // 2] * 1e3}
+    for dp, tp in ((2, 2), (1, 4)):
+        if dp * tp != world:
+            continue
+        mesh = make_mesh(dp=dp, tp=tp)
+        model = BertForSequenceClassification(cfg, device=dev, mesh=mesh)
+        model.load_state_dict(shard_state_dict(state, model, BERT_RULES))
+        part = SPMDPartitioner(mesh, BERT_RULES)
+        n = s["batch"] // dp
+        i = part.data_index()
+        local = [{k: v[i * n:(i + 1) * n] for k, v in b.items()} for b in batches]
+        reduces = _count_all_reduces(model, local[0], dev)
+        d0 = dispatch_count("train")
+        _, hist = finetune_classifier(model, local, learning_rate=2e-5, partitioner=part)
+        losses = [h["loss"] for h in hist]
+        out[f"dp{dp}_tp{tp}"] = {
+            "losses": losses,
+            "rel": max(abs(a - b) / abs(b) for a, b in zip(losses, out["one_card"])),
+            "step_ms": sorted(h["step_time_s"] for h in hist[1:])[(len(hist) - 1) // 2] * 1e3,
+            "dispatches": int(dispatch_count("train") - d0),
+            "tp_all_reduces": reduces}
+        del model
+    return out
+
+
+def check_moe(s: dict, dev) -> dict:
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    from sparkdl_torch.models.gpt import GPTLMHeadModel, generate, init_gpt_
+    from sparkdl_torch.partition import make_mesh
+
+    world = dist.get_world_size()
+    cfg = dataclasses.replace(cs._moe_config(), **s["gpt"])
+    state = init_gpt_(GPTLMHeadModel(cfg, device="cpu"), seed=0).state_dict()
+    plain = _gpt(cfg, state, dev)
+    ids = torch.randint(0, cfg.vocab_size, (s["rows"], s["length"]),
+                        generator=torch.Generator().manual_seed(3)).to(dev)
+    model = _gpt(cfg, state, dev, make_mesh(dp=1, ep=world))
+    n = s["rows"] // world
+    r = dist.get_rank()
+    with torch.inference_mode():
+        ref = plain(ids)[0]
+        mine = model(ids[r * n:(r + 1) * n])[0].contiguous()
+        logits = torch.empty_like(ref)
+        dist.all_gather_into_tensor(logits, mine)
+    want = generate(plain, ids, s["new"] // 2)
+    toks = generate(model, ids, s["new"] // 2)
+    return {"rel": _rel(logits, ref), "tokens_equal": bool(torch.equal(toks, want)),
+            "local_experts": int(model.h[1].moe_mlp.wi.shape[0])}
+
+
+def check_pipeline(s: dict, dev) -> dict:
+    import torch
+    import torch.distributed as dist
+    from torch.func import functional_call
+
+    from sparkdl_torch.models.gpt import GPTConfig, GPTLMHeadModel, init_gpt_
+    from sparkdl_torch.parallel import pipeline_apply
+    from sparkdl_torch.parallel.pipeline import stack_stage_params
+    from sparkdl_torch.partition import make_mesh
+
+    world = dist.get_world_size()
+    cfg = GPTConfig(**s["gpt"])
+    model = init_gpt_(GPTLMHeadModel(cfg, device="cpu"), seed=0).to(dev).eval()
+    per = cfg.num_layers // world
+    template = model.h[0]
+
+    def stage(params, x):
+        for j in range(per):
+            x = functional_call(template, params[f"b{j}"], (x,))
+        return x
+
+    stages = [{f"b{j}": {k: v.detach() for k, v in
+                         model.h[st * per + j].named_parameters()} for j in range(per)}
+              for st in range(world)]
+    x = torch.randn((16, s["length"], cfg.hidden_size),
+                    generator=torch.Generator().manual_seed(4)).to(dev)
+    with torch.inference_mode():
+        want = x
+        for blk in model.h:
+            want = blk(want)
+    with torch.no_grad():
+        got = pipeline_apply(stage, stack_stage_params(stages), x, make_mesh(dp=1, pp=world),
+                             num_microbatches=8)
+    return {"rel": _rel(got, want), "stages": world, "blocks_a_stage": per}
+
+
+def probe_worker(tiny: bool = False) -> dict:
+    """Rank body: every check, in order."""
+    s = sizes(tiny)
+    dev = _device()
+    out = {}
+    for name, fn in (("sp_prefill", check_sp_prefill), ("tp", check_tp), ("bert", check_bert),
+                     ("moe", check_moe), ("pipeline", check_pipeline)):
+        t0 = time.perf_counter()
+        out[name] = fn(s, dev)
+        out[name + "_s"] = time.perf_counter() - t0
+    return out
+
+
+def run_checks(card: str, np: int = 4, platform: str = "cuda", tiny: bool = False) -> bool:
+    """Run :func:`probe_worker` on ``np`` ranks and print its lines;
+    returns whether every check passed (raises with the failures)."""
+    from sparkdl_torch import TorchRunner
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import parallel4_probe as this  # by reference: each rank imports it
+
+    t0 = time.perf_counter()
+    r = TorchRunner(np=-np, local_platform=platform, timeout_s=1500).run(
+        this.probe_worker, tiny=tiny)
+    fails = []
+    for key, m in r["sp_prefill"].items():
+        # ring and all-gather alike: bitwise is measured, not promised
+        # (ROADMAP C15), so both are held within TOL and bitwise is reported
+        fails += [] if m["rel"] <= TOL and m["tokens_equal"] else [f"sp_prefill {key}"]
+        print(f"[parallel4] {card}: sp_prefill {key}: logits rel {m['rel']:.3e} (tol {TOL}), "
+              f"bitwise the 'full' forward {m['bitwise']} (max diff {m['max_diff']:.3e}), "
+              f"argmax equal {m['argmax_equal']}, greedy tokens equal to "
+              f"plain generate {m['tokens_equal']}, prefill {m['ms']:.1f} ms host wall")
+    for key, m in r["tp"].items():
+        fails += [] if m["rel"] <= TOL and m["tokens_equal"] else [f"GPT {key}"]
+        print(f"[parallel4] {card}: GPT-2 small {key} ({m['heads']} heads a rank, flash): "
+              f"logits rel {m['rel']:.3e} (tol {TOL}), greedy tokens equal {m['tokens_equal']}, "
+              f"forward {m['forward_ms']:.2f} ms host wall")
+    b = r["bert"]
+    for key in [k for k in b if k.startswith("dp")]:
+        m = b[key]
+        fails += [] if m["rel"] <= LOSS_TOL else [f"BERT {key}"]
+        print(f"[parallel4] {card}: BERT-base fine-tune {key} (SPMDPartitioner(BERT_RULES), "
+              f"flash): losses {[round(x, 6) for x in m['losses']]}, one card "
+              f"{[round(x, 6) for x in b['one_card']]}, max rel {m['rel']:.3e} (tol {LOSS_TOL}); "
+              f"step {m['step_ms']:.2f} ms median (one card {b['one_card_step_ms']:.2f}), "
+              f"{m['dispatches']} train dispatches, {m['tp_all_reduces']} all-reduces in a "
+              "step's forward and backward")
+    m = r["moe"]
+    fails += [] if m["rel"] <= TOL and m["tokens_equal"] else ["MoE ep"]
+    print(f"[parallel4] {card}: MoE GPT-2 small at ep={np} ({m['local_experts']} experts a "
+          f"rank): logits rel {m['rel']:.3e} (tol {TOL}), greedy tokens equal "
+          f"{m['tokens_equal']}")
+    m = r["pipeline"]
+    fails += [] if m["rel"] <= PIPE_TOL else ["pipeline"]
+    print(f"[parallel4] {card}: pipeline_apply pp={m['stages']} ({m['blocks_a_stage']} GPT-2 "
+          f"blocks a stage, 8 microbatches): rel {m['rel']:.3e} of the sequential blocks "
+          f"(tol {PIPE_TOL})")
+    print(f"[parallel4] seconds per check: " + ", ".join(
+        f"{k[:-2]} {v:.1f}" for k, v in r.items() if k.endswith("_s"))
+          + f"; {time.perf_counter() - t0:.1f} s for the job")
+    if fails:
+        raise AssertionError("[parallel4] failed: " + ", ".join(fails))
+    return True
+
+
+if __name__ == "__main__":
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--platform", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--tiny", action="store_true")
+    ap.add_argument("--np", type=int, default=4)
+    args = ap.parse_args()
+    t0 = time.time()
+    if args.platform == "cuda":
+        import chip_smoke as cs
+
+        card = cs.phase_card()
+        cs.phase_build()
+    else:
+        card = "cpu (gloo)"
+    run_checks(card, np=args.np, platform=args.platform, tiny=args.tiny)
+    print("probe seconds", round(time.time() - t0, 1))
