@@ -27,6 +27,11 @@ went through its kernels and agrees with a kernel-free run:
   ``sp_prefill`` over a one-rank NCCL group (``TorchRunner(np=-1)``),
   each held to the dense path (and, with two or more cards,
   ``tools/parallel4_probe.py``'s multi-rank checks);
+- data-parallel inference in one process: the featurizer with
+  ``data_parallel=None`` (the stem kernel), a runner over two replicas
+  on the one card and ``DeepTextGenerator`` over the same two placements
+  (the flash forward and decode), each held to the one-card run (and,
+  with two or more cards, the same over the cards);
 - the fused ResNet50 train step at 224 px, batch 64 (the fused 1x1-conv
   GEMM + BN-stats kernel), one CUDA graph a step;
 - ``DeepImageFeaturizer``/``DeepImagePredictor`` over ResNet50, Xception,
@@ -309,7 +314,7 @@ def phase_stem():
     errs = {}
     _stem_check(x_u8, folded, errs)
 
-    ms = _time_ms(lambda: inception_stem_fused(x_f32, folded))
+    ms = _time_ms(lambda: inception_stem_fused(x_f32, folded, dtype=torch.float32))
     plain_ms = _time_ms(lambda: stem_reference(x_f32, folded))
     h1 = (SIZE - 3) // 2 + 1
     h2 = h1 - 2
@@ -2380,6 +2385,212 @@ def phase_parallel(card: str, attn_entry: dict, decode_entry: dict) -> dict:
     print(f"[parallel] {time.perf_counter() - t_all:.1f} s")
     return {"moe_tokens_s": moe["tokens_s"], "moe_ms": moe["moe_ms"],
             "dense_ms": moe["dense_ms"], "ring_rel": arith["rel"]}
+
+
+def _dp_features(runner, feeds) -> "tuple":
+    """(features [rows, 2048], seconds) of ``runner.run`` over ``feeds``."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = np.stack(list(runner.run(iter(feeds))))
+    torch.cuda.synchronize()
+    return feats, time.perf_counter() - t0
+
+
+def _dp_generator(state, devices=None):
+    """DeepTextGenerator over GPT-2 small at [generate]'s sizes; with
+    ``devices``, its groups spread over that placement."""
+    from sparkdl_torch import DeepTextGenerator
+    from sparkdl_torch.models.gpt import GPTConfig
+
+    class Placed(DeepTextGenerator):
+        @staticmethod
+        def _devices(device, batch_size):
+            return list(devices)
+
+    cls = DeepTextGenerator if devices is None else Placed
+    cfg = GPTConfig(positions="learned", attn_impl="flash", flash_decode=True)
+    return cls(inputCol="prompt", outputCol="gen", model=(cfg, state),
+               batchSize=GEN_BATCH, maxLength=GEN_LEN, maxNewTokens=GEN_NEW)
+
+
+def _dp_tokens(gen, df) -> "tuple":
+    """(tokens by row id, seconds, flash forward and decode launches) of a
+    transform after a warm-up one (each bucket's graph captured), every
+    launch count at 0 just before it."""
+    import torch
+
+    gen.transform(df).collect()
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = gen.transform(df).collect()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    from sparkdl_torch.ops.flash_attention import flash_attention
+    from sparkdl_torch.ops.flash_decode import flash_decode
+
+    return ({r["id"]: r["gen"] for r in out}, secs, flash_attention.launches,
+            flash_decode.launches)
+
+
+def phase_dp(card: str, stem_entry: dict) -> dict:
+    """[dp]: data-parallel inference in one process (BatchedRunner over a
+    LocalDevicePartitioner). The featurizer with data_parallel=None, which
+    on one card resolves to that card, bitwise a runner given apply_fn
+    alone (one card, no replicate); a runner over ["cuda:0", "cuda:0"] (two
+    replicas on one card, each with its own stream and graphs) bitwise a
+    one-card runner at the shard's batch, 32, with its difference from the
+    batch-64 runner printed; DeepTextGenerator over the same two
+    placements, tokens equal; data_parallel=True raising on one card.
+    With two or more cards, the same over min(4, count) real cards, and
+    images/s and tokens/s against one card."""
+    import numpy as np
+    import torch
+
+    from sparkdl_torch import DeepImageFeaturizer, LocalDataFrame
+    from sparkdl_torch.image import imageArrayToStructBGR
+    from sparkdl_torch.models.gpt import GPTConfig, GPTLMHeadModel, init_gpt_
+    from sparkdl_torch.ops.stem_fused import inception_stem_fused
+    from sparkdl_torch.partition import LocalDevicePartitioner
+    from sparkdl_torch.transformers._inference import BatchedRunner
+    from sparkdl_torch.transformers.named_image import _named_apply, _named_model_runner
+
+    t_all = time.perf_counter()
+    count = torch.cuda.device_count()
+    rng = np.random.default_rng(7)
+    images = rng.integers(0, 256, (N_ROWS, SIZE, SIZE, 3), dtype=np.uint8)
+    feeds = [{"img": images[i].astype(np.float32)} for i in range(N_ROWS)]
+    df = LocalDataFrame.from_rows(
+        [{"id": i, "image": imageArrayToStructBGR(images[i])} for i in range(N_ROWS)], 1)
+    n_batches = N_ROWS // BATCH
+
+    def make(dev):
+        return _named_apply("InceptionV3", "random", False, "features", dev)
+
+    # a runner given apply_fn alone: one card, no replicate
+    one = BatchedRunner(make("cuda"), batch_size=BATCH, device="cuda")
+    _dp_features(one, feeds)  # warm-up: graphs
+    want, one_s = _dp_features(one, feeds)
+
+    # the entry point: the featurizer, data_parallel=None
+    featurizer = DeepImageFeaturizer(inputCol="image", outputCol="features",
+                                     modelName="InceptionV3", weights="random",
+                                     batchSize=BATCH)
+    runner = _named_model_runner("InceptionV3", "random", False, "features", BATCH, "cuda")
+    featurizer.transform(df).collect()  # warm-up: graphs
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = featurizer.transform(df).collect()
+    torch.cuda.synchronize()
+    feat_s = time.perf_counter() - t0
+    feat_launches = inception_stem_fused.launches
+    got = np.stack([r["features"] for r in out])
+    n_use = min(count, BATCH)
+    if len(runner.devices) != n_use or feat_launches != n_batches * n_use:
+        raise AssertionError(
+            f"featurizer placement {runner.devices}, {feat_launches} stem launches "
+            f"for {n_batches} batches on {count} cards")
+    failures = []
+    if n_use == 1 and not np.array_equal(got, want):
+        failures.append("the featurizer (data_parallel=None, one card) differs from the "
+                        f"one-card runner: max abs diff {np.abs(got - want).max():.3e}")
+
+    # two replicas on one card: bitwise a one-card runner at the shard's batch
+    shard = BatchedRunner(make("cuda"), batch_size=BATCH // 2, device="cuda")
+    half, _ = _dp_features(shard, feeds)
+    pair = BatchedRunner(make("cuda"), batch_size=BATCH, replicate=make,
+                         partitioner=LocalDevicePartitioner(["cuda:0", "cuda:0"]))
+    _dp_features(pair, feeds)  # warm-up: each replica captures its graphs
+    _zero_counts()
+    paired, pair_s = _dp_features(pair, feeds)
+    pair_launches = inception_stem_fused.launches
+    if pair_launches != 2 * n_batches:
+        failures.append(f"two replicas: {pair_launches} stem launches for "
+                        f"{n_batches} batches")
+    if not np.array_equal(paired, half):
+        failures.append("two replicas on one card differ from the batch-32 runner: max "
+                        f"abs diff {np.abs(paired - half).max():.3e}")
+    scale = float(np.abs(want).max())
+    pair_vs_64 = float(np.abs(paired - want).max())
+    if pair_vs_64 / scale > NET_TOL:
+        failures.append(f"two replicas vs the batch-64 runner: rel {pair_vs_64 / scale:.3e}")
+    try:
+        BatchedRunner(make("cuda"), batch_size=BATCH, data_parallel=True, replicate=make)
+        raised = "no error"
+    except ValueError as e:
+        raised = str(e)
+    if count == 1 and "only one local device" not in raised:
+        failures.append(f"data_parallel=True on one card: {raised}")
+
+    # DeepTextGenerator over the same placements
+    cfg = GPTConfig(positions="learned", attn_impl="flash", flash_decode=True)
+    state = init_gpt_(GPTLMHeadModel(cfg, device="cpu"), seed=0).state_dict()
+    grng = np.random.default_rng(6)
+    prompts = [grng.integers(0, cfg.vocab_size, n).tolist()
+               for n in grng.integers(8, GEN_LEN + 1, GEN_ROWS)]
+    gdf = LocalDataFrame.from_rows([{"id": i, "prompt": p} for i, p in enumerate(prompts)],
+                                   N_PARTS)
+    base, base_s, base_attn, base_decode = _dp_tokens(_dp_generator(state, ["cuda"]), gdf)
+    auto, auto_s, _, _ = _dp_tokens(_dp_generator(state), gdf)
+    two, two_s, two_attn, two_decode = _dp_tokens(
+        _dp_generator(state, ["cuda:0", "cuda:0"]), gdf)
+    n_tok = GEN_ROWS * GEN_NEW
+    for label, toks in (("data_parallel=None", auto), ('["cuda:0", "cuda:0"]', two)):
+        if toks != base:
+            bad = sum(toks[i] != base[i] for i in base)
+            failures.append(f"DeepTextGenerator over {label}: {bad} of {GEN_ROWS} rows' "
+                            "tokens differ from the one-card run's")
+    if not (two_attn and two_decode):
+        failures.append(f"two replicas: flash forward {two_attn}, decode {two_decode} "
+                        "launches")
+    if failures:
+        raise AssertionError("[dp] " + "; ".join(failures))
+    stem_entry["dp_launches"] = pair_launches
+    print(f"[dp] {card}: {count} card(s). DeepImageFeaturizer(InceptionV3), data_parallel="
+          f"None over {N_ROWS} rows, batch {BATCH}: {len(runner.devices)} card(s) "
+          f"{[str(d) for d in runner.devices]}, {feat_launches} stem launches, "
+          + ("bitwise the one-card runner given apply_fn alone (no replicate)"
+             if n_use == 1 else "")
+          + f"; {N_ROWS / feat_s:.1f} images/s through the transform")
+    print(f"[dp] runner over [\"cuda:0\", \"cuda:0\"] (two replicas, own streams and "
+          f"graphs): bitwise the one-card runner at batch {BATCH // 2} True; max diff "
+          f"from the batch-{BATCH} runner {pair_vs_64:.3e} ({pair_vs_64 / scale:.3e} of "
+          f"the largest feature, {scale:.3e}); {pair_launches} stem launches for "
+          f"{n_batches} batches (one a replica); runner.run {N_ROWS / pair_s:.1f} images/s "
+          f"vs one replica {N_ROWS / one_s:.1f}; data_parallel=True here: {raised[:70]!r}")
+    print(f"[dp] DeepTextGenerator GPT-2 small ({GEN_ROWS} prompts of 8-{GEN_LEN} tokens, "
+          f"batch {GEN_BATCH}, {GEN_NEW} greedy tokens, flash): one card "
+          f"{n_tok / base_s:.1f} tokens/s; data_parallel=None tokens equal, "
+          f"{n_tok / auto_s:.1f} tokens/s; two replicas on cuda:0 tokens equal, "
+          f"{n_tok / two_s:.1f} tokens/s, flash forward {two_attn} / decode "
+          f"{two_decode} launches (one card {base_attn} / {base_decode})")
+    out = {"images_s": N_ROWS / feat_s, "one_images_s": N_ROWS / one_s,
+           "pair_images_s": N_ROWS / pair_s, "tokens_s": n_tok / auto_s,
+           "one_tokens_s": n_tok / base_s, "cards": n_use}
+    if n_use > 1:
+        # each card's shard is bitwise a one-card runner at batch B/n
+        shard_n = BatchedRunner(make("cuda"), batch_size=BATCH // n_use, device="cuda")
+        at_shard, _ = _dp_features(shard_n, feeds)
+        _, dp_s = _dp_features(runner, feeds)
+        out["run_images_s"] = N_ROWS / dp_s
+        diff = float(np.abs(got - want).max())
+        if not np.array_equal(got, at_shard):
+            raise AssertionError(
+                f"[dp] {n_use} cards differ from the one-card runner at batch "
+                f"{BATCH // n_use}: max abs diff {np.abs(got - at_shard).max():.3e}")
+        print(f"[dp] {n_use} cards: the featurizer bitwise the one-card runner at batch "
+              f"{BATCH // n_use} True; max diff from the batch-{BATCH} runner {diff:.3e} "
+              f"({diff / scale:.3e} of the largest feature); runner.run images/s "
+              f"{N_ROWS / dp_s:.1f} vs one card {N_ROWS / one_s:.1f} = "
+              f"{one_s / dp_s:.2f}x (the transform, host extract included, "
+              f"{N_ROWS / feat_s:.1f}); tokens/s {n_tok / auto_s:.1f} vs one card "
+              f"{n_tok / base_s:.1f} = {base_s / auto_s:.2f}x; {card}")
+    print(f"[dp] {time.perf_counter() - t_all:.1f} s")
+    return out
 
 
 def phase_train_resnet(card: str, gemm_entry: dict) -> float:
@@ -4640,6 +4851,7 @@ def main() -> int:
     examples_s, bert_step_ms = phase_train_bert(card, dq, dkv, bert_fwd)
     train_dp = phase_train_dp(card, bert_step_ms)
     parallel = phase_parallel(card, attn, decode)
+    dp = phase_dp(card, stem)
     train_images_s = phase_train_resnet(card, gemm)
     zoo_rates = phase_zoo(card)
     zoo_bf16 = phase_zoo_bf16(card, stem, attn)
@@ -4679,7 +4891,10 @@ def main() -> int:
           f"{tokens_s:.1f} tokens/s; BERT-base fine-tune {examples_s:.1f} examples/s; "
           f"ResNet50 training {train_images_s:.1f} images/s; MoE GPT-2 small "
           f"{parallel['moe_tokens_s']:.1f} tokens/s (an MoE layer {parallel['moe_ms']:.3f} "
-          f"ms vs a dense MLP {parallel['dense_ms']:.3f}); [train_dp] BERT-base "
+          f"ms vs a dense MLP {parallel['dense_ms']:.3f}); [dp] featurizer "
+          f"{dp['images_s']:.1f} images/s over {dp['cards']} card(s), two replicas on one "
+          f"{dp['pair_images_s']:.1f} (runner.run), generator {dp['tokens_s']:.1f} "
+          f"tokens/s; [train_dp] BERT-base "
           f"through TorchRunner/finetune_classifier with checkpoints every "
           f"{TRAIN_DP_EVERY} steps {train_dp['loop_examples_s']:.1f} examples/s over the "
           f"whole call (saves included); step-only {train_dp['examples_s']:.1f} "

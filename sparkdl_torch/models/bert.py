@@ -23,7 +23,8 @@ its forward with ``train=False``, as ``finetune_classifier`` does.
 ``"ring"`` (``parallel/ring_attention``): attention over a sequence
 split on the ``sp_axis`` of the mesh, the key mask riding the ring with
 its block; under it ``position_ids`` default to the shard's global
-positions, and attention-probs dropout is skipped as under ``flash``.
+positions, every peer pools the sequence's [CLS] (the first peer's first
+token), and attention-probs dropout is skipped as under ``flash``.
 Under a mesh (``mesh=``, default the ambient ``mesh_context``) whose
 ``tp`` axis is larger than 1, query/key/value and ``intermediate`` are
 column-parallel and ``output_dense`` and ``output`` row-parallel
@@ -44,7 +45,7 @@ import torch.nn.functional as F
 
 from sparkdl_torch.ops._dispatch import resolve_device
 from sparkdl_torch.ops.flash_attention import NEG_INF, flash_attention
-from sparkdl_torch.parallel.collectives import axis_group
+from sparkdl_torch.parallel.collectives import all_reduce, axis_group
 from sparkdl_torch.parallel.ring_attention import ring_self_attention
 from sparkdl_torch.parallel.tensor_parallel import dense_pair, shared_input, tp_size
 from sparkdl_torch.runtime.mesh import Mesh, current_mesh
@@ -252,7 +253,16 @@ class BertModel(nn.Module):
             x = blk(x, mask, train=train, generator=generator)
         pooled = None
         if self.pooler is not None:
-            pooled = torch.tanh(self.pooler(x[:, 0]))
+            first = x[:, 0]
+            if self.config.attn_impl == "ring":
+                # [CLS] is the first token of the sequence, on the first sp
+                # peer: every peer pools it (all_reduce's backward sums the
+                # peers' gradients of it back onto that token; every peer's
+                # input is in the graph, so every peer runs that backward)
+                ag = axis_group(self.config.sp_axis, self.mesh)
+                if ag.size > 1:
+                    first = all_reduce(first * (ag.index == 0), ag)
+            pooled = torch.tanh(self.pooler(first))
         return x, pooled
 
 

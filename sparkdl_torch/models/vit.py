@@ -14,9 +14,14 @@ LayerNorm (eps 1e-12 throughout). Attention dispatches on
 Zoo contract, as the CNNs of the registry: ``forward(x)`` takes NHWC
 [B, S, S, 3] preprocessed images and returns (features, probs); features
 are the final-LayerNorm CLS token [B, hidden], probs the classifier's
-softmax or None without the top. The JAX module's tensor-parallel
-projections are plain ``nn.Linear`` here (tensor parallelism is ROADMAP
-A8). Parameters are created with torch's default init; use
+softmax or None without the top. Under a mesh (``mesh=``, default the
+ambient ``mesh_context``) whose ``tp`` axis is larger than 1, query/key/
+value and ``intermediate`` are column-parallel and ``output_dense`` and
+``output`` row-parallel (``parallel/tensor_parallel``), as the JAX module
+annotates them: each rank holds ``num_heads/tp`` heads and loads its
+slice with ``models/convert.shard_state_dict``. At ``tp = 1`` they are
+plain ``nn.Linear`` s, with the same names. Parameters are created with
+torch's default init; use
 :func:`init_vit_` for Flax's, load a state dict converted from the Flax
 tree (``models/convert.vit_flax_to_torch``) or from a transformers model
 (:func:`load_hf_vit`).
@@ -38,6 +43,8 @@ from torch import nn
 
 from sparkdl_torch.models.common import conv2d_tf, linear
 from sparkdl_torch.ops.flash_attention import flash_attention
+from sparkdl_torch.parallel.tensor_parallel import dense_pair, shared_input, tp_size
+from sparkdl_torch.runtime.mesh import Mesh, current_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,22 +81,34 @@ class ViTConfig:
         return cls(**defaults)
 
 
+def _dense(x: torch.Tensor, m: nn.Linear) -> torch.Tensor:
+    """``m`` applied in ``x``'s dtype: a plain layer through
+    :func:`linear`, a tensor-parallel one through its forward (its
+    collective)."""
+    return linear(x, m) if type(m) is nn.Linear else m(x)
+
+
 class ViTSelfAttention(nn.Module):
-    def __init__(self, config: ViTConfig):
+    def __init__(self, config: ViTConfig, mesh: "Mesh | None" = None,
+                 device=None):
         super().__init__()
         self.config = config
+        self.heads = config.num_heads // tp_size(mesh)
         h = config.hidden_size
-        self.query = nn.Linear(h, h)
-        self.key = nn.Linear(h, h)
-        self.value = nn.Linear(h, h)
-        self.output_dense = nn.Linear(h, h)
+        column, row = dense_pair(mesh, device=device)
+        # q, k and v read one input: one gradient all-reduce for the three
+        self.query = column(h, h, copy_input=False)
+        self.key = column(h, h, copy_input=False)
+        self.value = column(h, h, copy_input=False)
+        self.output_dense = row(h, h)
 
     def forward(self, x):
         c = self.config
-        nh = c.num_heads
-        hd = c.hidden_size // nh
+        nh = self.heads
+        hd = c.hidden_size // c.num_heads
         b, l = x.shape[0], x.shape[1]
-        q, k, v = (linear(x, p).view(b, l, nh, hd)
+        xs = shared_input(x, self.query)
+        q, k, v = (_dense(xs, p).view(b, l, nh, hd)
                    for p in (self.query, self.key, self.value))
         if c.attn_impl == "flash":
             ctx = flash_attention(q, k, v)
@@ -97,7 +116,7 @@ class ViTSelfAttention(nn.Module):
             s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(hd)
             p = torch.softmax(s, dim=-1).to(c.dtype)
             ctx = torch.einsum("bhqk,bkhd->bqhd", p, v)
-        return linear(ctx.reshape(b, l, c.hidden_size), self.output_dense)
+        return _dense(ctx.reshape(b, l, nh * hd), self.output_dense)
 
 
 def _layer_norm(x: torch.Tensor, m: nn.LayerNorm) -> torch.Tensor:
@@ -109,19 +128,23 @@ def _layer_norm(x: torch.Tensor, m: nn.LayerNorm) -> torch.Tensor:
 class ViTBlock(nn.Module):
     """Pre-LN block: LN -> attention -> +residual; LN -> MLP -> +residual."""
 
-    def __init__(self, config: ViTConfig):
+    def __init__(self, config: ViTConfig, mesh: "Mesh | None" = None,
+                 device=None):
         super().__init__()
         c = config
-        self.layernorm_before = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
-        self.attention = ViTSelfAttention(c)
-        self.layernorm_after = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
-        self.intermediate = nn.Linear(c.hidden_size, c.intermediate_size)
-        self.output = nn.Linear(c.intermediate_size, c.hidden_size)
+        self.layernorm_before = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps,
+                                             device=device)
+        self.attention = ViTSelfAttention(c, mesh, device)
+        self.layernorm_after = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps,
+                                            device=device)
+        column, row = dense_pair(mesh, device=device)
+        self.intermediate = column(c.hidden_size, c.intermediate_size)
+        self.output = row(c.intermediate_size, c.hidden_size)
 
     def forward(self, x):
         x = x + self.attention(_layer_norm(x, self.layernorm_before))
-        h = F.gelu(linear(_layer_norm(x, self.layernorm_after), self.intermediate))
-        return x + linear(h, self.output)  # exact GELU above
+        h = F.gelu(_dense(_layer_norm(x, self.layernorm_after), self.intermediate))
+        return x + _dense(h, self.output)  # exact GELU above
 
 
 class ViTModel(nn.Module):
@@ -129,26 +152,39 @@ class ViTModel(nn.Module):
     None), both float32. ``num_classes`` defaults to the config's (which
     :func:`load_hf_vit` sets from HF ``num_labels``); ``dtype``, when
     given, overrides the config's compute dtype. Parameters are float32
-    whatever the compute dtype, as the Flax module's."""
+    whatever the compute dtype, as the Flax module's. ``device``: where
+    the parameters are made (the CPU by default, as the registry builds
+    its models before moving them); ``mesh``: where the tensor-parallel
+    layers find their ``tp`` axis (default the ambient ``mesh_context``)."""
 
     def __init__(self, config: ViTConfig = ViTConfig(), num_classes: "int | None" = None,
-                 include_top: bool = True, dtype: "torch.dtype | None" = None):
+                 include_top: bool = True, dtype: "torch.dtype | None" = None, *,
+                 device=None, mesh: "Mesh | None" = None):
         super().__init__()
         if config.attn_impl not in ("full", "flash"):
             raise ValueError(f"unknown attn_impl {config.attn_impl!r}")
         if dtype is not None and dtype != config.dtype:
             config = dataclasses.replace(config, dtype=dtype)
         c = config
+        mesh = mesh if mesh is not None else current_mesh()
+        if c.num_heads % tp_size(mesh):
+            raise ValueError(
+                f"num_heads {c.num_heads} is not divisible by the "
+                f"{tp_size(mesh)}-way tp axis")
+        device = "cpu" if device is None else device
         self.config = c
+        self.mesh = mesh
         self.include_top = include_top
         self.num_classes = num_classes if num_classes is not None else c.num_classes
         p, h = c.patch_size, c.hidden_size
-        self.patch_embed = nn.Conv2d(3, h, p, stride=p)
-        self.cls_token = nn.Parameter(torch.zeros(1, 1, h))
-        self.pos_embed = nn.Parameter(torch.zeros(1, c.num_patches + 1, h))
-        self.layer = nn.ModuleList(ViTBlock(c) for _ in range(c.num_layers))
-        self.layernorm = nn.LayerNorm(h, eps=c.layer_norm_eps)
-        self.classifier = nn.Linear(h, self.num_classes) if include_top else None
+        kw = dict(device=torch.device(device))
+        self.patch_embed = nn.Conv2d(3, h, p, stride=p, **kw)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, h, **kw))
+        self.pos_embed = nn.Parameter(torch.zeros(1, c.num_patches + 1, h, **kw))
+        self.layer = nn.ModuleList(ViTBlock(c, mesh, kw["device"])
+                                   for _ in range(c.num_layers))
+        self.layernorm = nn.LayerNorm(h, eps=c.layer_norm_eps, **kw)
+        self.classifier = nn.Linear(h, self.num_classes, **kw) if include_top else None
 
     def forward(self, x: torch.Tensor):
         c = self.config

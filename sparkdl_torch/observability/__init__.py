@@ -19,8 +19,9 @@ needs no JAX:
 * :mod:`~sparkdl_torch.observability.slo` — declared latency /
   availability objectives with rolling error-budget burn.
 
-The reference's fleet roll-ups and the pre-training health probe are
-ROADMAP A8.
+The pre-training health probe is :func:`~sparkdl_torch.observability.health.preflight`
+(each ``TorchRunner`` rank runs it); the reference's fleet roll-ups
+(``observability/fleet.py``) come with the fleet, ROADMAP A9.
 """
 
 from sparkdl_torch.observability.exporters import (

@@ -103,9 +103,10 @@ def _check(x: torch.Tensor, folded: dict, dtype: torch.dtype) -> None:
 
 
 def inception_stem_fused(x: torch.Tensor, folded: dict, *,
-                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                         dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """NHWC pixels [B, S, S, 3] (uint8 or float32, [0, 255]) -> stem
-    features [B, Rp, Rp, 64] in ``dtype`` (float32 or bfloat16).
+    features [B, Rp, Rp, 64] in ``dtype`` (float32 or bfloat16; bfloat16
+    by default, as the JAX kernel's).
 
     ``folded`` from :func:`fold_stem_params`. On CUDA tensors this launches
     the kernel on the current stream (``inception_stem_fused.launches``

@@ -144,12 +144,24 @@ def _chunk(x: torch.Tensor, ag: AxisGroup, dim: int) -> torch.Tensor:
 
 def _all_to_all(x: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
     """Chunk ``j`` of dim 0 goes to peer ``j``; chunk ``i`` of the result
-    came from peer ``i``."""
+    came from peer ``i``. Written as one batch of sends and receives, the
+    exchange the ring's hops make, which a train step's CUDA graph
+    captures on the card (``tools/parallel4_probe.py``'s MoE step at
+    ep = 4)."""
     if ag.size == 1:
         return x
+    dist = _dist()
     x = x.contiguous()
     out = torch.empty_like(x)
-    _dist().all_to_all_single(out, x, group=ag.group)
+    mine, theirs = x.chunk(ag.size), out.chunk(ag.size)
+    theirs[ag.index].copy_(mine[ag.index])
+    ops = []
+    for j in range(ag.size):
+        if j != ag.index:
+            ops += [dist.P2POp(dist.isend, mine[j], ag.rank_at(j), ag.group),
+                    dist.P2POp(dist.irecv, theirs[j], ag.rank_at(j), ag.group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
     return out
 
 

@@ -17,9 +17,9 @@ The GShard/Switch token-choice form, as the reference writes it:
 With ``ep > 1`` each rank holds ``E/ep`` experts. The reference's GSPMD
 inserts an all-to-all where the token batch is split and the expert dim
 too; here it is written out: the dispatched ``[E, G, C, M]`` buffer goes
-to the experts' owners by ``all_to_all_single`` over the ``ep`` group,
-each rank runs its experts over every rank's tokens, and a second
-all-to-all brings the outputs back. Each ``ep`` rank feeds its own
+to the experts' owners by an all-to-all over the ``ep`` group
+(``collectives.all_to_all``), each rank runs its experts over every
+rank's tokens, and a second all-to-all brings the outputs back. Each ``ep`` rank feeds its own
 tokens (as a data axis); the groups all ranks feed must have the same
 shape.
 

@@ -13,6 +13,10 @@ collective out, as Megatron does on NCCL:
   rank's ``[out, in/tp]`` columns; the partial products are all-reduced
   over ``tp``, and the replicated bias is added once, after the reduce.
 
+Both compute in their input's dtype (a float32 weight is cast at the op,
+as ``models/common.linear`` casts it for a model with a lower compute
+dtype).
+
 ``ColumnParallelDense -> activation -> RowParallelDense`` (:class:`TPMlpBlock`)
 costs one all-reduce in the forward and one in the backward. The two
 are the conjugate pair of ``autograd.Function`` s below: identity
@@ -109,6 +113,10 @@ def _split(n: int, parts: int, what: str) -> int:
     return n // parts
 
 
+def _as(t: "torch.Tensor | None", like: torch.Tensor) -> "torch.Tensor | None":
+    return None if t is None else t.to(like.dtype)
+
+
 class _TPLinear(nn.Linear):
     """An ``nn.Linear`` holding this rank's slice, on ``device`` (the
     card unless the caller asks for ``"cpu"``); its axis group is
@@ -163,7 +171,7 @@ class ColumnParallelDense(_TPLinear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.copy_input:
             x = copy_to_tp(x, self.axis())
-        return F.linear(x, self.weight, self.bias)
+        return F.linear(x, self.weight.to(x.dtype), _as(self.bias, x))
 
 
 class RowParallelDense(_TPLinear):
@@ -180,8 +188,8 @@ class RowParallelDense(_TPLinear):
                          mesh=mesh, device=device, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = reduce_from_tp(F.linear(x, self.weight), self.axis())
-        return y if self.bias is None else y + self.bias
+        y = reduce_from_tp(F.linear(x, self.weight.to(x.dtype)), self.axis())
+        return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
 def dense_pair(mesh: "Mesh | None", *, device="cuda", dtype=torch.float32):

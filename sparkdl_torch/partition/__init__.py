@@ -6,9 +6,11 @@
   fail-loud, per-model defaults (GPT/BERT/ViT), hit counts in the
   metrics spine.
 - ``partitioner``: :class:`SingleDevicePartitioner` (a ReplicaPool
-  executor), :class:`DataParallelPartitioner` (dp + optional ZeRO
-  opt-state sharding), :class:`SPMDPartitioner` (rule-placed state), and
-  the :class:`ShardedOptimizer` whose step holds the collectives.
+  executor), :class:`LocalDevicePartitioner` (a batch split over the
+  devices of one process: data-parallel inference),
+  :class:`DataParallelPartitioner` (dp + optional ZeRO opt-state
+  sharding), :class:`SPMDPartitioner` (rule-placed state), and the
+  :class:`ShardedOptimizer` whose step holds the collectives.
 - ``mesh_factory``: dp × tp × fsdp meshes over the ranks of the process
   group, with typed :class:`MeshShapeError` validation.
 - ``zero``: the ZeRO spec policy and per-rank optimizer-state bytes
@@ -23,6 +25,7 @@ from sparkdl_torch.partition.mesh_factory import (
 )
 from sparkdl_torch.partition.partitioner import (
     DataParallelPartitioner,
+    LocalDevicePartitioner,
     Partitioner,
     ShardedOptimizer,
     SingleDevicePartitioner,
@@ -54,6 +57,7 @@ __all__ = [
     "make_mesh",
     "Partitioner",
     "SingleDevicePartitioner",
+    "LocalDevicePartitioner",
     "DataParallelPartitioner",
     "SPMDPartitioner",
     "ShardedOptimizer",

@@ -34,16 +34,34 @@ Implementations:
 - :class:`SPMDPartitioner`: params placed by a rule table on the fsdp
   axis (their optimizer state with them), plus ZeRO on ``zero_axis``
   where a rule left a leaf replicated.
+- :class:`LocalDevicePartitioner`: no process group; the devices one
+  process drives, a batch's rows split over them (data-parallel
+  inference in a :class:`~sparkdl_torch.transformers._inference.
+  BatchedRunner`).
 
-A mesh whose ``tp`` axis is larger than 1 runs Megatron's tensor
-parallelism: the model is built under the mesh (its tensor-parallel
-layers hold this rank's slices, ``parallel/tensor_parallel``), such a
-parameter keeps its slice and its optimizer state follows it, and the
-gradients are reduced over the batch axes only (each data shard's
-``tp`` ranks run one model between them; their collectives live in the
-layers). A mesh whose ``pp``, ``sp`` or ``ep`` axis is larger than 1
-raises ``NotImplementedError`` (ROADMAP A8 parallel), and so does a
-parameter split on ``tp`` and on a sharded data axis at once.
+Every mesh axis trains. The batch splits over the batch axes only; a
+parameter stays whole on every rank unless a rule places its optimizer
+state (the fsdp, dp or pp entries of a rule table, or ZeRO) or a parallel
+layer holds it split (``tp``: Megatron's tensor parallelism, the model
+built under the mesh, ``parallel/tensor_parallel``; ``ep``: the expert
+stacks of ``parallel/expert_parallel``); gradients reduce over the ranks
+that hold the same slice. How they reduce follows the gradient each
+axis's layers leave on a rank:
+
+- ``tp`` and ``pp`` ranks run one model between them, and their layers
+  (the conjugate all-reduces of the tensor-parallel layers, the
+  pipeline's broadcast of the last stage's output) leave each of them
+  the whole gradient of that model's one loss: nothing is summed over
+  them;
+- over every other axis (the batch axes, ``sp``, ``ep``) each rank's
+  loss is one term of the total and the collectives in between are the
+  adjoints of their forwards (the ring's K/V accumulators travel back to
+  their owners, the experts' all-to-all runs backwards): a rank's
+  gradient is its part of the sum, so they are summed, and divided by
+  the number of terms. Under ``sp`` every rank feeds the same rows (its
+  block of their tokens), and the terms are equal; under ``ep`` the
+  batch splits over ``ep`` when it is a batch axis, and otherwise every
+  ``ep`` rank feeds the same rows.
 """
 
 from __future__ import annotations
@@ -80,14 +98,19 @@ from sparkdl_torch.runtime.tree import tree_map
 __all__ = [
     "Partitioner",
     "SingleDevicePartitioner",
+    "LocalDevicePartitioner",
     "DataParallelPartitioner",
     "SPMDPartitioner",
     "ShardedOptimizer",
 ]
 
-#: axes a train step cannot split yet (their collectives live in parallel/)
-_MODEL_AXES = ("pp", "sp", "ep")
-#: the axis whose placement the model's own layers hold
+#: the model axes a mesh may split besides the batch axes
+_MODEL_AXES = ("tp", "pp", "sp", "ep")
+#: axes whose ranks run one model and hold one loss between them: a
+#: gradient is not summed over them
+_COPY_AXES = ("tp", "pp")
+#: axes whose placement the model's own layers hold (a slice per rank)
+_LAYER_AXES = ("tp", "ep")
 _TP = "tp"
 
 
@@ -116,23 +139,13 @@ class Partitioner:
                     f"zero_axis {zero_axis!r} not in mesh axes "
                     f"{tuple(mesh.axis_names)}"
                 )
-            split = {a: s for a, s in mesh.shape.items()
-                     if a in _MODEL_AXES and s > 1}
-            if split:
-                raise NotImplementedError(
-                    f"mesh axes {split} (pipeline, sequence or expert "
-                    "parallelism) are not ported to a train step of "
-                    "sparkdl_torch yet (ROADMAP A8 parallel); the port "
-                    "splits the batch and the optimizer state over dp and "
-                    "fsdp, and the model over tp")
             idle = {a: s for a, s in mesh.shape.items()
-                    if s > 1 and a not in batch_axes and a != _TP}
+                    if s > 1 and a not in batch_axes and a not in _MODEL_AXES}
             if idle:
-                raise NotImplementedError(
-                    f"mesh axes {idle} outside the batch axes "
-                    f"{tuple(batch_axes)}: the port's data-parallel step "
-                    "splits the batch over every axis of size > 1 "
-                    "(ROADMAP A8 parallel)")
+                raise MeshShapeError(
+                    f"mesh axes {idle} are neither batch axes "
+                    f"{tuple(batch_axes)} nor model axes {_MODEL_AXES}: "
+                    "name them in batch_axes to split the batch over them")
         self.batch_axes = tuple(batch_axes)
         self.zero_axis = zero_axis
         if device is not None:
@@ -251,51 +264,49 @@ class Partitioner:
                 "(the partitioner does not move a model off it)")
         model.to(self.device)
         specs = self.param_specs(model, count_hits=True)
-        local = self._tp_local(model)
+        split = self._layer_split(model)
         self._check_divisible(model, specs, "param")
         group = self._group(None)
         if group is not None and world_size() > 1:
             import torch.distributed as dist
 
             with torch.no_grad():
-                # whole tensors from rank 0; a tp slice from the first
-                # rank of its data group, which holds the same slice
+                # whole tensors from rank 0; a layer's slice from the first
+                # of the ranks that hold the same slice (the same
+                # coordinate on its axis)
                 whole = [t for n, t in (*model.named_parameters(),
                                         *model.named_buffers())
-                         if n not in local]
-                sliced = [p for n, p in model.named_parameters() if n in local]
-                for tensors, grp, src in (
-                        (whole, group, 0),
-                        (sliced, self._data_group(), None)):
-                    if grp is None:
-                        continue  # a tp slice with no data-parallel peer
-                    if src is None:  # the first rank holding this slice
-                        src = self.mesh.axis_ranks(self._data_axes())[0]
+                         if n not in split]
+                jobs = [(whole, group, 0)]
+                for axis in sorted(set(split.values())):
+                    peers = tuple(a for a in self._split_axes() if a != axis)
+                    if peers:  # else no other rank holds this slice
+                        jobs.append((
+                            [p for n, p in model.named_parameters()
+                             if split.get(n) == axis],
+                            self.mesh.group(peers),
+                            self.mesh.axis_ranks(peers)[0]))
+                for tensors, grp, src in jobs:
                     for flat, views in _flat_groups(tensors):
                         dist.broadcast(flat, src=src, group=grp)
                         _copy_back(flat, views)
         return model
 
-    def _tp_local(self, model: torch.nn.Module) -> "set[str]":
-        """Names of the parameters ``model`` holds as this rank's ``tp``
-        slice; raises under a ``tp`` axis > 1 for a model with none (one
-        built without the mesh: every rank would hold it whole)."""
+    def _layer_split(self, model: torch.nn.Module) -> "dict[str, str]":
+        """``{name: axis}`` of the parameters ``model``'s layers hold as
+        this rank's slice (over ``tp`` or ``ep``); raises under a ``tp``
+        axis > 1 for a model with none (one built without the mesh:
+        every rank would hold it whole)."""
         from sparkdl_torch.parallel.tensor_parallel import split_params
 
-        split = split_params(model)
-        local = {n for n, (axis, _, _) in split.items() if axis == _TP}
-        for n, (axis, _, _) in split.items():
-            if axis != _TP:
-                raise NotImplementedError(
-                    f"param {n!r} is split over {axis!r}: a train step over "
-                    "that axis is not ported yet (ROADMAP A8 parallel)")
-        if self._axis_size(_TP) > 1 and not local:
+        split = {n: axis for n, (axis, _, _) in split_params(model).items()}
+        if self._axis_size(_TP) > 1 and _TP not in split.values():
             raise ValueError(
                 f"the mesh splits tp {self._axis_size(_TP)} ways and the model "
                 "holds no tensor-parallel layer: build it under the mesh "
                 "(mesh= or mesh_context) and load its slice "
                 "(models.convert.shard_state_dict)")
-        return local
+        return split
 
     def shard_opt_state(self, optimizer: torch.optim.Optimizer,
                         model: torch.nn.Module) -> "ShardedOptimizer":
@@ -305,9 +316,9 @@ class Partitioner:
         shard its spec gives this rank."""
         named = dict(model.named_parameters())
         specs = self.opt_specs(named, count_hits=True)
-        local = self._tp_local(model)
+        split = self._layer_split(model)
         self._check_divisible(named, specs, "opt")
-        return ShardedOptimizer(self, model, optimizer, specs, tp_local=local)
+        return ShardedOptimizer(self, model, optimizer, specs, split=split)
 
     def shard_replicated(self, tree: Any) -> Any:
         """Small replicated leaves (step counters) on this rank's device."""
@@ -325,9 +336,10 @@ class Partitioner:
     # -- the step ------------------------------------------------------------
     def wrap_step(self, step_fn: Callable, state: Any = None) -> Callable:
         """``step(batch) -> metrics`` whose metrics are the mean over the
-        data axes (each rank's step saw its local shard; the mean of the
-        shards' means is the global batch's, the shards being equal).
-        The gradient collectives live in the :class:`ShardedOptimizer`."""
+        ranks whose losses are terms of the total (:meth:`grad_terms`:
+        each saw its shard of the batch, or, over ``sp``, its block of the
+        same rows). The gradient collectives live in the
+        :class:`ShardedOptimizer`."""
         del state
         if self.mesh is not None and self.mesh.size != world_size():
             raise MeshShapeError(
@@ -335,7 +347,7 @@ class Partitioner:
                 f"process group of {self.mesh.size} ranks, got "
                 f"{world_size()}: run it under TorchRunner")
         group = self._data_group()
-        n = self.data_axis_size
+        n = self.grad_terms
         if group is None or n == 1:
             return step_fn  # nothing to average
 
@@ -376,18 +388,36 @@ class Partitioner:
             return dist.group.WORLD
         return self.mesh.group(axis)
 
-    def _data_axes(self) -> "tuple[str, ...]":
-        """The batch axes this mesh splits (size > 1)."""
-        return tuple(a for a in self.batch_axes if self._axis_size(a) > 1)
+    def _split_axes(self) -> "tuple[str, ...]":
+        """The mesh axes of size > 1, in mesh order."""
+        if self.mesh is None:
+            return ()
+        return tuple(a for a in self.mesh.axis_names if self._axis_size(a) > 1)
 
-    def _data_group(self):
-        """The process group of this rank's data-parallel peers: every
-        rank without a ``tp`` split, else the ranks of this rank's ``tp``
-        coordinate (None when no process group is up)."""
-        if self._axis_size(_TP) == 1 or self._group(None) is None:
+    def _term_axes(self) -> "tuple[str, ...]":
+        """The split axes over which each rank's loss is one term of the
+        total: every split axis but ``tp`` and ``pp``."""
+        return tuple(a for a in self._split_axes() if a not in _COPY_AXES)
+
+    @property
+    def grad_terms(self) -> int:
+        """The number of loss terms a gradient sums over (the product of
+        the :meth:`_term_axes`' sizes): what it is divided by."""
+        n = 1
+        for a in self._term_axes():
+            n *= self._axis_size(a)
+        return n
+
+    def _data_group(self, axes: "tuple[str, ...] | None" = None):
+        """The process group over ``axes`` (default :meth:`_term_axes`):
+        every rank when they are all the split axes, None when there are
+        none or no process group is up."""
+        axes = self._term_axes() if axes is None else axes
+        if not axes or self._group(None) is None:
+            return None
+        if axes == self._split_axes():
             return self._group(None)
-        axes = self._data_axes()
-        return self.mesh.group(axes) if axes else None
+        return self.mesh.group(axes)
 
     @property
     def data_axis_size(self) -> int:
@@ -420,9 +450,9 @@ class Partitioner:
     # -- validation ----------------------------------------------------------
     def _check_divisible(self, tree: Any, specs: Any, what: str) -> None:
         """Loud on a dim its spec splits more ways than it divides. A
-        ``tp`` entry is not counted: the model's layers hold their slices
-        (each layer checked its whole when it was built), and a parameter
-        they hold whole is replicated over ``tp``."""
+        ``tp`` or ``ep`` entry is not counted: the model's layers hold
+        their slices (each layer checked its whole when it was built), and
+        a parameter they hold whole is replicated over that axis."""
         if self.mesh is None:
             return
         for (name, leaf), (_, spec) in zip(tree_path_names(tree),
@@ -433,7 +463,7 @@ class Partitioner:
                     continue
                 n = 1
                 for a in _parts(part):
-                    if a != _TP:
+                    if a not in _LAYER_AXES:
                         n *= self._axis_size(a)
                 if n > 1 and shape[i] % n != 0:
                     raise MeshShapeError(
@@ -510,12 +540,11 @@ class SPMDPartitioner(Partitioner):
     """Params placed by a regex rule table (partition/rules.py), batch
     over the data axes, optimizer state rule-matched the same way plus
     ZeRO sharding along ``zero_axis`` where replicated: dp x tp x fsdp,
-    the reference's general form. A rule's ``tp`` entry is live where the
-    model's tensor-parallel layers hold that parameter's slice; a
-    parameter they hold whole (the embeddings) is replicated over ``tp``.
-    The rules' fsdp entries shard the optimizer state of whole
-    parameters; a ``tp`` slice sharded on fsdp too raises (ROADMAP A8
-    parallel)."""
+    the reference's general form. A rule's ``tp`` (``ep``) entry is live
+    where the model's tensor-parallel layers (expert stacks) hold that
+    parameter's slice; a parameter they hold whole (the embeddings) is
+    replicated over that axis. The rules' fsdp entries shard the optimizer
+    state of what a rank holds: a whole parameter, or a ``tp`` slice."""
 
     def __init__(self, mesh: Mesh, rules: "Sequence[tuple[str, P]]", *,
                  batch_axes: Sequence[str] = ("dp", "fsdp"),
@@ -578,12 +607,14 @@ def _copy_back(flat: torch.Tensor, targets: "list[torch.Tensor]") -> None:
 
 
 class _Sharded:
-    """One parameter whose optimizer state lives split along ``dim``."""
+    """One parameter whose optimizer state lives split along ``dim`` over
+    the mesh axes ``axes`` (one axis, or a tuple of them flattened in
+    order: ``index`` is this rank's place among their ``n`` ranks)."""
 
-    def __init__(self, name: str, param: torch.nn.Parameter, axis: str,
-                 dim: int, n: int, index: int):
+    def __init__(self, name: str, param: torch.nn.Parameter,
+                 axes: "tuple[str, ...]", dim: int, n: int, index: int):
         self.name, self.param, self.dim, self.n = name, param, dim, n
-        self.axis = axis
+        self.axes = axes
         self.index = index
         full = param.shape[dim]
         self.rows = full // n
@@ -621,79 +652,112 @@ class _Sharded:
         self.param.detach().copy_(full.movedim(0, self.dim))
 
 
+class _ShardBucket:
+    """The sharded parameters of one step that share their shard axes and
+    the axes their gradient is summed over besides: one reduce-scatter
+    (or, over ``pp``, where every rank holds the whole gradient, this
+    rank's rows), one all-reduce over ``rest`` and one all-gather."""
+
+    def __init__(self, partitioner: "Partitioner", axes: "tuple[str, ...]",
+                 rest: "tuple[str, ...]"):
+        self.axes, self.rest = axes, rest
+        self.items: "list[_Sharded]" = []
+        #: every rank holds the whole gradient: no sum over ``axes``
+        self.copy = axes[0] in _COPY_AXES
+        self.group = partitioner._data_group(axes)
+        self.rest_group = partitioner._data_group(rest)
+
+
 class ShardedOptimizer:
-    """The update of a data-parallel step, with its collectives.
+    """The update of a step across ranks, with its collectives.
 
     ``step()`` (called where the train step calls ``optimizer.step()``,
     after the backward):
 
-    1. the gradients of replicated parameters: one all-reduce over the
-       data axes, then /n, in place on a flat buffer per dtype that the
-       backward accumulated into (each ``p.grad`` is a view of it, bound
-       by :meth:`zero_grad`);
-    2. the gradients of parameters whose state is sharded on an axis:
-       one reduce-scatter of a flat buffer (rank r receives the sum of
-       its shard's rows), an all-reduce over the remaining data axis
-       where there is one, then /n;
-    3. the wrapped optimizer's step: the replicated parameters in place,
-       the sharded ones on this rank's slices;
-    4. one all-gather of the updated slices into every rank's whole
-       parameters.
+    1. the gradients of parameters held whole (or as a layer's slice):
+       one all-reduce per set of ranks holding the same tensor, in place
+       on a flat buffer per dtype that the backward accumulated into
+       (each ``p.grad`` is a view of it, bound by :meth:`zero_grad`);
+    2. the gradients of parameters whose state is sharded: per set of
+       shard axes, one reduce-scatter of a flat buffer (rank r receives
+       the sum of its shard's rows; over ``pp``, whose ranks hold the
+       whole gradient already, its rows are taken), an all-reduce over
+       the remaining axes where there are any;
+    3. every gradient divided by the partitioner's
+       :attr:`~Partitioner.grad_terms`, then the wrapped optimizer's
+       step: the whole parameters in place, the sharded ones on this
+       rank's slices;
+    4. one all-gather per set of shard axes of the updated slices into
+       every rank's whole parameters.
+
+    Which ranks' gradients are summed is the module docstring's rule:
+    those holding the same slice, over every axis but ``tp`` and ``pp``.
+    A rule's ``tp`` or ``ep`` entry is the layers' placement (a slice
+    they hold, or a parameter they hold whole, replicated over that
+    axis), never an optimizer shard; its fsdp (dp, pp) entries shard the
+    state of whatever the rank holds, a layer's slice included.
 
     All of it is tensor work on the step's stream, so a CUDA graph of the
-    step captures the collectives with it. On a one-way data axis only
-    step 3 runs: the plain optimizer step. The wrapped optimizer is the one
-    given when nothing is sharded; otherwise one of its class with its
-    ``defaults`` over the owned tensors (one parameter group required).
+    step captures the collectives with it. With one loss term and nothing
+    sharded only step 3 runs: the plain optimizer step. The wrapped
+    optimizer is the one given when nothing is sharded; otherwise one of
+    its class with its ``defaults`` over the owned tensors (one parameter
+    group required).
     """
 
     def __init__(self, partitioner: Partitioner, model: torch.nn.Module,
                  optimizer: torch.optim.Optimizer, specs: "dict[str, P]",
-                 tp_local: "set[str]" = frozenset()):
+                 split: "dict[str, str] | None" = None):
+        split = split or {}
         self.model = model
         named = [(n, p) for n, p in model.named_parameters()
                  if p.requires_grad]
         self._mesh = partitioner.mesh
-        self._data_group = partitioner._data_group()
-        self._n = partitioner.data_axis_size
-        self.replicated: "list[torch.nn.Parameter]" = []
-        self.sharded: "list[_Sharded]" = []
-        self.shard_axis: "str | None" = None
+        self._n = partitioner.grad_terms
+        terms = partitioner._term_axes()
+        whole: "dict[tuple[str, ...], list[torch.nn.Parameter]]" = {}
+        buckets: "dict[tuple, _ShardBucket]" = {}
         for name, p in named:
-            # tp is the layers' placement: a slice is this rank's tensor,
-            # a whole parameter is the same on every tp rank
             axes = [(d, a) for d, part in enumerate(specs.get(name, P()))
                     for a in _parts(part)
-                    if a is not None and a != _TP
+                    if a is not None and a not in _LAYER_AXES
                     and partitioner._axis_size(a) > 1]
-            if axes and name in tp_local:
-                raise NotImplementedError(
-                    f"param {name!r} spec {specs[name]!r}: a tp slice sharded "
-                    f"on {axes[0][1]!r} too (two axes) is not ported yet "
-                    "(ROADMAP A8 parallel)")
+            # the ranks holding this rank's tensor whose losses are terms
+            reduce = tuple(a for a in terms if a != split.get(name))
             if not axes:
-                self.replicated.append(p)
+                whole.setdefault(reduce, []).append(p)
                 continue
-            if len(axes) > 1 or (self.shard_axis not in (None, axes[0][1])):
-                raise NotImplementedError(
-                    f"param {name!r} spec {specs[name]!r}: one shard axis a "
-                    "step is ported (ROADMAP A8 parallel)")
-            dim, axis = axes[0]
-            self.shard_axis = axis
-            self.sharded.append(_Sharded(
-                name, p, axis, dim, partitioner._axis_size(axis),
-                partitioner.mesh.coordinate(axis)))
-        #: the replicated gradients' flat buffers, all-reduced in place
-        self._grad_flats = (
-            _grad_buffers(self.replicated)
-            if self._data_group is not None and self._n > 1 else [])
-        self._shard_group = self._replica_group = None
+            if len({d for d, _ in axes}) > 1:
+                raise ValueError(
+                    f"param {name!r} spec {specs[name]!r} shards its state on "
+                    "two dims: split one dim over a tuple of axes instead")
+            shard = tuple(a for _, a in axes)
+            if len(shard) > 1 and any(a in _COPY_AXES for a in shard):
+                raise ValueError(
+                    f"param {name!r} spec {specs[name]!r}: a state shard over "
+                    f"{[a for a in shard if a in _COPY_AXES]} takes that axis "
+                    "alone")
+            n, index = 1, 0
+            for a in shard:
+                n *= partitioner._axis_size(a)
+                index = index * partitioner._axis_size(a) + self._mesh.coordinate(a)
+            rest = tuple(a for a in reduce if a not in shard)
+            bucket = buckets.get((shard, rest))
+            if bucket is None:
+                bucket = buckets[(shard, rest)] = _ShardBucket(
+                    partitioner, shard, rest)
+            bucket.items.append(_Sharded(name, p, shard, axes[0][0], n, index))
+        live = partitioner._group(None) is not None and self._n > 1
+        #: (group or None, flat, params, views): the whole parameters'
+        #: gradient buffers, all-reduced in place and divided
+        self._grad_flats = [
+            (partitioner._data_group(reduce), flat, ps, views)
+            for reduce, params in whole.items()
+            for flat, ps, views in (_grad_buffers(params) if live else [])]
+        self._buckets = list(buckets.values())
+        self.sharded: "list[_Sharded]" = [
+            s for b in self._buckets for s in b.items]
         if self.sharded:
-            self._shard_group = partitioner._group(self.shard_axis)
-            rest = [a for a in partitioner.batch_axes
-                    if a != self.shard_axis and partitioner._axis_size(a) > 1]
-            if rest:
-                self._replica_group = partitioner._group(rest[0])
             if len(optimizer.param_groups) != 1:
                 raise ValueError(
                     "a sharded optimizer state takes an optimizer with one "
@@ -714,7 +778,7 @@ class ShardedOptimizer:
 
     def zero_grad(self, set_to_none: bool = True) -> None:
         self.model.zero_grad(set_to_none=set_to_none)
-        for flat, params, views in self._grad_flats:
+        for _, flat, params, views in self._grad_flats:
             flat.zero_()
             for p, v in zip(params, views):
                 p.grad = v  # the backward accumulates into the buffer
@@ -725,7 +789,14 @@ class ShardedOptimizer:
     def step(self) -> None:
         import torch.distributed as dist
 
-        for flat, params, views in self._grad_flats:
+        for b in self._buckets:
+            if b.group is None:
+                raise MeshShapeError(
+                    f"optimizer state sharded {b.items[0].n} ways on "
+                    f"{b.axes!r} needs a process group of "
+                    f"{self._mesh.size} ranks: run the step under "
+                    "TorchRunner")
+        for group, flat, params, views in self._grad_flats:
             for p, v in zip(params, views):
                 if p.grad is None:
                     v.zero_()
@@ -733,38 +804,36 @@ class ShardedOptimizer:
                 elif p.grad is not v:  # set outside zero_grad: take it in
                     v.copy_(p.grad)
                     p.grad = v
-            dist.all_reduce(flat, group=self._data_group)
+            if group is not None:
+                dist.all_reduce(flat, group=group)
             flat.div_(self._n)
-        if self.sharded:
-            if self._shard_group is None:
-                raise MeshShapeError(
-                    f"optimizer state sharded {self.sharded[0].n} ways on "
-                    f"{self.shard_axis!r} needs a process group of "
-                    f"{self._mesh.size} ranks: run the step under "
-                    "TorchRunner")
-            cols = torch.cat([s.grad_columns() for s in self.sharded], dim=1)
-            shard = torch.empty(cols.shape[1], dtype=cols.dtype,
-                                device=cols.device)
-            dist.reduce_scatter_tensor(shard, cols.reshape(-1),
-                                       group=self._shard_group)
-            if self._replica_group is not None:
-                dist.all_reduce(shard, group=self._replica_group)
-            shard.div_(self._n)
+        for b in self._buckets:
+            cols = torch.cat([s.grad_columns() for s in b.items], dim=1)
+            if b.copy:
+                shard = cols[b.items[0].index].contiguous()
+            else:
+                shard = torch.empty(cols.shape[1], dtype=cols.dtype,
+                                    device=cols.device)
+                dist.reduce_scatter_tensor(shard, cols.reshape(-1),
+                                           group=b.group)
+            if b.rest_group is not None:
+                dist.all_reduce(shard, group=b.rest_group)
+            if self._n > 1:
+                shard.div_(self._n)
             offset = 0
-            for s in self.sharded:
+            for s in b.items:
                 s.set_grad(shard[offset:offset + s.numel])
                 offset += s.numel
         self.optimizer.step()
-        if self.sharded:
-            mine = torch.cat([s.owned_flat() for s in self.sharded])
-            n = self.sharded[0].n
+        for b in self._buckets:
+            mine = torch.cat([s.owned_flat() for s in b.items])
+            n = b.items[0].n
             gathered = torch.empty(n * mine.numel(), dtype=mine.dtype,
                                    device=mine.device)
-            dist.all_gather_into_tensor(gathered, mine,
-                                        group=self._shard_group)
+            dist.all_gather_into_tensor(gathered, mine, group=b.group)
             block = gathered.view(n, mine.numel())
             offset = 0
-            for s in self.sharded:
+            for s in b.items:
                 s.write_gathered(block[:, offset:offset + s.numel])
                 offset += s.numel
 
@@ -796,7 +865,7 @@ class ShardedOptimizer:
                 if (s is not None and isinstance(v, torch.Tensor)
                         and v.shape == s.owned.shape):
                     spec = [None] * s.param.dim()
-                    spec[s.dim] = s.axis
+                    spec[s.dim] = s.axes[0] if len(s.axes) == 1 else s.axes
                     v = DTensor.from_local(
                         v, self._mesh.device_mesh,
                         spec_placements(P(*spec), self._mesh),
@@ -805,3 +874,77 @@ class ShardedOptimizer:
                 entry[key] = v
             out[name] = entry
         return out
+
+
+class LocalDevicePartitioner:
+    """A batch split over the devices that one process drives: the port's
+    counterpart of the reference's ``DataParallelPartitioner(
+    data_parallel_mesh(local_devices))``, which a
+    :class:`~sparkdl_torch.transformers._inference.BatchedRunner` takes as
+    ``partitioner=`` (and builds over ``cuda:0`` ... ``cuda:n-1`` itself
+    when ``data_parallel`` resolves on).
+
+    No process group: the runner keeps one replica of its apply function
+    per device, and each batch's rows are cut into ``data_axis_size``
+    contiguous shards, shard ``i`` on ``devices[i]``, the outputs put back
+    together in order. A device may repeat: ``["cpu"] * n`` stands in for
+    ``n`` cards on the CPU, and ``["cuda:0", "cuda:0"]`` runs two
+    replicas, each with its own stream and graphs, on one card."""
+
+    mesh = None
+    batch_axes = ("dp",)
+
+    def __init__(self, devices: "Sequence[Any]"):
+        devices = [resolve_device(d) for d in devices]
+        if not devices:
+            raise ValueError("LocalDevicePartitioner needs at least one device")
+        #: the devices, ``cuda`` given its index (the current card)
+        self.devices = tuple(
+            torch.device("cuda", torch.cuda.current_device())
+            if d.type == "cuda" and d.index is None else d for d in devices)
+
+    @property
+    def device(self) -> torch.device:
+        """The first device: where the runner's own ``apply_fn`` runs."""
+        return self.devices[0]
+
+    @property
+    def data_axis_size(self) -> int:
+        return len(self.devices)
+
+    def split(self, arrays: Any) -> "list[Any]":
+        """``arrays`` (a tree of arrays or tensors with a leading batch dim
+        that ``data_axis_size`` divides) as one tree of contiguous rows per
+        device, in device order."""
+        n = self.data_axis_size
+        rows = {int(leaf.shape[0]) for _, leaf in tree_path_names(arrays)}
+        if len(rows) != 1 or next(iter(rows)) % n:
+            raise MeshShapeError(
+                f"batch leading dims {sorted(rows)} do not split {n} ways "
+                f"over {[str(d) for d in self.devices]}")
+        m = next(iter(rows)) // n
+        return [tree_map(lambda a, i=i: a[i * m:(i + 1) * m], arrays)
+                for i in range(n)]
+
+    @staticmethod
+    def merge(parts: "list[Any]") -> Any:
+        """The per-device host outputs (arrays, or tuples of arrays) back
+        into one, rows in device order."""
+        import numpy as np
+
+        if isinstance(parts[0], (tuple, list)):
+            return tuple(np.concatenate(col) for col in zip(*parts))
+        return np.concatenate(parts)
+
+    def shard_batch(self, arrays: Any, *, check: bool = True,
+                    local: bool = False) -> "list[Any]":
+        """:meth:`split`, each shard's leaves as tensors on its device."""
+        del check, local
+        return [tree_map(lambda a, d=d: torch.as_tensor(a).to(d), part)
+                for part, d in zip(self.split(arrays), self.devices)]
+
+    def describe(self) -> "dict[str, Any]":
+        return {"kind": type(self).__name__,
+                "devices": [str(d) for d in self.devices],
+                "batch_axes": list(self.batch_axes),
+                "data_axis_size": self.data_axis_size}

@@ -386,7 +386,8 @@ class ReplicaPool:
             # one SingleDevicePartitioner per replica by default: the pool
             # scales by REPLICATING single-device executors, never by
             # splitting batches. partitioner_factory(device) swaps in
-            # another placement per replica (ROADMAP A8 for the rest).
+            # another placement per replica (a LocalDevicePartitioner
+            # splits each replica's batches over its own devices).
             from sparkdl_torch.partition import SingleDevicePartitioner
 
             if partitioner_factory is None:

@@ -4,8 +4,10 @@ The framework-provided equivalents of HorovodRunner's user training loop
 for the two training configurations — BERT fine-tuning
 (:func:`finetune_classifier`) and ResNet ImageNet-style training
 (``train/vision.py``) — in PyTorch's idiom: the model is an ``nn.Module``
-updated in place by a ``torch.optim`` optimizer, on one device. Data
-parallelism over several cards comes with ROADMAP A8.
+updated in place by a ``torch.optim`` optimizer. Across the cards of a
+``TorchRunner`` job ``finetune_classifier`` trains over any mesh the
+partitioner lays (``partition/``): dp and ZeRO over fsdp, Megatron's tp,
+ring attention's sp, experts over ep and pipeline stages over pp.
 """
 
 from sparkdl_torch.train.finetune import (

@@ -228,8 +228,16 @@ def finetune_classifier(
     tensor-parallel slices (``models/convert.py`` ``shard_state_dict``):
     its layers' all-reduces run inside the step's graph beside the
     gradient all-reduce over the data axes, and each data shard's ``tp``
-    ranks feed the same rows. The loss trajectory is invariant across
-    partitioners up to float reduction order.
+    ranks feed the same rows. The other model axes train the same way:
+    ``sp`` (a model with ring attention; each sp rank feeds its block of
+    the same rows' tokens), ``ep`` (expert stacks split by ``GPT_RULES``;
+    name ``ep`` in ``batch_axes`` for each ep rank to feed its own rows)
+    and ``pp`` (``parallel.pipeline_apply`` stages; a rule ``P("pp")`` on
+    the stacked stage parameters keeps their optimizer state one stage a
+    rank), and a ``tp`` slice may have its state sharded on fsdp too
+    (``SPMDPartitioner(make_mesh(fsdp=2, tp=2), VIT_RULES)``); each step
+    stays one CUDA graph on the card. The loss trajectory is invariant
+    across partitioners up to float reduction order.
 
     With ``checkpoint_dir`` set, the full train state is saved
     asynchronously every ``checkpoint_every`` steps (at a dispatch

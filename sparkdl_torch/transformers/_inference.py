@@ -11,7 +11,9 @@ that occurs, captured on its first use.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import logging
 import threading
 import time
@@ -24,6 +26,7 @@ import torch
 
 from sparkdl_torch.observability.tracing import span
 from sparkdl_torch.ops._dispatch import resolve_device
+from sparkdl_torch.partition.partitioner import LocalDevicePartitioner
 from sparkdl_torch.reliability.faults import fault_point
 from sparkdl_torch.runtime.batching import default_buckets, pad_to_bucket
 from sparkdl_torch.runtime.completion import (
@@ -38,9 +41,6 @@ from sparkdl_torch.runtime.dispatch import (
 )
 from sparkdl_torch.runtime.prefetch import DevicePut
 from sparkdl_torch.runtime.tree import tree_map
-
-_NOT_PORTED = "not ported to sparkdl_torch yet (ROADMAP {item})"
-
 
 @dataclasses.dataclass
 class BatchedRunner:
@@ -62,11 +62,35 @@ class BatchedRunner:
     ``ragged_rows=True`` declares that row shapes vary across batches:
     ring slots are fixed-size, so such feeds must keep to the Python path.
 
-    ``data_parallel`` and ``partitioner`` keep the reference's names. A
-    :class:`~sparkdl_torch.partition.SingleDevicePartitioner` pins the
-    runner to its device (how a ReplicaPool builds its executors);
-    placement across cards is not ported yet, so ``data_parallel=True``
-    or any other partitioner raises.
+    Data parallelism over the cards of the host, as the reference's runner
+    spreads a batch over its local chips (SURVEY.md 2.11a): one process
+    drives every card. The placement is a
+    :class:`~sparkdl_torch.partition.LocalDevicePartitioner` over a device
+    list: each device runs its own replica of the apply function (its own
+    copy of the weights, from ``replicate``), with its own staging puts,
+    its own :class:`~sparkdl_torch.runtime.dispatch.ScanChainer` (so its
+    own CUDA graphs) and its own stream; a batch's rows are split into
+    contiguous shards, one a device, and the outputs come back in order.
+    The dispatch chunk rounds down, and the buckets up, to multiples of
+    the device count (``batch_size`` itself stays as given). Outputs are
+    each row's output on its device at the shard's bucket: bitwise a
+    one-device runner's at ``batch_size / n`` (a library may pick another
+    GEMM or convolution for another row count, so not promised bitwise
+    at ``batch_size``, ROADMAP C15).
+
+    Placement follows the reference's rules. ``data_parallel=None`` (the
+    default) spreads over every card when there is more than one (clamped
+    to ``batch_size`` cards) and ``replicate`` is given: a runner given
+    only ``apply_fn`` keeps to one card, since its weights live there.
+    ``True`` demands that, and raises with one card, with ``batch_size=1``,
+    with ``device=`` pinned to one device or with ``partitioner=``;
+    ``False`` keeps one card. ``device="cuda"`` (the default) means the
+    cards; ``"cpu"`` or ``"cuda:1"`` pins one device, as a
+    :class:`~sparkdl_torch.partition.SingleDevicePartitioner` does (how a
+    ReplicaPool builds its executors). A process-group partitioner
+    (``DataParallelPartitioner``, ``SPMDPartitioner``) raises: each rank
+    of a dp group runs its own runner over its own partitions, as
+    ``TorchRunner``'s barrier tasks do.
     """
 
     apply_fn: Callable[[dict[str, torch.Tensor]], Any]
@@ -80,7 +104,8 @@ class BatchedRunner:
     #: inline, on the consumer's thread — the strictly serial feed.
     prefetch: "int | None" = None
     ragged_rows: bool = False
-    #: Not ported (placement over cards, ROADMAP A8): None or False.
+    #: None = auto (every card when there are several and ``replicate``
+    #: is given); False keeps one card; True demands several.
     data_parallel: "bool | None" = None
     #: Fused multi-step dispatch (runtime/dispatch.py): chain this many
     #: same-bucket batches per CUDA-graph replay in :meth:`run`. None =
@@ -103,11 +128,17 @@ class BatchedRunner:
     #: prefetch depth x resolved chain length, so device memory holds at
     #: most that many result buffers.
     fetch_window: "int | None" = None
-    #: ``cuda`` (default) or ``cpu``; ``cuda`` raises where CUDA is absent.
+    #: ``cuda`` (default: the cards), ``cpu`` or ``cuda:N`` (one device);
+    #: ``cuda`` raises where CUDA is absent.
     device: Any = "cuda"
-    #: None, or a SingleDevicePartitioner whose device the runner takes
-    #: (other layouts are ROADMAP A8).
+    #: None (from ``device`` and ``data_parallel``), a
+    #: SingleDevicePartitioner (one device) or a LocalDevicePartitioner
+    #: (its devices; the chunk and buckets round to their count).
     partitioner: Any = None
+    #: ``replicate(device) -> apply_fn`` for that device, with its own
+    #: copy of the weights: what a placement over several devices runs on
+    #: every device but those equal to the first, which run ``apply_fn``.
+    replicate: "Callable[[torch.device], Callable] | None" = None
     #: Online autotuning of the ingest knobs (sparkdl_torch/ingest): the
     #: staging depth, the dispatch chain K, and the native packer
     #: parallelism become live knobs on the process
@@ -121,50 +152,168 @@ class BatchedRunner:
     def __post_init__(self):
         from sparkdl_torch.ingest.pipeline import resolve_pin, unique_name
 
-        from sparkdl_torch.partition import SingleDevicePartitioner
-
-        if self.data_parallel or not (
-                self.partitioner is None
-                or isinstance(self.partitioner, SingleDevicePartitioner)):
-            raise NotImplementedError(
-                "data_parallel=True / partitioner= (batches placed over "
-                "several cards) is " + _NOT_PORTED.format(item="A8 partition")
-                + "; a runner drives one card")
-        if self.partitioner is not None:
-            if (self.device != "cuda"
-                    and resolve_device(self.device) != self.partitioner.device):
-                raise ValueError(
-                    "device= is sugar for partitioner=SingleDevicePartitioner"
-                    "(device); pass one or the other, not both")
-            self.device = self.partitioner.device
-        self.device = resolve_device(self.device)
+        devices = self._placement()
+        self.device = devices[0]
         self._prefetch_depth, self._prefetch_pinned, _ = resolve_pin(
             self.prefetch, "SPARKDL_TORCH_PREFETCH", 2, what="prefetch")
         # knob prefix: unique per RUNNER so concurrent autotuned runners
         # never collide in the tuner's name-keyed registry, while one
         # runner's successive streams keep one stable set of names
         self._pipe_name = unique_name("batch")
-        self._chainer = ScanChainer(
-            self._apply, path="batch", chain_k=self.chain_k,
-            # auto mode holds K staged batches for the chain on top of
-            # the prefetch queue: cap auto-K at 8 so peak input memory
-            # stays bounded on unchanged caller code
-            policy=ChainPolicy(max_chain=8), device=self.device,
-        )
+        # auto mode holds K staged batches for the chain on top of the
+        # prefetch queue: cap auto-K at 8 so peak input memory stays
+        # bounded on unchanged caller code
+        policy = ChainPolicy(max_chain=8)
+        if len(devices) == 1:
+            self._chainer = ScanChainer(
+                self._apply, path="batch", chain_k=self.chain_k,
+                policy=policy, device=self.device)
+            self._replicas = [_Replica(self.device, self._chainer)]
+        else:
+            self._chainer = _ReplicaChainer(
+                path="batch", chain_k=self.chain_k, policy=policy,
+                device=self.device)
+            applies: "dict[tuple, Callable]" = {}
+            self._replicas = []
+            for dev in devices:
+                # torch.device("cuda") != torch.device("cuda:0"): compare keys
+                if _device_key(dev) == _device_key(self.device):
+                    fn = self.apply_fn
+                else:
+                    fn = applies.get(_device_key(dev))
+                    if fn is None:
+                        fn = applies[_device_key(dev)] = self.replicate(dev)
+                chainer = ScanChainer(
+                    functools.partial(_inference, fn), path="batch",
+                    chain_k=self.chain_k, policy=self._chainer.policy,
+                    device=dev)
+                self._replicas.append(_Replica(dev, chainer, own_stream=True))
+            self._chainer.replicas = self._replicas
         self._chunk = self.batch_size
         self._buckets = default_buckets(self.batch_size)
+        self._round_to_data_axes(len(devices))
         if self.fetch_window is not None and self.fetch_window < 1:
             raise ValueError(
                 f"fetch_window must be >= 1, got {self.fetch_window}"
             )
 
+    def _placement(self) -> "list[torch.device]":
+        """The devices this runner spreads a batch over (one or more), by
+        the reference's rules (see the class docstring)."""
+        from sparkdl_torch.partition import (
+            LocalDevicePartitioner,
+            Partitioner,
+            SingleDevicePartitioner,
+        )
+
+        part = self.partitioner
+        pinned = not _means_the_cards(self.device)
+        if part is not None:
+            if self.data_parallel is True:
+                raise ValueError(
+                    "partitioner= owns placement; an explicit "
+                    "data_parallel=True would be silently overridden — "
+                    "leave it at None and encode dp in the partitioner's "
+                    "devices instead")
+            if isinstance(part, SingleDevicePartitioner):
+                if pinned and resolve_device(self.device) != part.device:
+                    raise ValueError(
+                        "device= is sugar for partitioner="
+                        "SingleDevicePartitioner(device); pass one or the "
+                        "other, not both")
+                return [part.device]
+            if isinstance(part, LocalDevicePartitioner):
+                if pinned:
+                    raise ValueError(
+                        "device= pins one device and partitioner= places "
+                        "the batch over its devices; pass one or the "
+                        "other, not both")
+                devices = list(part.devices)
+                if self.batch_size < len(devices):
+                    raise ValueError(
+                        f"batch_size={self.batch_size} is smaller than the "
+                        f"partitioner's {len(devices)}-way data axes — "
+                        "every dispatch needs at least one row per "
+                        "data-axis device; raise batch_size or use a "
+                        "smaller mesh")
+                if (self.replicate is None
+                        and len({_device_key(d) for d in devices}) > 1):
+                    raise ValueError(
+                        f"the placement spans {len(devices)} devices and "
+                        "apply_fn is one device's: pass replicate= (a "
+                        "builder of the apply function for a device)")
+                return devices
+            if isinstance(part, Partitioner):
+                raise ValueError(
+                    f"a {type(part).__name__} places a batch over the ranks "
+                    "of a process group; a BatchedRunner is one process. "
+                    "Each rank of a dp group runs its own runner over its "
+                    "own partitions (as TorchRunner's barrier tasks do): "
+                    "give each one device=, or a LocalDevicePartitioner "
+                    "over the cards this process drives")
+            raise TypeError(
+                "partitioner must be a SingleDevicePartitioner or a "
+                f"LocalDevicePartitioner, got {type(part).__name__}")
+        if pinned:
+            if self.data_parallel is True:
+                raise ValueError(
+                    "device= pins this runner to one device; data_parallel "
+                    "scaling is the ReplicaPool's job (one runner per "
+                    "device), not this runner's")
+            return [resolve_device(self.device)]
+        n_local = torch.cuda.device_count()
+        if self.data_parallel is True and n_local <= 1:
+            raise ValueError(
+                "data_parallel=True but only one local device; use "
+                "data_parallel=None for auto fallback")
+        if self.data_parallel is not False and n_local > 1:
+            # never spread a batch thinner than one row per device
+            n_use = max(1, min(n_local, self.batch_size))
+            if n_use == 1:
+                if self.data_parallel is True:
+                    raise ValueError(
+                        "data_parallel=True but batch_size=1 leaves "
+                        "nothing to shard")
+            elif self.replicate is not None:
+                return [torch.device("cuda", i) for i in range(n_use)]
+            elif self.data_parallel is True:
+                raise ValueError(
+                    "data_parallel=True over several cards needs "
+                    "replicate= (a builder of the apply function for a "
+                    "device): apply_fn is one card's")
+        return [resolve_device(self.device)]
+
+    def _round_to_data_axes(self, n_use: int) -> None:
+        """Round the dispatch chunk DOWN and the buckets UP to multiples
+        of the device count, so the batch dim always divides it (never
+        above the caller's memory ask: ``batch_size`` stays as given, the
+        rounded value is the private dispatch chunk)."""
+        if n_use <= 1:
+            return
+        self._chunk = self.batch_size // n_use * n_use
+        if self._chunk != self.batch_size:
+            logging.getLogger(__name__).debug(
+                "batch_size %d rounded to %d-way data-axis chunk %d "
+                "(configured value preserved on .batch_size)",
+                self.batch_size, n_use, self._chunk,
+            )
+        self._buckets = tuple(sorted({
+            -(-b // n_use) * n_use
+            for b in default_buckets(self._chunk)
+        }))
+
+    @property
+    def devices(self) -> "list[torch.device]":
+        """The devices a batch is spread over, in row order."""
+        return [r.device for r in self._replicas]
+
     def _apply(self, batch: dict[str, torch.Tensor]) -> Any:
-        with torch.inference_mode():
-            return self.apply_fn(batch)
+        return _inference(self.apply_fn, batch)
 
     @property
     def chunk_size(self) -> int:
-        """Rows per device dispatch (``batch_size``: one card)."""
+        """Rows per dispatch: ``batch_size`` rounded down to a multiple of
+        the device count (``batch_size`` on one device)."""
         return self._chunk
 
     @property
@@ -205,8 +354,8 @@ class BatchedRunner:
         tuning = ingest.autotune_enabled(self.autotune)
         pname = self._pipe_name
         # built here, on the consumer's thread: its copies are ordered
-        # for the stream this thread dispatches on
-        transfer = DevicePut(self.device)
+        # for the stream this thread dispatches on (each replica's own)
+        transfer = self._put()
         pipe = (
             ingest.Pipeline(rows, name=pname)
             .batch(self._chunk, self._buckets)
@@ -242,11 +391,11 @@ class BatchedRunner:
             # each output's D2H copy starts the moment its dispatch is
             # enqueued and is collected while the following dispatches
             # run; an error still surfaces on ITS batch
-            outputs = AsyncFetcher(
-                window=self._fetch_window(), path="batch"
-            ).stream(outputs)
-        else:
+            outputs = self._fetcher(self._fetch_window(), "batch").stream(outputs)
+        elif len(self._replicas) == 1:
             outputs = map(_blocking_readback, outputs)
+        else:
+            outputs = map(self._blocking_merge, outputs)
         for i, arrays in enumerate(outputs):
             n = metas[i]
             with span("batch.unpad", rows=n):
@@ -332,10 +481,35 @@ class BatchedRunner:
         t0 = time.perf_counter()
         with span("serving.device_step", rows=padded.n_valid,
                   bucket=padded.bucket):
-            staged = DevicePut(self.device)(padded.arrays)
+            staged = self._put()(padded.arrays)
             out = self._chainer.run([staged])[0]
-            ticket = start_fetch(out, path="serving")
+            ticket = self._fetcher(1, "serving").submit(out)
         return BatchResult(ticket, padded.n_valid, t0)
+
+    # -- the replicas -----------------------------------------------------
+    def _put(self) -> DevicePut:
+        """The staging put of one batch: onto the device, or, over several,
+        its contiguous row shards each onto its replica's device, ordered
+        for that replica's stream."""
+        if len(self._replicas) == 1:
+            return DevicePut(self.device)
+        puts = []
+        for r in self._replicas:
+            with r.scope():
+                puts.append(DevicePut(r.device))
+        return _SplitPut(puts)
+
+    def _fetcher(self, window: int, path: str) -> AsyncFetcher:
+        if len(self._replicas) == 1:
+            return AsyncFetcher(window=window, path=path)
+        return _ReplicaFetcher(self._replicas, window=window, path=path)
+
+    def _blocking_merge(self, outs: "list[Any]") -> Any:
+        parts = []
+        for r, out in zip(self._replicas, outs):
+            with r.scope():
+                parts.append(_blocking_readback(out))
+        return LocalDevicePartitioner.merge(parts)
 
 
 def _blocking_readback(out: Any) -> Any:
@@ -343,6 +517,116 @@ def _blocking_readback(out: Any) -> Any:
     with span("batch.d2h"):
         return tree_map(lambda t: t.detach().cpu().numpy()
                         if isinstance(t, torch.Tensor) else np.asarray(t), out)
+
+
+def _inference(apply_fn: Callable, batch: Any) -> Any:
+    with torch.inference_mode():
+        return apply_fn(batch)
+
+
+def _means_the_cards(device: Any) -> bool:
+    """``cuda`` without an index: the cards (not one pinned device)."""
+    dev = torch.device(device)
+    return dev.type == "cuda" and dev.index is None
+
+
+def _device_key(dev: torch.device) -> "tuple[str, int]":
+    if dev.type == "cuda":
+        return "cuda", (dev.index if dev.index is not None
+                        else torch.cuda.current_device())
+    return dev.type, 0
+
+
+class _Replica:
+    """One device of a runner: its chainer (its graphs) and, on a card of
+    a placement over several, its own stream (None: the thread's current
+    one, as a one-device runner uses)."""
+
+    def __init__(self, device: torch.device, chainer: ScanChainer, *,
+                 own_stream: bool = False):
+        self.device = device
+        self.chainer = chainer
+        self.stream = (torch.cuda.Stream(device)
+                       if own_stream and device.type == "cuda" else None)
+
+    def scope(self):
+        """This replica's stream (and so its device) made current."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+
+class _ReplicaChainer(ScanChainer):
+    """The dispatch of a placement over several devices: an item is the
+    list of the replicas' shards of one batch, and a dispatch of K items
+    runs each replica's chainer over its K shards, each on its own device
+    and stream, the host enqueueing one replica's work after the other
+    while the devices run. Chain lengths, the policy and the dispatch
+    metrics are this chainer's; the replicas' graphs are their own. The
+    dispatch's timing events are the first replica's."""
+
+    def __init__(self, **kw):
+        super().__init__(None, **kw)
+        self.replicas: "list[_Replica]" = []
+
+    @property
+    def graph_keys(self) -> "list[tuple[Any, int]]":
+        """The first replica's (every replica captures the same)."""
+        return self.replicas[0].chainer.graph_keys
+
+    def run(self, xs: "list[Any]") -> "list[Any]":
+        per = []
+        for i, r in enumerate(self.replicas):
+            with r.scope():
+                per.append(r.chainer.run([x[i] for x in xs]))
+        return [list(outs) for outs in zip(*per)]
+
+    def _dispatch(self, xs: "list[Any]") -> "list[Any]":
+        with self.replicas[0].scope():
+            return super()._dispatch(xs)
+
+
+class _SplitPut(DevicePut):
+    """A batch's contiguous row shards, shard ``i`` through ``puts[i]``
+    (each waits for its own copies, so the source may be reused when the
+    call returns: a staging slot is released then)."""
+
+    def __init__(self, puts: "list[DevicePut]"):
+        self.puts = puts
+        self.device = puts[0].device
+        self._split = LocalDevicePartitioner([p.device for p in puts]).split
+
+    def __call__(self, tree: Any) -> "list[Any]":
+        return [put(part) for put, part in zip(self.puts, self._split(tree))]
+
+
+class _ReplicaFetcher(AsyncFetcher):
+    """Async readback of a placement over several devices: each replica's
+    output copied on its own stream, the host arrays put back together in
+    row order."""
+
+    def __init__(self, replicas: "list[_Replica]", **kw):
+        super().__init__(**kw)
+        self.replicas = replicas
+
+    def submit(self, outs: "list[Any]") -> "_MergedTicket":
+        tickets = []
+        for r, out in zip(self.replicas, outs):
+            with r.scope():
+                tickets.append(start_fetch(out, path=self.path))
+        return _MergedTicket(tickets)
+
+
+class _MergedTicket:
+    """The per-replica tickets of one batch as one: ``result()`` is their
+    host outputs merged in row order."""
+
+    def __init__(self, tickets: "list[FetchTicket]"):
+        self.tickets = tickets
+
+    def result(self, timeout: "float | None" = None) -> Any:
+        return LocalDevicePartitioner.merge(
+            [t.result(timeout) for t in self.tickets])
 
 
 class BatchResult:

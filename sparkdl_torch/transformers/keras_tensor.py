@@ -43,9 +43,16 @@ def _keras_runner(model_file: str, mtime: float, batch_size: int,
     from sparkdl_torch.models.keras_graph import KerasGraphModule
     from sparkdl_torch.models.keras_loader import read_keras_model
 
-    module = KerasGraphModule(read_keras_model(model_file), device=device).eval()
-    return BatchedRunner(lambda batch: module(batch["x"]), batch_size=batch_size,
-                         device=device)
+    graph = read_keras_model(model_file)
+
+    def make_apply(dev):
+        module = KerasGraphModule(graph, device=dev).eval()
+        return lambda batch: module(batch["x"])
+
+    # with the default "cuda": a batch spread over the cards, a copy of
+    # the module on each
+    return BatchedRunner(make_apply(device), batch_size=batch_size,
+                         device=device, replicate=make_apply)
 
 
 class KerasTransformer(Transformer, HasInputCol, HasOutputCol, HasBatchSize):

@@ -17,7 +17,7 @@ weights, so its stem is the hand-written CUDA kernel eating raw pixels.
 from __future__ import annotations
 
 import functools
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -51,15 +51,13 @@ def _load_named_model(model_name: str, weights: "str | None", include_top: bool,
                              include_top=include_top, device=device)
 
 
-@functools.lru_cache(maxsize=16)
-def _named_model_runner(model_name: str, weights: "str | None",
-                        include_top: bool, head: str, batch_size: int,
-                        device: str) -> BatchedRunner:
-    """Per-process runner cache: one runner (and one set of prepared
-    weights) per (model, head, batch size, device)."""
+def _named_apply(model_name: str, weights: "str | None", include_top: bool,
+                 head: str, device) -> "Callable[[dict], torch.Tensor]":
+    """The apply function of (model, head) on ``device``, over its own
+    copy of the weights there."""
     # a model whose features need its head (VGG) is one model for both
     include_top = include_top or get_entry(model_name).features_need_top
-    module = _load_named_model(model_name, weights, include_top, device)
+    module = _load_named_model(model_name, weights, include_top, str(device))
 
     if model_name == "InceptionV3" and head == "features":
         # Featurization fast path: 'tf' preprocess folded into the stem,
@@ -84,7 +82,23 @@ def _named_model_runner(model_name: str, weights: "str | None",
             features, probs = module(preprocess(batch["img"]))
             return features if head == "features" else probs
 
-    return BatchedRunner(apply_fn, batch_size=batch_size, device=device)
+    return apply_fn
+
+
+@functools.lru_cache(maxsize=16)
+def _named_model_runner(model_name: str, weights: "str | None",
+                        include_top: bool, head: str, batch_size: int,
+                        device: str) -> BatchedRunner:
+    """Per-process runner cache: one runner (and one set of prepared
+    weights per device it runs on) per (model, head, batch size, device).
+    With the default ``cuda`` the runner spreads each batch over the
+    cards (``BatchedRunner``'s data parallelism), each with its own copy
+    of the model."""
+    def make(dev):
+        return _named_apply(model_name, weights, include_top, head, dev)
+
+    return BatchedRunner(make(device), batch_size=batch_size, device=device,
+                         replicate=make)
 
 
 def _resize_host(arr: np.ndarray, size: tuple[int, int]) -> np.ndarray:

@@ -159,8 +159,8 @@ class DeepTextFeaturizer(Transformer, HasInputCol, HasOutputCol, HasBatchSize):
         input_col = self.getInputCol()
         output_col = self.getOutputCol()
 
-        def make_runner():
-            module = _encoder(cfg, state_dict, pooling, device)
+        def make_apply(dev):
+            module = _encoder(cfg, state_dict, pooling, dev)
 
             def apply_fn(batch):
                 mask = batch["attention_mask"]
@@ -174,7 +174,13 @@ class DeepTextFeaturizer(Transformer, HasInputCol, HasOutputCol, HasBatchSize):
                     out = (seq * m).sum(dim=1) / m.sum(dim=1).clamp(min=1)
                 return out.float()
 
-            return BatchedRunner(apply_fn, batch_size=batch_size, device=device)
+            return apply_fn
+
+        def make_runner():
+            # with the default "cuda": a batch spread over the cards, a
+            # copy of the encoder on each
+            return BatchedRunner(make_apply(device), batch_size=batch_size,
+                                 device=device, replicate=make_apply)
 
         def partition_fn(rows):
             rows = list(rows)

@@ -19,10 +19,20 @@ the bucket's first use and replayed afterwards (:func:`graphed_generate`):
 the counterpart of the reference's ``jax.jit(generate)`` per bucket, in
 an LRU of 8 graphs as the reference's jit cache. On the CPU ``generate``
 runs eagerly.
+
+With the default ``device="cuda"`` a group is spread over the host's
+cards, as the reference's ``generate`` runs SPMD over its local chips:
+the group size rounds down, and the row buckets up, to multiples of the
+card count (the smallest bucket 4), each card holds its own copy of the
+model, and generates its contiguous rows of the group with its own graphs
+on its own stream. Greedy tokens are the one-card run's (each row decodes
+alone; only a library's choice of kernel for another row count could
+tell them apart, ROADMAP C15).
 """
 
 from __future__ import annotations
 
+import contextlib
 from collections.abc import Mapping
 
 import numpy as np
@@ -49,6 +59,9 @@ _MODEL_CACHE: _LruCache = _LruCache(maxsize=8)
 #: per-process CUDA graphs of whole generate calls, one per (rows,
 #: prompt_len) bucket, decode settings and model storage
 GENERATE_GRAPHS = GraphCache("generate", maxsize=8)
+#: per-process placements (key: weights fingerprint + config + devices):
+#: their replicas' streams and graph caches outlive a partition
+_REPLICA_CACHE: _LruCache = _LruCache(maxsize=8)
 
 
 def _to_bundle(value):
@@ -99,7 +112,8 @@ def left_pad_group(group, row_buckets, len_buckets):
 def graphed_generate(module, ids: torch.Tensor, mask: torch.Tensor,
                      max_new_tokens: int, *, temperature: float = 0.0,
                      top_k=None, top_p=None,
-                     generator: "torch.Generator | None" = None
+                     generator: "torch.Generator | None" = None,
+                     graphs: "GraphCache | None" = None
                      ) -> torch.Tensor:
     """``generate(module, ids, max_new_tokens, attention_mask=mask, ...)``
     as :class:`DeepTextGenerator` runs it. On the card: one CUDA graph of
@@ -108,8 +122,10 @@ def graphed_generate(module, ids: torch.Tensor, mask: torch.Tensor,
     eagerly, replayed afterwards; a sampling ``generator`` is registered
     with the graph, so a replay draws what the eager call would from the
     same state. ``mask`` is not read back: it must be left-padded with a
-    real last column, as the transformer builds it. On the CPU: the eager
-    ``generate``."""
+    real last column, as the transformer builds it. ``graphs``: the cache
+    to use (default ``GENERATE_GRAPHS``; a replica sharing a card with
+    another passes its own, so that their replays never share static
+    buffers). On the CPU: the eager ``generate``."""
     from sparkdl_torch.models.gpt import (
         check_generate_args,
         generate,
@@ -132,9 +148,9 @@ def graphed_generate(module, ids: torch.Tensor, mask: torch.Tensor,
 
     key = (module.config, max_new_tokens, temperature, top_k, top_p,
            storage_key(module))
+    graphs = GENERATE_GRAPHS if graphs is None else graphs
     with torch.inference_mode():
-        return GENERATE_GRAPHS(run, (ids, mask.bool()), key,
-                               generator=generator)
+        return graphs(run, (ids, mask.bool()), key, generator=generator)
 
 
 def _group_generator(seed: int, counter: int, device) -> torch.Generator:
@@ -144,14 +160,61 @@ def _group_generator(seed: int, counter: int, device) -> torch.Generator:
     return g.manual_seed((seed * 1_000_003 + counter) % (1 << 63))
 
 
+class _GenReplica:
+    """One device of a generator's placement: its module, and on a card
+    of a placement over several its own stream and graph cache (the
+    first keeps ``GENERATE_GRAPHS``)."""
+
+    def __init__(self, module, index: int, n: int):
+        self.module = module
+        self.device = next(module.parameters()).device
+        own = n > 1 and self.device.type == "cuda"
+        self.stream = torch.cuda.Stream(self.device) if own else None
+        self.graphs = (GraphCache("generate", maxsize=8)
+                       if own and index > 0 else None)
+
+    def scope(self):
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+
+def _generate_group(replicas, ids: np.ndarray, mask: np.ndarray, max_new: int,
+                    *, seed: int, counter: int, **decode) -> np.ndarray:
+    """One left-padded group over the replicas: replica ``i`` generates
+    its contiguous rows (the group's rows divide their count), all
+    enqueued before any is read back; the rows come back in order. A
+    sampled run draws on replica ``i`` from the generator of group
+    ``counter * n + i``."""
+    n = len(replicas)
+    m = ids.shape[0] // n
+    outs = []
+    for i, r in enumerate(replicas):
+        with r.scope():
+            gen = (_group_generator(seed, counter * n + i, r.device)
+                   if decode["temperature"] > 0 else None)
+            out = graphed_generate(
+                r.module, torch.from_numpy(ids[i * m:(i + 1) * m]).to(r.device),
+                torch.from_numpy(mask[i * m:(i + 1) * m]).to(r.device),
+                max_new, generator=gen, graphs=r.graphs, **decode)
+            outs.append(out)
+    parts = []
+    for r, out in zip(replicas, outs):
+        with r.scope():
+            parts.append(out.cpu().numpy())
+    return np.concatenate(parts)
+
+
 class DeepTextGenerator(Transformer, HasInputCol, HasOutputCol, HasBatchSize):
     """prompt token ids (array<int>) -> generated token ids (array<int>).
 
     ``temperature=0`` (default) decodes greedily — deterministic, and each
     row matches its unbatched decode. ``temperature>0`` samples with
     optional ``topK``/``topP``; draws are deterministic per (seed, group
-    of ``batchSize`` prompts), so re-running a partition reproduces its
-    outputs.
+    of prompts, card count), so re-running a partition reproduces its
+    outputs. Over several cards each card draws for its rows from its own
+    generator: a sampled run depends on the card count, a greedy one does
+    not.
     """
 
     model = Param(None, "model", "(GPTConfig, state_dict) decoder bundle",
@@ -189,6 +252,14 @@ class DeepTextGenerator(Transformer, HasInputCol, HasOutputCol, HasBatchSize):
     def setModel(self, value):
         return self._set(model=value)
 
+    @staticmethod
+    def _devices(device: str, batch_size: int) -> "list[str]":
+        """Where a group is generated: every card (at most ``batch_size``)
+        for ``cuda`` on a host with several, else ``device`` alone."""
+        n = torch.cuda.device_count() if device == "cuda" else 1
+        n = max(1, min(n, batch_size))
+        return [device] if n == 1 else [f"cuda:{i}" for i in range(n)]
+
     def _transform(self, dataset):
         cfg, state_dict = self.getOrDefault("model")
         max_new = self.getOrDefault("maxNewTokens")
@@ -215,8 +286,17 @@ class DeepTextGenerator(Transformer, HasInputCol, HasOutputCol, HasBatchSize):
             raise ValueError(
                 "topK/topP only apply when sampling — set temperature > 0"
             )
-        row_buckets = default_buckets(batch_size, min_bucket=4)
+        devices = self._devices(device, batch_size)
+        n = len(devices)
+        chunk, row_buckets = batch_size, default_buckets(batch_size, min_bucket=4)
+        if n > 1:
+            # the runner's dp bucket rule: the group rounds DOWN to a
+            # multiple of the cards, the row buckets UP
+            chunk = max(n, batch_size // n * n)
+            row_buckets = tuple(sorted({
+                -(-b // n) * n for b in default_buckets(chunk, min_bucket=4)}))
         len_buckets = default_buckets(max_len, min_bucket=8)
+        decode = dict(temperature=temperature, top_k=top_k, top_p=top_p)
 
         def extract(row):
             ids = np.asarray(row[input_col], dtype=np.int64)
@@ -228,38 +308,34 @@ class DeepTextGenerator(Transformer, HasInputCol, HasOutputCol, HasBatchSize):
 
         class _GenRunner:
             """run_partition_with_passthrough adapter: groups prompts,
-            buckets (rows, prompt_len) per group, generates, yields the
-            per-row generated ids in order."""
+            buckets (rows, prompt_len) per group, generates over the
+            replicas, yields the per-row generated ids in order."""
 
-            def __init__(self, module):
-                self._module = module
-                self._device = next(module.parameters()).device
+            def __init__(self, replicas):
+                self._replicas = replicas
 
             def run(self, prompts):
                 valid = list(prompts)
-                for counter, first in enumerate(
-                        range(0, len(valid), batch_size)):
-                    group = valid[first:first + batch_size]
+                for counter, first in enumerate(range(0, len(valid), chunk)):
+                    group = valid[first:first + chunk]
                     ids, mask = left_pad_group(group, row_buckets,
                                                len_buckets)
                     lp = ids.shape[1]
-                    gen = (_group_generator(seed, counter, self._device)
-                           if temperature > 0 else None)
-                    out = graphed_generate(
-                        self._module,
-                        torch.from_numpy(ids).to(self._device),
-                        torch.from_numpy(mask).to(self._device),
-                        max_new,
-                        temperature=temperature, top_k=top_k, top_p=top_p,
-                        generator=gen,
-                    )[:len(group), lp:].cpu().numpy()
-                    yield from out
+                    out = _generate_group(self._replicas, ids, mask, max_new,
+                                          seed=seed, counter=counter, **decode)
+                    yield from out[:len(group), lp:]
 
         def partition_fn(rows):
             rows = list(rows)
             if not rows:
                 return iter(())
-            runner = _GenRunner(_model(cfg, state_dict, device))
+            key = (_fingerprint(state_dict), cfg, tuple(devices))
+            replicas = _REPLICA_CACHE.get(key)
+            if replicas is None:
+                replicas = _REPLICA_CACHE[key] = [
+                    _GenReplica(_model(cfg, state_dict, d), i, n)
+                    for i, d in enumerate(devices)]
+            runner = _GenRunner(replicas)
             return run_partition_with_passthrough(
                 rows, extract, runner, output_col,
                 postprocess=lambda o: np.asarray(o).tolist(),

@@ -35,12 +35,18 @@ def graph_runner(gin: TFInputGraph, batch_size: int, device: str, apply,
     """The cached runner of ``gin`` on ``device``: ``apply(fn, batch)``
     maps the translated graph ``fn`` over a batch dict. Graphs with
     If/While run eagerly (their predicates are read to the host, which a
-    CUDA graph cannot capture)."""
+    CUDA graph cannot capture). With the default ``cuda`` a batch is
+    spread over the cards, the graph translated onto each."""
+    def make_apply(dev):
+        fn = gin.to_torch(device=dev)
+        return lambda batch: apply(fn, batch)
+
     def make_runner():
         fn = gin.to_torch(device=device)
         return BatchedRunner(lambda batch: apply(fn, batch), batch_size=batch_size,
                              device=device, ragged_rows=ragged_rows,
-                             chain_k=1 if fn.host_sync else None)
+                             chain_k=1 if fn.host_sync else None,
+                             replicate=make_apply)
 
     return cached_graph_runner(gin, (batch_size, device, ragged_rows) + tuple(key),
                                make_runner)

@@ -224,7 +224,15 @@ def test_fetch_window_and_feed_depth_follow_the_reference():
 @pytest.mark.parametrize("kw", [dict(data_parallel=True),
                                 dict(partitioner=object())])
 def test_placement_options_are_not_ported(kw):
-    with pytest.raises(NotImplementedError, match="A8 partition"):
+    """Placement over several devices is ported (tests/
+    test_torch_inference_dp.py): ``data_parallel=True`` with ``device=``
+    pinned to one device raises the reference's error, and a partitioner
+    that is not a placement of this process is refused."""
+    err, match = ((ValueError, "pins this runner to one device")
+                  if "data_parallel" in kw
+                  else (TypeError, "SingleDevicePartitioner or a "
+                        "LocalDevicePartitioner"))
+    with pytest.raises(err, match=match):
         runner(**kw)
 
 

@@ -8,7 +8,10 @@ to the JAX package on the same numpy-seeded inputs and converted weights
 One job runs every 4-rank check (``tests/torch_parallel_jobs.py``,
 jax-free); the JAX side runs here (``tests/torch_parallel_refs.py``).
 Tolerances as in ``test_torch_parallel_two_ranks.py``; BERT's ring
-against the JAX full forward: 3e-5, the JAX oracle test's bound.
+against the JAX full forward: 3e-5, the JAX oracle test's bound. The
+fsdp x tp steps of ViT and BERT through their rule tables (each tp slice
+sharded on fsdp too) and BERT's ring step at dp = 2 x sp = 2 are held to
+the one-process run, 1e-5 relative per step with plain SGD.
 """
 
 import numpy as np
@@ -37,6 +40,8 @@ def run():
     want = {k: v[1] for k, v in parts.items()}
     inp["bert_finetune"] = refs.bert_finetune()
     want["bert_finetune"] = refs.one_process_finetune(inp["bert_finetune"]["state"])
+    inp["steps"] = refs.step_states(inp["bert_finetune"]["state"])
+    want["steps"] = refs.one_process_steps(inp["steps"])
     got = TorchRunner(np=-WORLD, **RUNNER).run(jobs.four_rank_job, inp=inp)
     return inp, want, got
 
@@ -119,3 +124,15 @@ def test_bert_finetune_dp2_tp2_matches_one_process(run):
     g = got["finetune_tp"]
     assert g["world"] == 4 and g["rank_losses_equal"]
     np.testing.assert_allclose(g["losses"], want["bert_finetune"], rtol=1e-5)
+
+
+@pytest.mark.parametrize("key,model", [("vit_fsdp_tp", "vit"), ("bert_fsdp_tp", "bert"),
+                                       ("ring_step", "bert")])
+def test_step_over_two_axes_matches_one_process(run, key, model):
+    _, want, got = run
+    g = got[key]
+    assert g["world"] == 4 and g["rank_losses_equal"]
+    np.testing.assert_allclose(g["losses"], want["steps"][model], rtol=1e-5)
+    if key != "ring_step":
+        # the tp slices' state is sharded on fsdp, beside the whole params'
+        assert {"query", "key", "value", "intermediate", "output"} <= set(g["sharded"])

@@ -19,7 +19,12 @@ Tolerances (float32 on both sides):
 - GPT ring / tp / MoE logits against JAX: 1e-5 (two tiny layers);
   sp_prefill 2e-5 (the JAX sp_prefill test's); greedy tokens equal;
 - the tp fine-tune against the one-process run: 1e-5 relative per step
-  (AdamW; the tp all-reduces sum the same products in another order).
+  (AdamW; the tp all-reduces sum the same products in another order);
+- ViT at tp = 2 against JAX: 1e-5 (two tiny layers, as GPT's);
+- the train steps over sp, ep and pp against the one-process run: 1e-5
+  relative per step, with plain SGD (``torch_parallel_jobs.step_losses``:
+  an update that is the gradient itself, so a gradient summed over the
+  wrong ranks or divided by the wrong count shows in the next loss).
 """
 
 import numpy as np
@@ -50,6 +55,9 @@ def run():
     want = {k: v[1] for k, v in parts.items()}
     inp["bert_finetune"] = refs.bert_finetune()
     want["bert_finetune"] = refs.one_process_finetune(inp["bert_finetune"]["state"])
+    inp["vit_tp"], want["vit_tp"] = refs.vit_tp()
+    inp["steps"] = refs.step_states(inp["bert_finetune"]["state"])
+    want["steps"] = refs.one_process_steps(inp["steps"])
     got = TorchRunner(np=-WORLD, **RUNNER).run(jobs.two_rank_job, inp=inp)
     return inp, want, got
 
@@ -183,3 +191,25 @@ def test_bert_finetune_dp1_tp2_matches_one_process(run):
     g = got["finetune_tp"]
     assert g["world"] == 2 and g["rank_losses_equal"]
     np.testing.assert_allclose(g["losses"], want["bert_finetune"], rtol=1e-5)
+
+
+def test_vit_at_tp2_matches_jax(run):
+    _, want, got = run
+    g, w = got["vit_tp"], want["vit_tp"]
+    assert g["q_rows"] == 16  # one head of two a rank
+    np.testing.assert_allclose(g["features"], w["features"], atol=1e-5)
+    np.testing.assert_allclose(g["probs"], w["probs"], atol=1e-5)
+
+
+@pytest.mark.parametrize("key,model", [("ring_step", "bert"), ("moe_step", "moe"),
+                                       ("pipeline_step", "gpt")])
+def test_step_over_a_model_axis_matches_one_process(run, key, model):
+    """BERT's ring at sp = 2 (each peer its block of the same rows), the
+    MoE classifier at ep = 2 (each rank its experts and its rows) and the
+    GPT classifier's blocks as pipeline stages at pp = 2."""
+    _, want, got = run
+    g = got[key]
+    assert g["world"] == 2 and g["rank_losses_equal"]
+    np.testing.assert_allclose(g["losses"], want["steps"][model], rtol=1e-5)
+    if key == "moe_step":
+        assert g["local_experts"] == 2

@@ -303,8 +303,10 @@ def test_the_probe_and_the_rank_bodies_import_no_jax(path):
 
 
 def test_a_tp_slice_sharded_on_fsdp_too_raises_a8_parallel():
-    """dp x tp trains; a tp slice whose rule also names a sharded fsdp
-    axis is two axes at once, the next slice's item."""
+    """A tp slice whose rule also names a sharded fsdp axis is ported (no
+    "A8 parallel" raise): its optimizer state is this rank's slice cut
+    again on fsdp, beside the fsdp shards of the parameters held whole.
+    The four-rank test holds such a step to one process's."""
     from sparkdl_torch.models.bert import BertConfig, BertForSequenceClassification
     from sparkdl_torch.partition import SPMDPartitioner
     from sparkdl_torch.partition.rules import BERT_RULES
@@ -313,8 +315,12 @@ def test_a_tp_slice_sharded_on_fsdp_too_raises_a8_parallel():
     model = BertForSequenceClassification(BertConfig.tiny(), device="cpu", mesh=mesh)
     part = SPMDPartitioner(mesh, BERT_RULES, device="cpu")
     opt = torch.optim.SGD(model.parameters(), lr=0.1)
-    with pytest.raises(NotImplementedError, match="A8 parallel"):
-        part.shard_opt_state(opt, model)
+    sharded = {s.name: s for s in part.shard_opt_state(opt, model).sharded}
+    q = sharded["bert.layer.0.attention.query.weight"]
+    assert q.axes == ("fsdp",) and q.dim == 1
+    assert tuple(q.owned.shape) == (16, 16)  # [32/tp, 32/fsdp]
+    assert sharded["bert.embeddings.word_embeddings.weight"].axes == ("fsdp",)
+    assert "bert.layer.0.attention.query.bias" not in sharded  # tp only
     plain = BertForSequenceClassification(BertConfig.tiny(), device="cpu")
     with pytest.raises(ValueError, match="no tensor-parallel layer"):
         part.shard_params(plain)

@@ -329,9 +329,18 @@ def test_batch_axes_must_exist_and_model_axes_raise():
     # tp is ported: the batch splits over dp only, the model over tp
     assert DataParallelPartitioner(make_mesh(dp=4, tp=2, devices=EIGHT),
                                    device="cpu").data_axis_size == 4
-    for kw in (dict(sp=2), dict(pp=2), dict(ep=2)):
-        with pytest.raises(NotImplementedError, match="A8 parallel"):
-            DataParallelPartitioner(make_mesh(dp=4, devices=EIGHT, **kw))
+    # sp, pp and ep train too: the batch still splits over dp only, and a
+    # gradient sums over the axes whose ranks' losses are terms of the
+    # total (every split axis but tp and pp)
+    for kw, terms in ((dict(sp=2), 8), (dict(pp=2), 4), (dict(ep=2), 8)):
+        part = DataParallelPartitioner(make_mesh(dp=4, devices=EIGHT, **kw),
+                                       device="cpu")
+        assert (part.data_axis_size, part.grad_terms) == (4, terms)
+    # an axis that is neither a batch axis nor a model axis would feed
+    # every rank the same rows for nothing
+    with pytest.raises(MeshShapeError, match="neither batch axes"):
+        DataParallelPartitioner(make_mesh(dp=4, fsdp=2, devices=EIGHT),
+                                batch_axes=("dp",), device="cpu")
 
 
 def test_spmd_divisibility_error_names_the_param():

@@ -637,9 +637,10 @@ def test_pool_devices_and_the_single_device_partitioner():
     assert moved["x"].device == CPU
     with pytest.raises(ValueError, match="one or the other"):
         BatchedRunner(_apply, partitioner=_FakeCudaPart(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A8 partition"):
+    with pytest.raises(TypeError, match="LocalDevicePartitioner"):
         BatchedRunner(_apply, partitioner=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A8 partition"):
+    # the reference's rule: device= pins one device, dp is the pool's job
+    with pytest.raises(ValueError, match="ReplicaPool's job"):
         BatchedRunner(_apply, data_parallel=True, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

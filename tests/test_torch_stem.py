@@ -73,10 +73,25 @@ def test_wrapper_on_cpu_matches_jax_kernel_interpret():
         dtype=jnp.float32, interpret=True)
     before = torch_stem.inception_stem_fused.launches
     got = torch_stem.inception_stem_fused(torch.from_numpy(x),
-                                          _torch_folded(folded))
+                                          _torch_folded(folded), dtype=torch.float32)
     assert torch_stem.inception_stem_fused.launches == before
     assert got.dtype == torch.float32
     _assert_close(got, want)
+
+
+def test_wrapper_default_dtype_is_the_references():
+    """bfloat16, as the JAX kernel's (ROADMAP C17); the featurizer passes
+    its dtype, so no path's output depends on the default."""
+    import inspect
+
+    def default(fn):
+        return inspect.signature(fn).parameters["dtype"].default
+
+    assert default(jax_stem.inception_stem_fused) == jnp.bfloat16
+    assert default(torch_stem.inception_stem_fused) == torch.bfloat16
+    folded = _torch_folded(_random_folded(3))
+    x = torch.from_numpy(_pixels(59, "u8", seed=6))
+    assert torch_stem.inception_stem_fused(x, folded).dtype == torch.bfloat16
 
 
 def test_wrapper_bf16_output_on_cpu():

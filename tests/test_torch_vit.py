@@ -207,3 +207,29 @@ def test_named_image_transformer_matches_jax(monkeypatch, cls_name):
     """ViT-B/16 (full width and depth) behind both transformers, against
     the JAX ones on the same weights."""
     named_image_parity(monkeypatch, "ViTB16", cls_name, NET_TOL)
+
+
+def test_tp1_keeps_plain_layers_and_state_dict_names(tiny_variables):
+    """At tp = 1 (no mesh, or a mesh whose tp axis is 1) q/k/v, the output
+    and the MLP stay plain ``nn.Linear`` s with the names the converters,
+    the HF loader and the zoo's weights use, and a seeded build gives the
+    same tensors; at tp = 2 the same names hold this rank's slices."""
+    from sparkdl_torch.partition import make_mesh
+
+    names = set(vit_flax_to_torch(tiny_variables))
+    built = []
+    for mesh in (None, make_mesh(dp=1, tp=1)):
+        torch.manual_seed(0)
+        m = tvit.ViTModel(tvit.ViTConfig.tiny(), num_classes=CLASSES, mesh=mesh)
+        assert set(m.state_dict()) == names
+        blk = m.layer[0]
+        assert all(type(layer) is torch.nn.Linear for layer in (
+            blk.attention.query, blk.attention.key, blk.attention.value,
+            blk.attention.output_dense, blk.intermediate, blk.output))
+        built.append(m.state_dict())
+    assert all(torch.equal(built[0][k], built[1][k]) for k in names)
+    tp2 = tvit.ViTModel(tvit.ViTConfig.tiny(), num_classes=CLASSES,
+                        mesh=make_mesh(dp=1, tp=2, devices=[0, 1]))
+    assert set(tp2.state_dict()) == names
+    assert tp2.layer[0].attention.query.weight.shape == (16, 32)
+    assert tp2.layer[0].output.weight.shape == (32, 32)  # [hidden, 64 / tp]

@@ -376,6 +376,247 @@ def finetune_tp_check(inp: dict, dp: int, tp: int) -> dict:
             "world": dist.get_world_size()}
 
 
+# -- train steps over every mesh axis ------------------------------------------------
+
+LABELS = 4  # the image and GPT classifiers' classes
+STEP_BATCH = 16  # the global batch of those steps
+STEP_LR = 0.1  # their SGD learning rate
+
+
+def vit_classifier(mesh=None):
+    """Tiny ViT features (no top) under ``mesh`` with a ``LABELS``-way
+    linear head: ``model(pixel_values) -> logits``."""
+    import torch
+
+    from sparkdl_torch.models.vit import ViTConfig, ViTModel
+
+    class _ViTClassifier(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.vit = ViTModel(ViTConfig.tiny(), include_top=False, mesh=mesh)
+            self.head = torch.nn.Linear(32, LABELS)
+
+        def forward(self, pixel_values):
+            return self.head(self.vit(pixel_values)[0])
+
+    return _ViTClassifier()
+
+
+def vit_batches(steps: int = 3, seed: int = 5) -> "list[dict]":
+    """Global batches of random 32x32 images and labels."""
+    r = np.random.default_rng(seed)
+    return [{"pixel_values": r.standard_normal((STEP_BATCH, 32, 32, 3)).astype(np.float32),
+             "labels": r.integers(0, LABELS, STEP_BATCH).astype(np.int64)}
+            for _ in range(steps)]
+
+
+def gpt_classifier(cfg_kw: dict, mesh=None, pipeline: bool = False):
+    """A tiny GPT (``GPTConfig.tiny(**cfg_kw)``, learned positions) as a
+    classifier: its logits at the last position, over the first
+    ``LABELS`` tokens of the vocabulary. ``pipeline``: its blocks run as
+    ``pipeline_apply`` stages over the ``pp`` axis of ``mesh``, their
+    parameters stacked one stage a row (``stages.b{j}_{i}``: the i-th
+    parameter of a stage's j-th block)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.func import functional_call
+
+    from sparkdl_torch.models.gpt import GPTConfig, GPTLMHeadModel
+    from sparkdl_torch.parallel import pipeline_apply
+
+    cfg = GPTConfig.tiny(positions="learned", **cfg_kw)
+
+    class _Classifier(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.gpt = GPTLMHeadModel(cfg, device="cpu", mesh=mesh)
+
+        def forward(self, input_ids):
+            return self.gpt(input_ids)[0][:, -1, :LABELS]
+
+    class _Pipelined(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            gpt = GPTLMHeadModel(cfg, device="cpu")
+            self.wte, self.wpe, self.ln_f = gpt.wte, gpt.wpe, gpt.ln_f
+            pp = mesh.shape["pp"]
+            self.per = cfg.num_layers // pp
+            self.template = [gpt.h[0]]  # its structure only
+            self.names = [n for n, _ in gpt.h[0].named_parameters()]
+            self.stages = torch.nn.ParameterDict({
+                f"b{j}_{i}": torch.nn.Parameter(torch.stack(
+                    [gpt.h[st * self.per + j].get_parameter(n).detach()
+                     for st in range(pp)]))
+                for j in range(self.per) for i, n in enumerate(self.names)})
+
+        def from_whole(self, state: dict) -> dict:
+            """The :func:`gpt_classifier` state dict ``state`` in this
+            form: each block parameter stacked over the stages."""
+            out = {k[4:]: v for k, v in state.items()
+                   if k.split(".")[1] in ("wte", "wpe", "ln_f")}
+            for j in range(self.per):
+                for i, n in enumerate(self.names):
+                    out[f"stages.b{j}_{i}"] = torch.stack(
+                        [state[f"gpt.h.{st * self.per + j}.{n}"]
+                         for st in range(mesh.shape["pp"])])
+            return out
+
+        def stage(self, params, x):
+            for j in range(self.per):
+                x = functional_call(self.template[0], {
+                    n: params[f"b{j}_{i}"] for i, n in enumerate(self.names)}, (x,))
+            return x
+
+        def forward(self, input_ids):
+            l = input_ids.shape[1]
+            x = self.wte(input_ids) + self.wpe(torch.arange(l, device=input_ids.device))
+            x = pipeline_apply(self.stage, dict(self.stages), x, mesh,
+                               num_microbatches=2)
+            return F.linear(self.ln_f(x), self.wte.weight).float()[:, -1, :LABELS]
+
+    return _Pipelined() if pipeline else _Classifier()
+
+
+def gpt_batches(vocab: int = 128, steps: int = 3, seed: int = 6) -> "list[dict]":
+    r = np.random.default_rng(seed)
+    return [{"input_ids": r.integers(0, vocab, (STEP_BATCH, 8)).astype(np.int64),
+             "labels": r.integers(0, LABELS, STEP_BATCH).astype(np.int64)}
+            for _ in range(steps)]
+
+
+def step_losses(model, batches, part) -> "list[float]":
+    """finetune_classifier's losses under ``part``, with plain SGD: its
+    update is the gradient itself, so a gradient summed or divided wrong
+    shows in the next loss (Adam's would normalize the error away)."""
+    import torch
+
+    from sparkdl_torch.train import finetune_classifier
+
+    _, hist = finetune_classifier(
+        model, batches, partitioner=part,
+        optimizer=torch.optim.SGD(model.parameters(), lr=STEP_LR))
+    return [h["loss"] for h in hist]
+
+
+def _losses(model, batches, part) -> dict:
+    """:func:`step_losses` on this rank, and whether every rank saw the
+    same."""
+    import torch.distributed as dist
+
+    losses = step_losses(model, batches, part)
+    return {"losses": losses, "world": dist.get_world_size(),
+            "rank_losses_equal": len({tuple(x) for x in _gathered(losses)}) == 1}
+
+
+def _rows_of(batches: "list[dict]", part) -> "list[dict]":
+    n = STEP_BATCH // part.data_axis_size
+    i = part.data_index()
+    return [{k: v[i * n:(i + 1) * n] for k, v in b.items()} for b in batches]
+
+
+def vit_tp_check(inp: dict) -> dict:
+    """Tiny ViT (with its top) at tp = the whole world, loaded with this
+    rank's slices through VIT_RULES: features and probabilities."""
+    import torch
+    import torch.distributed as dist
+
+    from sparkdl_torch.models.convert import shard_state_dict
+    from sparkdl_torch.models.vit import ViTConfig, ViTModel
+    from sparkdl_torch.partition.rules import VIT_RULES
+
+    mesh = _mesh(dp=1, tp=dist.get_world_size())
+    model = ViTModel(ViTConfig.tiny(), num_classes=inp["classes"], mesh=mesh)
+    model.load_state_dict(shard_state_dict({k: _t(a) for k, a in inp["state"].items()},
+                                           model, VIT_RULES))
+    with torch.no_grad():
+        f, p = model.eval()(_t(inp["x"]))
+    return {"features": _np(f), "probs": _np(p),
+            "q_rows": int(model.layer[0].attention.query.weight.shape[0])}
+
+
+def spmd_step_check(inp: dict, kind: str, **axes) -> dict:
+    """finetune_classifier of ``kind`` (``vit`` or ``bert``) on a mesh of
+    ``axes`` through SPMDPartitioner of the model's rules, each data
+    shard feeding its rows of the global batches."""
+    import torch_dist_jobs as djobs
+    from sparkdl_torch.models.bert import BertConfig, BertForSequenceClassification
+    from sparkdl_torch.models.convert import shard_state_dict
+    from sparkdl_torch.partition import SPMDPartitioner
+    from sparkdl_torch.partition.rules import BERT_RULES, VIT_RULES
+
+    mesh = _mesh(**axes)
+    if kind == "vit":
+        model, rules, batches = vit_classifier(mesh), VIT_RULES, vit_batches()
+    else:
+        model = BertForSequenceClassification(BertConfig.tiny(vocab_size=djobs.VOCAB),
+                                              device="cpu", mesh=mesh)
+        rules, batches = BERT_RULES, djobs.toy_batches()
+    model.load_state_dict(shard_state_dict(
+        {k: _t(a) for k, a in inp[kind].items()}, model, rules))
+    part = SPMDPartitioner(mesh, rules)
+    out = _losses(model, _rows_of(batches, part), part)
+    import torch
+
+    out["sharded"] = sorted({s.name.split(".")[-2] for s in part.shard_opt_state(
+        torch.optim.SGD(model.parameters(), lr=0.0), model).sharded})
+    return out
+
+
+def ring_step_check(inp: dict, sp: int) -> dict:
+    """BERT fine-tuning with ring attention over ``sp``: each data shard's
+    rows, each sp peer its block of their tokens, the labels whole."""
+    import torch.distributed as dist
+
+    import torch_dist_jobs as djobs
+    from sparkdl_torch.models.bert import BertConfig, BertForSequenceClassification
+    from sparkdl_torch.partition import DataParallelPartitioner
+
+    mesh = _mesh(dp=dist.get_world_size() // sp, sp=sp)
+    cfg = BertConfig.tiny(vocab_size=djobs.VOCAB, attn_impl="ring")
+    model = BertForSequenceClassification(cfg, device="cpu", mesh=mesh)
+    model.load_state_dict({k: _t(a) for k, a in inp["bert"].items()})
+    part = DataParallelPartitioner(mesh)
+    c, n = mesh.coordinate("sp"), djobs.LENGTH // sp
+    batches = [{k: v if k == "labels" else v[:, c * n:(c + 1) * n] for k, v in b.items()}
+               for b in _rows_of(djobs.toy_batches(), part)]
+    return _losses(model, batches, part)
+
+
+def moe_step_check(inp: dict) -> dict:
+    """The MoE GPT classifier with its experts split over ep = the whole
+    world, the batch over ep too (GPT_RULES)."""
+    import torch.distributed as dist
+
+    from sparkdl_torch.models.convert import shard_state_dict
+    from sparkdl_torch.partition import SPMDPartitioner
+    from sparkdl_torch.partition.rules import GPT_RULES
+
+    mesh = _mesh(dp=1, ep=dist.get_world_size())
+    model = gpt_classifier(inp["moe_cfg"], mesh)
+    model.load_state_dict(shard_state_dict({k: _t(a) for k, a in inp["moe"].items()},
+                                           model, GPT_RULES))
+    part = SPMDPartitioner(mesh, GPT_RULES, batch_axes=("dp", "fsdp", "ep"))
+    out = _losses(model, _rows_of(gpt_batches(), part), part)
+    out["local_experts"] = int(model.gpt.h[1].moe_mlp.wi.shape[0])
+    return out
+
+
+def pipeline_step_check(inp: dict) -> dict:
+    """The GPT classifier's blocks as pipeline stages over pp = the whole
+    world, every rank feeding the same rows; the stacked stages'
+    optimizer state one stage a rank."""
+    import torch.distributed as dist
+
+    from sparkdl_torch.partition import PartitionSpec as P, SPMDPartitioner
+
+    world = dist.get_world_size()
+    mesh = _mesh(dp=1, pp=world)
+    model = gpt_classifier(inp["cfg"], mesh, pipeline=True)
+    model.load_state_dict(model.from_whole({k: _t(a) for k, a in inp["gpt"].items()}))
+    part = SPMDPartitioner(mesh, ((r"^stages\.", P("pp")), (r".*", P())))
+    return _losses(model, gpt_batches(), part)
+
+
 # -- the jobs -----------------------------------------------------------------------
 
 def two_rank_job(inp: dict) -> dict:
@@ -391,6 +632,10 @@ def two_rank_job(inp: dict) -> dict:
         "gpt_tp": gpt_tp_check(inp["gpt"]),
         "moe_gpt": moe_gpt_check(inp["moe_gpt"]),
         "finetune_tp": finetune_tp_check(inp["bert_finetune"], dp=1, tp=2),
+        "vit_tp": vit_tp_check(inp["vit_tp"]),
+        "ring_step": ring_step_check(inp["steps"], sp=2),
+        "moe_step": moe_step_check(inp["steps"]),
+        "pipeline_step": pipeline_step_check(inp["steps"]),
     }
 
 
@@ -404,4 +649,7 @@ def four_rank_job(inp: dict) -> dict:
         "sp_prefill": sp_prefill_check(inp["gpt"]),
         "bert_ring": bert_ring_check(inp["bert_ring"]),
         "finetune_tp": finetune_tp_check(inp["bert_finetune"], dp=2, tp=2),
+        "vit_fsdp_tp": spmd_step_check(inp["steps"], "vit", dp=1, fsdp=2, tp=2),
+        "bert_fsdp_tp": spmd_step_check(inp["steps"], "bert", dp=1, fsdp=2, tp=2),
+        "ring_step": ring_step_check(inp["steps"], sp=2),
     }

@@ -290,3 +290,68 @@ def one_process_finetune(state: dict) -> "list[float]":
     _, hist = finetune_classifier(model, jobs.toy_batches(), learning_rate=1e-3,
                                   partitioner=SingleDevicePartitioner("cpu"))
     return [h["loss"] for h in hist]
+
+
+# -- ViT at tp, and the train steps over every mesh axis ---------------------------
+
+VIT_CLASSES = 5
+
+
+def vit_tp() -> "tuple[dict, dict]":
+    """Tiny ViT (JAX init, converted) and the JAX forward's features and
+    probabilities on random images."""
+    from sparkdl_tpu.models import vit as jvit
+
+    from sparkdl_torch.models.convert import vit_flax_to_torch
+    from sparkdl_torch.models.vit import ViTConfig, ViTModel
+
+    model = jvit.ViTModel(config=jvit.ViTConfig.tiny(), num_classes=VIT_CLASSES)
+    variables = jax.device_get(flax.core.meta.unbox(
+        model.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))))
+    module = ViTModel(ViTConfig.tiny(), num_classes=VIT_CLASSES)
+    state = {k: v.numpy() for k, v in vit_flax_to_torch(variables, module=module).items()}
+    x = np.random.default_rng(11).standard_normal((3, 32, 32, 3)).astype(np.float32)
+    f, p = model.apply(variables, x)
+    return ({"state": state, "x": x, "classes": VIT_CLASSES},
+            {"features": np.asarray(f), "probs": np.asarray(p)})
+
+
+def step_states(bert_state: dict) -> dict:
+    """The starting weights of the step checks (``tests/torch_parallel_jobs``
+    ``*_step_check``): the port's seeded inits, and the BERT fine-tune's."""
+    import torch_parallel_jobs as pjobs
+
+    from sparkdl_torch.models.gpt import init_gpt_
+    from sparkdl_torch.models.vit import init_vit_
+
+    def numpy(module):
+        return {k: v.numpy().copy() for k, v in module.state_dict().items()}
+
+    vit = pjobs.vit_classifier()
+    init_vit_(vit.vit, 0)
+    moe_cfg = dict(num_experts=4, moe_every=2)
+    moe, gpt = pjobs.gpt_classifier(moe_cfg), pjobs.gpt_classifier({})
+    init_gpt_(moe.gpt, 0)
+    init_gpt_(gpt.gpt, 1)
+    return {"vit": numpy(vit), "bert": bert_state, "moe": numpy(moe),
+            "moe_cfg": moe_cfg, "gpt": numpy(gpt), "cfg": {}}
+
+
+def one_process_steps(states: dict) -> dict:
+    """The port's one-process losses of each step check's model, over the
+    global batches (``pjobs.step_losses``)."""
+    import torch
+
+    import torch_dist_jobs as djobs
+    import torch_parallel_jobs as pjobs
+    from sparkdl_torch.partition import SingleDevicePartitioner
+
+    def run(model, key, batches):
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in states[key].items()})
+        return pjobs.step_losses(model, batches, SingleDevicePartitioner("cpu"))
+
+    return {"vit": run(pjobs.vit_classifier(), "vit", pjobs.vit_batches()),
+            "bert": run(djobs.tiny_bert({k: torch.from_numpy(v) for k, v in
+                                         states["bert"].items()}), "bert", djobs.toy_batches()),
+            "moe": run(pjobs.gpt_classifier(states["moe_cfg"]), "moe", pjobs.gpt_batches()),
+            "gpt": run(pjobs.gpt_classifier(states["cfg"]), "gpt", pjobs.gpt_batches())}

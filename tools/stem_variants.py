@@ -280,8 +280,8 @@ def main() -> int:
         use(libs[name])
         parts = []
         for label, x in (("f32", x_f32), ("u8", x_u8)):
-            got = inception_stem_fused(x, folded)
-            same = torch.equal(got, inception_stem_fused(x, folded))
+            got = inception_stem_fused(x, folded, dtype=torch.float32)
+            same = torch.equal(got, inception_stem_fused(x, folded, dtype=torch.float32))
             parts.append(f"{label} {cs._rel_err(got, want)[1]:.2e}"
                          + ("" if same else " REPEAT-DIFFERS"))
         with torch.inference_mode():
@@ -293,7 +293,7 @@ def main() -> int:
     for rnd, order in enumerate((names, names[::-1])):
         for name in order:
             use(libs[name])
-            ms = cs._device_ms(lambda: inception_stem_fused(x_f32, folded))
+            ms = cs._device_ms(lambda: inception_stem_fused(x_f32, folded, dtype=torch.float32))
             print(f"[time] round {rnd} {name}: {ms:.4f} ms (B={cs.BATCH}, S={cs.SIZE}, "
                   f"f32, CUDA-graph replay; {card})", flush=True)
     _dispatch._LIBS.pop(SOURCE, None)
