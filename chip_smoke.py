@@ -57,6 +57,11 @@ went through its kernels and agrees with a kernel-free run:
 - tiered KV: three-turn sessions parked to host and disk between turns,
   exported to and imported by a second engine, held bitwise to an engine
   that never parks, for float32, bfloat16 and int8 pools;
+- the continuous engine's sequence-parallel prefill: ``sp=2`` (both
+  shards on the one card; the cards in ``tools/parallel4_probe.py``)
+  against ``sp=1`` over two bursts of eight 512..960-token prompts, with
+  injected ``sp.permute``/``sp.gather`` faults (no kernel: the chunks are
+  the dense masked path);
 - ``observability.profiling.trace`` around one featurizer batch.
 
 The graphed paths are held bitwise to their eager form (the training
@@ -4777,6 +4782,448 @@ def _profile_batch(logdir: str) -> list:
     return found
 
 
+SP_SLOTS, SP_MAX_LEN, SP_BLOCK, SP_CHUNK = 8, 1024, 16, 256
+SP_REQS, SP_NEW, SP_PREFIX = 8, 32, 256
+SP_FAULTS = "sp.permute:OSError@3;sp.gather:OSError@2"  # one of each
+
+
+def _sp_prompts(vocab: int, seed: int) -> list:
+    """SP_REQS prompts of 512..960 tokens (the same lengths for every
+    seed, so a second burst replays the first one's graphs), tokens from
+    ``seed``; the first two open with one fixed SP_PREFIX-token prefix."""
+    import numpy as np
+
+    lens = np.random.default_rng(100).integers(512, 961, SP_REQS)
+    lens[0] = 960  # one prompt of four chunks: 256 x 3 + 192
+    prefix = np.random.default_rng(101).integers(0, vocab, SP_PREFIX)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, vocab, int(n)) for n in lens]
+    for i in (0, 1):
+        prompts[i][:SP_PREFIX] = prefix
+    return prompts
+
+
+def _sp_placement(sp: int, cards: bool) -> list:
+    """sp shards on sp cards, or all of them on cuda:0."""
+    import torch
+
+    if cards and torch.cuda.device_count() < sp:
+        raise AssertionError(f"[sp_serve] sp={sp} needs {sp} cards, "
+                             f"{torch.cuda.device_count()} visible")
+    return [torch.device("cuda", i if cards else 0) for i in range(sp)]
+
+
+def _sp_engine(cfg, model, sp: int, devices=None, **kw):
+    """A ContinuousGPTEngine for [sp_serve]; ``devices`` (when given)
+    replaces the engine's own placement of its sp shards."""
+    from sparkdl_torch.serving import ContinuousGPTEngine
+
+    cls = ContinuousGPTEngine
+    if devices is not None:
+        class Placed(ContinuousGPTEngine):
+            @staticmethod
+            def _sp_devices(device, n):
+                return list(devices)
+        cls = Placed
+    kw.setdefault("n_slots", SP_SLOTS)
+    return cls(cfg, model, max_len=SP_MAX_LEN, kv_block_size=SP_BLOCK,
+               prefill_chunk=SP_CHUNK, sp=sp, auto_start=False, **kw)
+
+
+def _sp_timed(eng, devices) -> dict:
+    """Wrap an engine's prefill chunks (the sp chunk, or the sp=1 chunk
+    programs' graph replays) and sp handoffs in CUDA events recorded on
+    every device's current stream: ``{"chunk": [...], "handoff": [...]}``
+    of (start events, end events) by device."""
+    import torch
+
+    devs = sorted(set(devices), key=str)
+    marks = {"chunk": [], "handoff": []}
+
+    def events():
+        out = {}
+        for d in devs:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record(torch.cuda.current_stream(d))
+            out[d] = e
+        return out
+
+    def timed(kind, fn):
+        def call(*a, **k):
+            start = events()
+            out = fn(*a, **k)
+            marks[kind].append((start, events()))
+            return out
+        return call
+
+    if eng.sp > 1:
+        eng._sp_chunk = timed("chunk", eng._sp_chunk)
+        eng._sp_handoff = timed("handoff", eng._sp_handoff)
+    else:
+        run = eng._run
+        chunk = timed("chunk", run)
+        eng._run = lambda name, *a, **k: (chunk if name.startswith("chunk")
+                                          else run)(name, *a, **k)
+    return marks
+
+
+def _sp_ms(marks: list) -> dict:
+    """Per device: the median and the sum of end - start ms over the
+    marked calls."""
+    import torch
+
+    if not marks:
+        return {}
+    for d in marks[0][0]:
+        torch.cuda.synchronize(d)
+    out = {}
+    for d in marks[0][0]:
+        ms = [a[d].elapsed_time(b[d]) for a, b in marks]
+        out[str(d)] = (statistics.median(ms), sum(ms))
+    return out
+
+
+def _sp_final_logits(cfg, model, prompt, sp: int, devices) -> "torch.Tensor":
+    """``prompt``'s final prefill chunk's float32 logits [r, vocab] on
+    cuda:0: at sp=1 from the single-device chunk (eager, so the logits
+    can be read), above it from the sp chunk."""
+    import torch
+
+    eng = _sp_engine(cfg, model, sp, devices, n_slots=1)
+    got = []
+    if sp == 1:
+        eng._graphed = False
+        inner = eng._chunk_logits
+
+        def keep(*a, **k):
+            out = inner(*a, **k)
+            got.append(out[0])
+            return out
+        eng._chunk_logits = keep
+    else:
+        inner = eng._sp_chunk
+
+        def keep(*a, **k):
+            out = inner(*a, **k)
+            if out is not None:
+                got.append(torch.cat([o.to("cuda:0") for o in out]))
+            return out
+        eng._sp_chunk = keep
+    fut = eng.submit(prompt, 1)
+    while not fut.done():
+        eng.tick()
+    fut.result()
+    eng.close()
+    r = len(prompt) % SP_CHUNK or SP_CHUNK
+    return got[-1][:r]
+
+
+def _linear_rows(fn) -> dict:
+    """{device: rows of each dense layer's input} over one call of ``fn``
+    (the q/k/v, output, MLP and head products; attention's bmm left
+    out)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen: dict = {}
+
+    class Mode(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name in ("linear", "mm", "addmm"):
+                x = args[1] if name == "addmm" else args[0]
+                seen.setdefault(str(x.device), []).append(x.numel() // x.shape[-1])
+            return func(*args, **(kwargs or {}))
+
+    with Mode():
+        fn()
+    return seen
+
+
+def _kernel_ms_by_device(fn) -> dict:
+    """torch.profiler's CUDA kernel time (ms) on each device while
+    ``fn`` runs; empty when the trace holds no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "device_time", None)
+        us = us if us is not None else getattr(e, "cuda_time", 0.0)
+        out[e.device_index] = out.get(e.device_index, 0.0) + us / 1e3
+    return out
+
+
+SP_DELAY_CYCLES = 100_000_000  # torch.cuda._sleep: tens of ms at the H100's clocks
+
+
+def _fetch_waits_for_its_card(devices) -> float:
+    """start_fetch of a scalar written on the last card behind a
+    SP_DELAY_CYCLES spin on that card's stream, with cuda:0 current (as
+    the engine's thread has it): the value must be the one written (a
+    fresh one, which no earlier pinned buffer can hold). Returns the
+    host's wait in ms."""
+    import numpy as np
+    import torch
+
+    from sparkdl_torch.runtime.completion import start_fetch
+
+    last = devices[-1]
+    value = int(np.random.default_rng().integers(1 << 40, 1 << 50))
+    x = torch.zeros((), dtype=torch.long, device=last)
+    torch.cuda.synchronize(last)
+    with torch.cuda.device(last):
+        torch.cuda._sleep(SP_DELAY_CYCLES)
+        x.fill_(value)
+    assert torch.cuda.current_device() == 0
+    t0 = time.perf_counter()
+    got = int(start_fetch(x).result())
+    waited = (time.perf_counter() - t0) * 1e3
+    if got != value:
+        raise AssertionError(f"[sp_serve] start_fetch of a scalar on {last} with cuda:0 "
+                             f"current read {got}, not {value}: it did not wait for "
+                             f"{last}'s stream")
+    return waited
+
+
+def _sp_late_shard_token(cfg, model, prompt, sp: int) -> int:
+    """``prompt``'s first generated token through an sp engine over the
+    cards whose final chunk's last real row sits on a shard past the
+    first, with every card but cuda:0 spinning SP_DELAY_CYCLES on its
+    stream after the chunk: the token is read across cards while the
+    engine's thread keeps cuda:0 current."""
+    import torch
+
+    from sparkdl_torch.runtime.batching import pow2_bucket
+
+    eng = _sp_engine(cfg, model, sp, n_slots=1)
+    r = len(prompt) % SP_CHUNK or SP_CHUNK
+    shard = (r - 1) // (pow2_bucket(r, max(8, sp), eng._chunk_cap) // sp)
+    if shard < 1:
+        raise AssertionError(f"[sp_serve] sp={sp}: the last real row is on shard {shard}")
+    inner = eng._sp_chunk
+
+    def late(*a, **k):
+        out = inner(*a, **k)
+        if out is not None:
+            for d in eng._sp_devs[1:]:
+                with torch.cuda.device(d):
+                    torch.cuda._sleep(SP_DELAY_CYCLES)
+        return out
+    eng._sp_chunk = late
+    fut = eng.submit(prompt, 1)
+    while not fut.done():
+        eng.tick()
+    eng.close()
+    return int(fut.result()[0])
+
+
+@contextlib.contextmanager
+def _env_unset(name: str):
+    """``name`` out of the environment for the block, then put back."""
+    saved = os.environ.pop(name, None)
+    try:
+        yield
+    finally:
+        if saved is not None:
+            os.environ[name] = saved
+
+
+def phase_sp_serve(card: str, sps=(2,), cards: bool = False) -> dict:
+    """The continuous engine's sequence-parallel prefill at GPT-2 small's
+    full width: ``sp=1`` (the single-device path, its chunks CUDA graphs)
+    against each ``sp`` in ``sps`` (eager chunks whose query rows split
+    over the shards' devices: every shard on cuda:0, or with ``cards`` one
+    card a shard), each over two bursts of the same SP_REQS prompts'
+    lengths (the second on captured graphs and cached prefixes). Tokens
+    equal across sp and to batch-1 generate, the final chunk's logits
+    within LOGIT_TOL of sp=1's, every request handed off and the staging
+    pool drained, no request lost under one injected ``sp.permute`` and
+    one ``sp.gather`` fault, and no kernel launched (the engine's chunks
+    and steps are the dense masked path).
+
+    It runs with CUBLAS_WORKSPACE_CONFIG unset: torch reads the variable
+    on every cuBLAS call, ~50 us of host time a call where it is set
+    (``tools/cublas_env_probe.py``), which the eager sp chunk would pay on
+    each dense product; the phase uses no deterministic algorithm, which
+    is what main() sets it for."""
+    with _env_unset("CUBLAS_WORKSPACE_CONFIG"):
+        return _sp_serve(card, sps, cards)
+
+
+def _sp_serve(card: str, sps, cards: bool) -> dict:
+    """The body of :func:`phase_sp_serve`."""
+    import numpy as np
+    import torch
+
+    from sparkdl_torch.models.gpt import GPTConfig, GPTLMHeadModel, generate, init_gpt_
+    from sparkdl_torch.observability.flight import flight_recorder
+    from sparkdl_torch.reliability import faults
+
+    t_phase = time.perf_counter()
+    cfg = GPTConfig(positions="learned")
+    model = GPTLMHeadModel(cfg, device="cuda")
+    model.load_state_dict(init_gpt_(GPTLMHeadModel(cfg, device="cpu"), seed=0).state_dict())
+    model.eval()
+    bursts = [_sp_prompts(cfg.vocab_size, seed) for seed in (0, 1)]
+    pct = lambda xs, q: float(np.percentile(xs, q)) * 1e3  # noqa: E731
+    res, lines = {}, []
+    for sp in (1, *sps):
+        devices = _sp_placement(sp, cards) if sp > 1 else [torch.device("cuda", 0)]
+        _zero_counts()
+        steps0 = _metric("sparkdl_sp_ring_steps_total")
+        bytes0 = _metric("sparkdl_sp_permute_bytes_total")
+        eng = _sp_engine(cfg, model, sp, None if (cards or sp == 1) else devices)
+        marks = _sp_timed(eng, devices)
+        out, chunk_ms, handoff_ms = [], [], []
+        for p in bursts:  # the chunks' times of each burst apart
+            for kind in marks:
+                marks[kind].clear()
+            out.append(_burst(eng, p))
+            chunk_ms.append(_sp_ms(marks["chunk"]))
+            handoff_ms.append(_sp_ms(marks["handoff"]))
+        launched = _launch_counts()
+        if any(launched.values()):
+            raise AssertionError(f"[sp_serve] sp={sp} launched kernels: {launched}")
+        staged = {}
+        if sp > 1:
+            for dev, kv in zip(eng._sp_devs, eng._sp_kv):
+                staged[str(dev)] = staged.get(str(dev), 0) + sum(
+                    t.nbytes for t in kv.values())
+        eng.close()
+        kv = out[-1]["snap"]["kv"]
+        res[sp] = {"outs": [o["outs"] for o in out], "kv": kv,
+                   "ttft": [o["ttft"] for o in out], "secs": [o["secs"] for o in out],
+                   "chunk": chunk_ms, "handoff": handoff_ms,
+                   "ring_steps": _metric("sparkdl_sp_ring_steps_total") - steps0,
+                   "permute_bytes": _metric("sparkdl_sp_permute_bytes_total") - bytes0,
+                   "staged": staged, "devices": [str(d) for d in devices]}
+        if sp > 1:
+            for b, (got, want) in enumerate(zip(res[sp]["outs"], res[1]["outs"])):
+                _same_tokens(f"sp={sp} burst {b} vs sp=1", model, bursts[b], got, want)
+            if kv["sp"]["handoffs"] != 2 * SP_REQS or kv["sp"]["staging_blocks_used"]:
+                raise AssertionError(f"[sp_serve] sp={sp}: {kv['sp']['handoffs']} handoffs "
+                                     f"for {2 * SP_REQS} requests, "
+                                     f"{kv['sp']['staging_blocks_used']} staging blocks "
+                                     "still used")
+    # the oracle: batch-1 generate of the warm burst's prompts
+    with torch.inference_mode():
+        oracle = [generate(model, torch.as_tensor(p[None], device="cuda").long(),
+                           SP_NEW)[0, len(p):].cpu().numpy() for p in bursts[1]]
+    _same_tokens("sp=1 warm burst vs batch-1 generate", model, bursts[1],
+                 res[1]["outs"][1], oracle)
+    # the chaos contract: one failed exchange and one failed handoff gather
+    for sp in sps:
+        devices = _sp_placement(sp, cards)
+        seen = len([e for e in flight_recorder().events()
+                    if e.get("kind") == "sp.collective_failed"])
+        faults.disarm()
+        faults.arm(faults.FaultPlan.parse(SP_FAULTS))
+        try:
+            eng = _sp_engine(cfg, model, sp, None if cards else devices)
+            chaos = _burst(eng, bursts[1])
+            eng.close()
+        finally:
+            faults.disarm()
+        failed = [e["site"] for e in flight_recorder().events()
+                  if e.get("kind") == "sp.collective_failed"][seen:]
+        _same_tokens(f"sp={sp} under {SP_FAULTS} vs sp=1", model, bursts[1],
+                     chaos["outs"], res[1]["outs"][1])
+        if sorted(failed) != ["sp.gather", "sp.permute"]:
+            raise AssertionError(f"[sp_serve] sp={sp}: collective failures {failed}")
+        res[sp]["chaos"] = failed
+    # the final chunk's logits against the single-device chunk's
+    prompt = bursts[1][0]
+    ref = _sp_final_logits(cfg, model, prompt, 1, None)
+    for sp in sps:
+        devices = _sp_placement(sp, cards)
+        run = lambda: res[sp].__setitem__(  # noqa: E731
+            "logits", _sp_final_logits(cfg, model, prompt, sp, None if cards else devices))
+        # over the cards: each card's kernel time, the evidence of its share
+        res[sp]["kernel_ms"] = _kernel_ms_by_device(run) if cards else run() or {}
+        # no chunk's queries ran whole on one device: every dense layer of
+        # the prefill saw a shard's rows, on each shard's device alike
+        rows = _linear_rows(lambda: _sp_final_logits(
+            cfg, model, prompt, sp, None if cards else devices))
+        res[sp]["rows"] = {d: (len(r), max(r)) for d, r in sorted(rows.items())}
+        if (any(m > SP_CHUNK // sp for _, m in res[sp]["rows"].values())
+                or len({n for n, _ in res[sp]["rows"].values()}) != 1
+                or len(rows) != len(set(map(str, devices)))):
+            raise AssertionError(f"[sp_serve] sp={sp}: dense-layer rows by device "
+                                 f"{res[sp]['rows']}, wanted at most {SP_CHUNK // sp} "
+                                 "a product and as many products on each device")
+        diff = (res[sp]["logits"] - ref).abs().max().item()
+        res[sp]["rel"] = diff / ref.abs().max().item()
+        res[sp]["max_diff"] = diff
+        res[sp]["bitwise"] = bool(torch.equal(res[sp]["logits"], ref))
+        if res[sp]["rel"] > LOGIT_TOL:
+            raise AssertionError(f"[sp_serve] sp={sp}: the final chunk's logits rel "
+                                 f"{res[sp]['rel']:.3e} of sp=1's > {LOGIT_TOL}")
+    if cards:  # the first token read across cards, behind a delayed card
+        want = int(res[1]["outs"][1][0][0])
+        for sp in sps:
+            devices = _sp_placement(sp, cards)
+            res[sp]["fetch_wait_ms"] = _fetch_waits_for_its_card(devices)
+            res[sp]["late_token"] = _sp_late_shard_token(cfg, model, prompt, sp)
+            if res[sp]["late_token"] != want:
+                raise AssertionError(
+                    f"[sp_serve] sp={sp}: the first token with the last real row's card "
+                    f"delayed is {res[sp]['late_token']}, sp=1's is {want}")
+    where = "one card a shard" if cards else "every shard on cuda:0"
+    print(f"[sp_serve] ContinuousGPTEngine GPT-2 small ({cfg.num_layers}x{cfg.hidden_size}, "
+          f"learned positions, float32, TF32 off, random init seed 0), n_slots {SP_SLOTS}, "
+          f"max_len {SP_MAX_LEN}, kv_block_size {SP_BLOCK}, prefill_chunk {SP_CHUNK}; two "
+          f"bursts of {SP_REQS} prompts of 512..960 tokens (two share a {SP_PREFIX}-token "
+          f"prefix; the second burst new tokens, the same lengths), {SP_NEW} greedy tokens "
+          f"each, through the daemon loop; sp in {(1, *sps)} ({where}); "
+          f"CUBLAS_WORKSPACE_CONFIG unset for the phase; {card}")
+    for sp, r in res.items():
+        tt = r["ttft"][1]
+        cold, warm = r["chunk"]
+        chunk = "; ".join(f"{d} warm median {m:.3f} ms (cold sum {cold[d][1]:.1f} ms, warm "
+                          f"sum {t:.1f})" for d, (m, t) in warm.items())
+        hand = "; ".join(f"{d} warm median {m:.3f} ms" for d, (m, _)
+                         in r["handoff"][1].items())
+        print(f"[sp_serve] sp={sp} on {r['devices']}: warm TTFT p50 {pct(tt, 50):.1f} ms p99 "
+              f"{pct(tt, 99):.1f} ms (cold p50 {pct(r['ttft'][0], 50):.1f} p99 "
+              f"{pct(r['ttft'][0], 99):.1f}), warm {SP_REQS * SP_NEW / r['secs'][1]:.1f} "
+              f"tokens/s, {r['kv']['prefill_chunks']} prefill chunks over both bursts, "
+              f"prefix-hit tokens {r['kv']['prefix_hits']}; chunk (CUDA events on each "
+              f"device's stream, {'graph replays' if sp == 1 else 'eager'}): {chunk}"
+              + (f"; handoff {hand}; counters sparkdl_sp_ring_steps_total "
+                 f"+{r['ring_steps']:.0f}, sparkdl_sp_permute_bytes_total "
+                 f"+{r['permute_bytes']:.0f}; handoffs {r['kv']['sp']['handoffs']}, staging "
+                 f"blocks used at the end {r['kv']['sp']['staging_blocks_used']}; staging "
+                 f"bytes resident by device {r['staged']}; collective failures injected "
+                 f"and re-queued {r['chaos']}" if sp > 1 else ""))
+    for sp in sps:
+        r = res[sp]
+        kms = (", ".join(f"cuda:{i} {m:.2f} ms" for i, m in sorted(r["kernel_ms"].items()))
+               if cards else "")
+        print(f"[sp_serve] sp={sp}: tokens equal to sp=1's in {2 * SP_REQS}/{2 * SP_REQS} "
+              f"(both bursts) and under the faults; sp=1 equal to batch-1 generate in "
+              f"{SP_REQS}/{SP_REQS}; the final chunk's logits ({len(ref)} rows of the "
+              f"{len(prompt)}-token prompt) vs sp=1's: rel {r['rel']:.3e} (tol {LOGIT_TOL}), "
+              f"max diff {r['max_diff']:.3e}, bitwise {r['bitwise']}; dense products of that "
+              f"prefill by device (count, most rows; a {SP_CHUNK}-token chunk splits "
+              f"{SP_CHUNK // sp} a shard): {r['rows']}; kernel launches 0"
+              + (f"; one prompt's prefill, kernel time by device (torch.profiler): "
+                 f"{kms or 'not measured (no device events in the trace)'}; with every card "
+                 f"but cuda:0 spinning {SP_DELAY_CYCLES} cycles after the final chunk, the "
+                 f"first token (last real row on a later card) {r['late_token']} = sp=1's; "
+                 f"start_fetch of a scalar on {r['devices'][-1]} with cuda:0 current read "
+                 f"its value after {r['fetch_wait_ms']:.1f} ms" if cards else ""))
+    print(f"[sp_serve] phase {time.perf_counter() - t_phase:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+    return {sp: {k: v for k, v in r.items() if k not in ("outs", "logits")}
+            for sp, r in res.items()}
+
+
 def phase_profile(card: str) -> dict:
     """trace() around one featurizer batch, in a fresh process (as an
     operator captures one): the Chrome trace names the stem kernel's
@@ -4863,6 +5310,7 @@ def main() -> int:
     serve = phase_serve(card)
     pool = phase_replicas(card, serve)
     tiers = phase_tiers(card)
+    sp_serve = phase_sp_serve(card)
     phase_profile(card)
     kernels = [stem, attn, dq, dkv, decode, gemm]
     print(f"[summary] {card}: zoo featurizer images/s "
@@ -4886,7 +5334,10 @@ def main() -> int:
           f"{pool['requests_s']:.1f} requests/s (p50 {pool['p50_ms']:.1f} ms, p99 "
           f"{pool['p99_ms']:.1f} ms); KV park/unpark per block "
           + ", ".join(f"{dt} {t['park_ms']:.3f}/{t['unpark_ms']:.3f} ms (bound "
-                      f"{t['bound_ms']:.4f})" for dt, t in tiers.items()))
+                      f"{t['bound_ms']:.4f})" for dt, t in tiers.items())
+          + "; ContinuousGPTEngine warm TTFT p50 " + ", ".join(
+              f"sp={sp} {statistics.median(r['ttft'][1]) * 1e3:.1f} ms"
+              for sp, r in sp_serve.items()) + " (sp=2 both shards on the one card)")
     print(f"[summary] {card}: featurizer {images_s:.1f} images/s; generator "
           f"{tokens_s:.1f} tokens/s; BERT-base fine-tune {examples_s:.1f} examples/s; "
           f"ResNet50 training {train_images_s:.1f} images/s; MoE GPT-2 small "

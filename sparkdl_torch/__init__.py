@@ -33,6 +33,9 @@ _LAZY = {
     "readImages": "sparkdl_torch.image.imageIO",
     "readImagesWithCustomFn": "sparkdl_torch.image.imageIO",
     "registerKerasImageUDF": "sparkdl_torch.udf.keras_image_model",
+    "ServingEngine": "sparkdl_torch.serving.engine",
+    "ContinuousGPTEngine": "sparkdl_torch.serving.continuous",
+    "imageIO": "sparkdl_torch.image",
 }
 
 __all__ = sorted(_LAZY) + ["__version__"]

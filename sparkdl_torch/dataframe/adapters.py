@@ -18,6 +18,8 @@ from __future__ import annotations
 import sys
 from typing import Callable, Iterable, Iterator
 
+import numpy as np
+
 from sparkdl_torch.dataframe.local import LocalDataFrame
 
 
@@ -32,8 +34,26 @@ def is_spark_df(df) -> bool:
     return _instance_of(df, "pyspark.sql", "DataFrame")
 
 
-def make_dataframe(rows, num_partitions: int | None = None) -> LocalDataFrame:
+def make_dataframe(rows, backend: str = "local",
+                   num_partitions: int | None = None) -> LocalDataFrame:
+    """Rows as a DataFrame of ``backend``; ``"local"`` (a
+    :class:`LocalDataFrame`) is the one backend."""
+    if backend != "local":
+        raise ValueError(f"unknown dataframe backend {backend!r}")
     return LocalDataFrame.from_rows(rows, num_partitions)
+
+
+def columns_of(df) -> list[str]:
+    """The column names of any supported DataFrame."""
+    if isinstance(df, LocalDataFrame):
+        return df.columns
+    if _instance_of(df, "pandas", "DataFrame"):
+        return list(df.columns)
+    if _instance_of(df, "pyarrow", "Table"):
+        return df.column_names
+    if is_spark_df(df):
+        return df.columns
+    raise TypeError(f"unsupported DataFrame type {type(df)}")
 
 
 def transform_partitions(
@@ -93,3 +113,8 @@ def _transform_spark(df, fn, output_schema):
             yield pd.DataFrame(out_rows)
 
     return df.mapInPandas(run, schema=out_schema)
+
+
+def get_column_block(rows: list[dict], col: str) -> np.ndarray:
+    """Stack one column of a row block into a numpy array."""
+    return np.asarray([r[col] for r in rows])

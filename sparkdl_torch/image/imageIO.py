@@ -113,21 +113,25 @@ def undefined_image(origin: str = "") -> dict:
     return image_struct(b"", -1, -1, UNDEFINED_MODE, -1, origin)
 
 
-def readImages(path: str | Sequence[str], numPartition: int | None = None):
+def readImages(path: str | Sequence[str], numPartition: int | None = None,
+               dataframe_backend: str = "local"):
     """Read images with the default decoder into BGR structs (Spark's
     ``ImageSchema.readImages``): native libjpeg/libpng where the library
     builds, PIL otherwise — the same structs either way
     (:func:`native_decode_bytes` defers to PIL for anything the native
     path would represent differently)."""
-    return readImagesWithCustomFn(path, native_decode_bytes, numPartition)
+    return readImagesWithCustomFn(path, native_decode_bytes, numPartition,
+                                  dataframe_backend)
 
 
 def readImagesWithCustomFn(
     path: str | Sequence[str],
     decode_f: Callable[[bytes], np.ndarray | dict | None] | None = None,
     numPartition: int | None = None,
+    dataframe_backend: str = "local",
 ):
-    """Read image files into an image DataFrame.
+    """Read image files into an image DataFrame of ``dataframe_backend``
+    (``"local"``, the one backend).
 
     Applies ``decode_f(bytes)`` per file; files the decoder rejects
     (returns None / raises) become "undefined image" rows, so nothing is
@@ -156,7 +160,8 @@ def readImagesWithCustomFn(
             if not img.get("origin"):
                 img["origin"] = p
         rows.append({"filePath": p, "image": img})
-    return make_dataframe(rows, num_partitions=numPartition)
+    return make_dataframe(rows, backend=dataframe_backend,
+                          num_partitions=numPartition)
 
 
 def _expand_paths(path: str | Sequence[str]) -> list[str]:

@@ -75,6 +75,23 @@ def ocv_type_for(dtype: np.dtype, channels: int) -> OcvType:
     return OCV_TYPES[mode]
 
 
+def arrow_image_type():
+    """The Arrow struct type of Spark's ``ImageSchema.columnSchema``
+    (pyarrow imported here: only Arrow users need it)."""
+    import pyarrow as pa
+
+    return pa.struct(
+        [
+            pa.field("origin", pa.string()),
+            pa.field("height", pa.int32()),
+            pa.field("width", pa.int32()),
+            pa.field("nChannels", pa.int32()),
+            pa.field("mode", pa.int32()),
+            pa.field("data", pa.binary()),
+        ]
+    )
+
+
 def image_struct(
     data: bytes,
     height: int,

@@ -290,6 +290,36 @@ class GPTAttention(nn.Module):
         self.out_proj = row(h, h)
         self.dropout = Dropout(config.dropout)
 
+    def qkv(self, x, positions: Optional[torch.Tensor] = None, idx=0):
+        """q, k, v ``[B, L, heads, D]`` of ``x``; under RoPE rotated at
+        ``positions`` [B, L] (default: counting from the cache depth
+        ``idx``)."""
+        c = self.config
+        nh = self.heads
+        hd = c.hidden_size // c.num_heads
+        b, l = x.shape[0], x.shape[1]
+        xs = shared_input(x, self.q_proj)
+        q, k, v = (p(xs).view(b, l, nh, hd)
+                   for p in (self.q_proj, self.k_proj, self.v_proj))
+        if c.positions == "rope":
+            if positions is None:
+                positions = _default_positions(idx, b, l, x.device)
+            q = apply_rope(q, positions, c.rope_base)
+            k = apply_rope(k, positions, c.rope_base)
+        return q, k, v
+
+    @staticmethod
+    def attend_rows(q, ck, cv, q_pos, attention_mask=None):
+        """The dense masked path with a per-row causal mask: queries ``q``
+        [B, L, heads, D] at buffer columns ``q_pos`` [B, L] attend over
+        every column of ``ck``/``cv`` [B, W, heads, D] at or before their
+        own (``attention_mask`` [B, W]: False = masked)."""
+        k_pos = torch.arange(ck.shape[1], device=q.device)
+        keep = (k_pos[None, None, :] <= q_pos[:, :, None])[:, None]
+        if attention_mask is not None:
+            keep = keep & attention_mask[:, None, None, :]
+        return _dense_attention(q, ck, cv, keep)
+
     def forward(self, x, *, cache: Optional[dict] = None,
                 positions: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
@@ -300,16 +330,9 @@ class GPTAttention(nn.Module):
         nh = self.heads
         hd = c.hidden_size // c.num_heads
         b, l = x.shape[0], x.shape[1]
-        xs = shared_input(x, self.q_proj)
-        q, k, v = (p(xs).view(b, l, nh, hd)
-                   for p in (self.q_proj, self.k_proj, self.v_proj))
         idx = cache["idx"] if cache is not None else 0
         per_slot = isinstance(idx, torch.Tensor)
-        if c.positions == "rope":
-            if positions is None:
-                positions = _default_positions(idx, b, l, x.device)
-            q = apply_rope(q, positions, c.rope_base)
-            k = apply_rope(k, positions, c.rope_base)
+        q, k, v = self.qkv(x, positions, idx)
 
         if per_slot:
             # every row at its own depth: write this call's L columns at
@@ -321,11 +344,7 @@ class GPTAttention(nn.Module):
             write_columns(cv, v, idx)
             q_pos = idx.to(torch.long)[:, None] + torch.arange(
                 l, device=x.device)
-            k_pos = torch.arange(ck.shape[1], device=x.device)
-            keep = (k_pos[None, None, :] <= q_pos[:, :, None])[:, None]
-            if attention_mask is not None:
-                keep = keep & attention_mask[:, None, None, :]
-            ctx = _dense_attention(q, ck, cv, keep)
+            ctx = self.attend_rows(q, ck, cv, q_pos, attention_mask)
         elif cache is not None:
             ck, cv = cache["k"][self.layer_idx], cache["v"][self.layer_idx]
             max_len = ck.shape[1]
@@ -400,15 +419,31 @@ class GPTBlock(nn.Module):
             self.down = row(c.intermediate_size, c.hidden_size)
         self.dropout = Dropout(c.dropout)
 
+    def mlp(self, h):
+        """The block's feed-forward half on ``ln_2``'s output."""
+        if hasattr(self, "moe_mlp"):
+            return self.moe_mlp(h)
+        return self.down(F.gelu(self.up(h), approximate="tanh"))
+
+    @staticmethod
+    def forward_shards(blocks, xs, attend, *, train: bool = False,
+                       generator=None):
+        """The block's residual structure over row shards: ``xs[s]``
+        through ``blocks[s]`` (one layer, a module per shard's device).
+        ``attend`` maps the shards' ``ln_1`` outputs to their attention
+        outputs (``out_proj`` applied) all at once, so K/V can pass
+        between shards."""
+        drop = dict(train=train, generator=generator)
+        hs = attend([blk.ln_1(x) for blk, x in zip(blocks, xs)])
+        xs = [x + blk.dropout(h, **drop) for blk, x, h in zip(blocks, xs, hs)]
+        return [x + blk.dropout(blk.mlp(blk.ln_2(x)), **drop)
+                for blk, x in zip(blocks, xs)]
+
     def forward(self, x, *, train: bool = False, generator=None, **attn_kw):
         drop = dict(train=train, generator=generator)
-        x = x + self.dropout(self.attn(self.ln_1(x), **drop, **attn_kw), **drop)
-        h = self.ln_2(x)
-        if hasattr(self, "moe_mlp"):
-            m = self.moe_mlp(h)
-        else:
-            m = self.down(F.gelu(self.up(h), approximate="tanh"))
-        return x + self.dropout(m, **drop)
+        return self.forward_shards(
+            [self], [x], lambda hs: [self.attn(hs[0], **drop, **attn_kw)],
+            **drop)[0]
 
 
 class GPTLMHeadModel(nn.Module):
@@ -459,6 +494,19 @@ class GPTLMHeadModel(nn.Module):
         self.ln_f = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps, **kw)
         self.dropout = Dropout(c.dropout)
 
+    def embed(self, input_ids, positions=None):
+        """Token embeddings plus, with the learned table, those of
+        ``positions`` [B, L]."""
+        x = self.wte(input_ids)
+        if self.wpe is not None:
+            x = x + self.wpe(positions)
+        return x
+
+    def lm_head(self, x):
+        """Float32 logits of the last block's output: ``ln_f``, then the
+        weight-tied head."""
+        return F.linear(self.ln_f(x), self.wte.weight).float()
+
     def forward(self, input_ids, *, cache: Optional[dict] = None,
                 positions: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
@@ -466,20 +514,20 @@ class GPTLMHeadModel(nn.Module):
                 generator: "torch.Generator | None" = None):
         c = self.config
         b, l = input_ids.shape
-        x = self.wte(input_ids)
         if positions is None and cache is None and c.attn_impl == "ring":
-            positions = _ring_positions(self.mesh, c.sp_axis, b, l, x.device)
+            positions = _ring_positions(self.mesh, c.sp_axis, b, l,
+                                        input_ids.device)
+        pos = positions
         if self.wpe is not None:
             idx = cache["idx"] if cache is not None else 0
-            pos = positions
             if pos is None:
-                pos = _default_positions(idx, b, l, x.device)
+                pos = _default_positions(idx, b, l, input_ids.device)
             if isinstance(idx, torch.Tensor):
                 # per-slot: an idle row's position may run past the table
                 # (the reference's gather fills it; here it is clamped).
                 # Admission keeps every live row inside it.
                 pos = pos.clamp(0, c.max_seq_len - 1)
-            x = x + self.wpe(pos)
+        x = self.embed(input_ids, pos)
 
         start = None
         if (cache is not None and l == 1 and c.attn_impl == "flash"
@@ -494,8 +542,7 @@ class GPTLMHeadModel(nn.Module):
             x = blk(x, cache=cache, positions=positions,
                     attention_mask=attention_mask, start=start,
                     kv_sink=kv_sink, train=train, generator=generator)
-        x = self.ln_f(x)
-        logits = F.linear(x, self.wte.weight).float()  # weight-tied LM head
+        logits = self.lm_head(x)
         if cache is not None:
             cache["idx"] += l
         elif kv_sink is not None:

@@ -9,8 +9,9 @@ needs no JAX:
   logline emitter;
 * :mod:`~sparkdl_torch.observability.tracing` — request/step spans with
   contextvar propagation and Chrome ``trace_event`` export;
-* :mod:`~sparkdl_torch.observability.metrics` — step meters and
-  percentiles (the part of the reference's the serving layer uses);
+* :mod:`~sparkdl_torch.observability.metrics` — step meters,
+  percentiles, FLOP counts of a step and the card's peak, and their
+  roll-up across hosts;
 * :mod:`~sparkdl_torch.observability.profiling` — ``torch.profiler``
   trace capture (a context manager and a localhost trace server) and
   host stack sampling (``SPARKDL_TORCH_PROFILE=1``);
@@ -19,9 +20,12 @@ needs no JAX:
 * :mod:`~sparkdl_torch.observability.slo` — declared latency /
   availability objectives with rolling error-budget burn.
 
-The pre-training health probe is :func:`~sparkdl_torch.observability.health.preflight`
-(each ``TorchRunner`` rank runs it); the reference's fleet roll-ups
-(``observability/fleet.py``) come with the fleet, ROADMAP A9.
+* :mod:`~sparkdl_torch.observability.health` — the device/collective
+  health probe (:func:`check_health`; each ``TorchRunner`` rank runs
+  :func:`~sparkdl_torch.observability.health.preflight`).
+
+The reference's fleet roll-ups (``observability/fleet.py``) come with the
+fleet, ROADMAP A9.
 """
 
 from sparkdl_torch.observability.exporters import (
@@ -36,7 +40,14 @@ from sparkdl_torch.observability.flight import (
     record_event,
     trigger_dump,
 )
-from sparkdl_torch.observability.metrics import StepMeter, percentile
+from sparkdl_torch.observability.health import HealthReport, check_health
+from sparkdl_torch.observability.metrics import (
+    StepMeter,
+    aggregate_across_hosts,
+    compiled_flops,
+    device_peak_flops,
+    percentile,
+)
 from sparkdl_torch.observability.profiling import (
     StackProfile,
     annotate,
@@ -45,7 +56,11 @@ from sparkdl_torch.observability.profiling import (
     start_trace_server,
     trace,
 )
-from sparkdl_torch.observability.registry import MetricsRegistry, registry
+from sparkdl_torch.observability.registry import (
+    MetricsRegistry,
+    registry,
+    snapshot_across_hosts,
+)
 from sparkdl_torch.observability.slo import SLO, SLOTracker, slo_report
 from sparkdl_torch.observability.tracing import (
     attach,
@@ -61,6 +76,7 @@ from sparkdl_torch.observability.tracing import (
 
 __all__ = [
     "FlightRecorder",
+    "HealthReport",
     "MetricsRegistry",
     "MetricsServer",
     "PeriodicLogEmitter",
@@ -68,9 +84,13 @@ __all__ = [
     "SLOTracker",
     "StackProfile",
     "StepMeter",
+    "aggregate_across_hosts",
     "annotate",
     "attach",
+    "check_health",
+    "compiled_flops",
     "current_context",
+    "device_peak_flops",
     "disable_tracing",
     "enable_tracing",
     "export_chrome_trace",
@@ -84,9 +104,11 @@ __all__ = [
     "record_span",
     "registry",
     "slo_report",
+    "snapshot_across_hosts",
     "span",
     "spans_for_trace",
     "start_trace_server",
     "trace",
     "tracing_enabled",
+    "trigger_dump",
 ]

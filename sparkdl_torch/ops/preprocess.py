@@ -3,7 +3,8 @@
 The keras.applications ``preprocess_input`` modes the named-model
 registry uses: 'tf' (Inception/Xception), 'caffe' (ResNet/VGG), 'torch'.
 Inputs are RGB float tensors in [0, 255] with shape (..., H, W, 3);
-outputs are what each model family expects.
+outputs are what each model family expects. :func:`resize_images` is
+the batched device resize.
 """
 
 from __future__ import annotations
@@ -52,3 +53,20 @@ PREPROCESSORS = {
     "torch": preprocess_torch,
     "identity": preprocess_identity,
 }
+
+
+def resize_images(x: torch.Tensor, height: int, width: int,
+                  method: str = "bilinear") -> torch.Tensor:
+    """Batched image resize on the tensor's device: ``x`` (..., H, W, C)
+    to (..., ``height``, ``width``, C), bilinear with half-pixel centers
+    and antialias off (the TF1-style resize of the reference's graphs;
+    ``jax.image.resize(..., antialias=False)`` in the reference)."""
+    import torch.nn.functional as F
+
+    if method not in ("bilinear", "linear"):
+        raise ValueError(f"unsupported resize method {method!r} (bilinear)")
+    lead = x.shape[:-3]
+    nchw = x.reshape(-1, *x.shape[-3:]).permute(0, 3, 1, 2)
+    out = F.interpolate(nchw, size=(height, width), mode="bilinear",
+                        align_corners=False, antialias=False)
+    return out.permute(0, 2, 3, 1).reshape(*lead, height, width, x.shape[-1])

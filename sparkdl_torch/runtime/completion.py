@@ -139,14 +139,15 @@ class FetchTicket:
     idempotent (the resolution is memoized)."""
 
     __slots__ = ("_path", "_value", "_exc", "_done", "_lock", "_future",
-                 "_tree", "_event", "_sources")
+                 "_tree", "_events", "_sources")
 
-    def __init__(self, tree: Any, path: str, future=None, event=None,
+    def __init__(self, tree: Any, path: str, future=None, events=(),
                  sources=()):
         self._tree = tree
         self._path = path
         self._future = future  # fallback-pool future, else None
-        self._event = event  # CUDA event after the copies, else None
+        # one CUDA event per source device, after its copies
+        self._events = tuple(events)
         self._sources = sources  # the device leaves, alive until collected
         self._value: Any = None
         self._exc: "BaseException | None" = None
@@ -167,7 +168,7 @@ class FetchTicket:
                     if self._future is not None:
                         self._value = self._future.result(timeout)
                     else:
-                        if self._event is not None:
+                        if self._events:
                             self._wait_ready(
                                 None if timeout is None else t0 + timeout)
                         self._value = _to_host(self._tree)
@@ -193,13 +194,14 @@ class FetchTicket:
             return self._value
 
     def _wait_ready(self, deadline: "float | None") -> None:
-        """Wait for this fetch's CUDA event: blocking without a deadline,
+        """Wait for this fetch's CUDA events: blocking without a deadline,
         else polling ``query()`` until ``deadline`` (CUDA has no timed
         event wait), so a timed ``result()`` is honored."""
         if deadline is None:
-            self._event.synchronize()
+            for event in self._events:
+                event.synchronize()
             return
-        while not self._event.query():
+        while not all(event.query() for event in self._events):
             if time.monotonic() >= deadline:
                 raise FuturesTimeoutError(
                     "fetch not ready within deadline (its device->host "
@@ -228,9 +230,11 @@ def start_fetch(tree: Any, *, path: str = "default") -> FetchTicket:
     ticket.
 
     Every CUDA tensor leaf gets a fresh page-locked host tensor and a
-    non-blocking copy into it, enqueued on the current stream (the one
-    that produced the output, so the copy starts the moment compute
-    finishes); one CUDA event after the copies marks them done. CPU
+    non-blocking copy into it, enqueued on its own device's current
+    stream (the one that produced the output, so the copy starts the
+    moment compute finishes); one CUDA event on each source device's
+    stream, after its copies, marks them done — a leaf on another card
+    than the caller's current one is waited for on ITS stream. CPU
     tensors and host arrays pass through; any other leaf rides the
     bounded readback thread pool.
     """
@@ -255,19 +259,21 @@ def start_fetch(tree: Any, *, path: str = "default") -> FetchTicket:
         return leaf
 
     host_tree = tree_map(copy, tree)
-    event = None
-    if sources:
-        event = torch.cuda.Event()
-        event.record()
+    events = []
+    for device in dict.fromkeys(leaf.device for leaf in sources):
+        with torch.cuda.device(device):
+            event = torch.cuda.Event()
+            event.record()  # the device's current stream: its copies
+        events.append(event)
     future = None
     if needs_pool:
-        def collect(event=event):
-            if event is not None:
+        def collect(events=tuple(events)):
+            for event in events:
                 event.synchronize()
             return _to_host(host_tree)
 
         future = _readback_pool().submit(collect)
-    return FetchTicket(host_tree, path, future, event, tuple(sources))
+    return FetchTicket(host_tree, path, future, events, tuple(sources))
 
 
 class AsyncFetcher:

@@ -82,8 +82,27 @@ re-prefills: both counted (``_park_fallbacks``,
 ``sparkdl_kv_park_fallbacks_total``), and no request is lost. The
 scratch block at the sentinel id is never registered, so it never parks.
 
-Not ported yet, and raising where asked for: sequence-parallel prefill
-(``sp`` > 1, ROADMAP A8).
+Sequence-parallel prefill (``sp=N``, paged layout): each prefill chunk
+runs across N devices of this one process (the model's card and the
+N-1 after it; ``["cpu"] * N`` on the CPU). The chunk's query rows split into N
+contiguous shards, one on each device, and each device runs the cached
+chunk's own operations (embeddings at global positions, LayerNorm, the
+q/k/v projections, dense masked attention, the MLP and, on the final
+chunk, the head) on its rows, with the GPT block's own submodules; layer
+by layer every device's fresh K/V columns are copied to every other
+device. The prompt's K/V accumulate in a sequence-sharded staging pool
+(:class:`~sparkdl_torch.serving.kv_blocks.SeqShardedBlockPool`, one
+storage tensor per device), so a long context never has to fit one
+device while it prefills. ONE gather at the prefill->decode handoff
+(``sp.gather`` fault site) installs the staged K/V into the decode pool;
+the per-token loop (plain, chained, speculative) is the untouched
+single-device paged path. The chunk and the handoff are eager calls: no
+CUDA graph spans two devices. An injected collective fault
+(``sp.permute`` / ``sp.gather``) re-queues the victim request at the
+head instead of failing it (:class:`SpCollectiveError` in the flight
+ring). Greedy tokens are bitwise across ``sp`` on the CPU; on the card
+they are identical and the logits agree within float32 tolerance
+(cuBLAS picks its GEMM by the row count, ROADMAP C15).
 """
 
 from __future__ import annotations
@@ -126,6 +145,25 @@ _M_PREFILL_CHUNKS = registry().counter(
     "sparkdl_prefill_chunks_total",
     "bounded prefill chunks dispatched by continuous GPT engines")
 
+_M_SP_RING_STEPS = registry().counter(
+    "sparkdl_sp_ring_steps_total",
+    "collective hops dispatched by sequence-parallel prefill chunks "
+    "(sp - 1 per sharded chunk dispatch)")
+_M_SP_PERMUTE_BYTES = registry().counter(
+    "sparkdl_sp_permute_bytes_total",
+    "estimated K/V bytes moved between sp devices by prefill collectives "
+    "(2 x layers x chunk_width x hidden x itemsize x (sp-1) per "
+    "dispatch)")
+
+
+class SpCollectiveError(RuntimeError):
+    """A sequence-parallel collective (a chunk's K/V exchange or the
+    prefill->decode handoff gather) failed. The engine never surfaces
+    this to a caller: the victim request's prefill is torn down, its
+    blocks released, and the request RE-QUEUED at the head — an
+    already-admitted request is never lost to a collective fault (the
+    ``sp.permute`` / ``sp.gather`` chaos contract)."""
+
 _M_SPEC_PROPOSED = registry().counter(
     "sparkdl_spec_proposed_total",
     "draft tokens proposed to speculative verify dispatches")
@@ -161,9 +199,6 @@ _OVERLOAD_STRIDE_S = 0.25
 #: CUDA graphs an engine keeps: (k, nb) decode and verify programs,
 #: (width, cols) chunk programs and dense prompt buckets.
 _MAX_GRAPHS = 96
-
-_NOT_PORTED = "is not ported to sparkdl_torch yet (ROADMAP {item})"
-
 
 @dataclasses.dataclass
 class GenRequest:
@@ -213,6 +248,11 @@ class _Prefill:
     ck: Any = None  # None until the first (gather-fused) chunk ran
     cv: Any = None
     chunks: int = 0
+    #: sequence-parallel staging blocks (sp > 1): the prompt's K/V
+    #: accumulate in these SeqShardedBlockPool blocks, spread over the
+    #: sp devices, instead of the private cache, until the
+    #: prefill->decode handoff gathers them once
+    sp_blocks: "list[int] | None" = None
 
     def all_blocks(self) -> "list[int]":
         """Every pool reference this prefill holds (release on abort)."""
@@ -278,6 +318,20 @@ class ContinuousGPTEngine:
     acceptance rate. ``kv_dtype`` ("fp32" | "bf16" | "int8") picks the
     paged pool's storage layout.
 
+    ``sp`` (paged layout; pin via ``SPARKDL_TORCH_SP``) runs each
+    prefill chunk across that many devices of this process and stages
+    the prompt's K/V in a sequence-sharded pool (``sp_kv_blocks`` sizes
+    it; default the decode pool rounded up to a multiple of ``sp``). A
+    power of two. The shards run on the model's own card and the ones
+    after it: ``cuda:i`` ... ``cuda:i+sp-1`` for a model on ``cuda:i``,
+    raising when that runs past the visible cards (``["cpu"] * sp`` on
+    the CPU). Each other card holds a copy of the weights; a chunk first
+    re-copies them when the engine's module was written in place since
+    the last one (through its parameters: ``load_state_dict``, an
+    optimizer step; writes through ``.data`` bypass the version counter
+    it reads). Decode is untouched: one handoff gather per admission.
+    None/1 (default) = off.
+
     ``host_kv_blocks`` (paged layout) parks cold blocks in a host-DRAM
     tier of that many blocks instead of evicting them; ``disk_kv_blocks``
     adds a disk tier below it, spilling into ``kv_spill_dir`` (a temporary
@@ -294,6 +348,7 @@ class ContinuousGPTEngine:
                  kv_blocks: "int | None" = None,
                  prefill_chunk: "int | None" = None,
                  sp: "int | None" = None,
+                 sp_kv_blocks: "int | None" = None,
                  spec_k: "int | None" = None,
                  draft_source: Any = None,
                  kv_dtype: str = "fp32",
@@ -355,11 +410,19 @@ class ContinuousGPTEngine:
                 f"disk_kv_blocks must be >= 0, got {disk_kv_blocks}")
         if sp is not None and sp < 1:
             raise ValueError(f"sp must be >= 1, got {sp}")
+        # the pin resolves before the layout check, so
+        # SPARKDL_TORCH_SP=2 on a dense engine raises as sp=2 would
         sp_val, _, _ = resolve_pin(sp, "SPARKDL_TORCH_SP", 1, what="sp")
-        if sp_val > 1:
-            raise NotImplementedError(
-                "sequence-parallel prefill (sp > 1) "
-                + _NOT_PORTED.format(item="A8"))
+        if kv_layout != "paged" and sp_val > 1:
+            raise ValueError(
+                "sequence parallelism (sp) requires kv_layout='paged': "
+                "the sp prefill stages K/V in a sequence-sharded block "
+                "pool"
+            )
+        if sp_val & (sp_val - 1):
+            raise ValueError(
+                f"sp must be a power of two (chunk widths bucket to "
+                f"powers of two and shard evenly), got {sp_val}")
         if (config.positions == "learned"
                 and max_len > config.max_seq_len):
             raise ValueError(
@@ -380,7 +443,8 @@ class ContinuousGPTEngine:
         self.kv_layout = kv_layout
         self.spec_k = spec_k
         self.kv_dtype = kv_dtype
-        self.sp = 1
+        self.sp = 1  # raised past 1 by _init_sp in the paged branch
+        self._sp_handoffs = 0
         self._spec_policy = (SpecPolicy(max_k=spec_k)
                              if spec_k is not None else None)
         self._spec_dispatches = 0
@@ -422,9 +486,13 @@ class ContinuousGPTEngine:
         self._thread: threading.Thread | None = None
 
         if kv_layout == "paged":
+            # devices first: a refused sp must not leave pool gauges set
+            sp_devs = self._sp_devices(self.device, sp_val) if sp_val > 1 else None
             self._init_paged(kv_block_size, kv_blocks, prefill_chunk,
                              draft_source, resolve_pin, host_kv_blocks,
                              disk_kv_blocks, kv_spill_dir)
+            if sp_devs is not None:
+                self._init_sp(sp_devs, sp_kv_blocks)
         else:
             from sparkdl_torch.models.gpt import init_cache
 
@@ -511,6 +579,182 @@ class ContinuousGPTEngine:
         self._max_pos = (config.max_seq_len - 1
                          if config.positions == "learned" else wp + chunk)
 
+    # -- sequence-parallel prefill -------------------------------------------
+    @staticmethod
+    def _sp_devices(device: torch.device, sp: int) -> "list[torch.device]":
+        """Where the ``sp`` shards of a prefill chunk run: ``device``
+        repeated on the CPU; on the card ``device`` (the model's) and the
+        ``sp - 1`` cards after it, raising when they run past the visible
+        ones."""
+        if device.type == "cpu":
+            return [device] * sp
+        n = torch.cuda.device_count()
+        first = device.index if device.index is not None else 0
+        if first + sp > n:
+            raise ValueError(f"sp={sp} from {device} exceeds the {n} "
+                             "visible devices")
+        return [torch.device("cuda", first + i) for i in range(sp)]
+
+    def _init_sp(self, devices: "list[torch.device]",
+                 sp_kv_blocks: "int | None") -> None:
+        """The staging pool over ``devices``: host bookkeeping in a
+        :class:`SeqShardedBlockPool`, and per device one ``[layers,
+        blocks_per_shard + 1 scratch, block_size, H, D]`` K and V tensor
+        holding that shard's blocks. Staging stores the COMPUTE dtype
+        under quantized decode pools too: chunks then attend over exact
+        K/V, and the handoff install quantizes once, where the
+        single-device install does. Each distinct device holds one copy
+        of the weights, made from the engine's module."""
+        from sparkdl_torch.models.gpt import GPTLMHeadModel, init_block_pool
+        from sparkdl_torch.serving.kv_blocks import SeqShardedBlockPool
+
+        sp = len(devices)
+        config = self.config
+        self.sp = sp
+        # every chunk width (pow2_bucket clamped to _chunk_cap) must split
+        # evenly over sp: floor the cap to a multiple of sp (never below
+        # sp), and keep a tick's token budget under it
+        self._chunk_cap = max(sp, (self._chunk_cap // sp) * sp)
+        self.prefill_chunk = min(self.prefill_chunk, self._chunk_cap)
+        n_sp = (sp_kv_blocks if sp_kv_blocks is not None
+                else self._pool.n_blocks)
+        n_sp = -(-n_sp // sp) * sp  # shard the block axis evenly
+        self._sp_pool = SeqShardedBlockPool(n_sp, self._kv_bs, sp)
+        self._sp_devs = devices
+        self._sp_kv = [init_block_pool(config, n_sp // sp + 1, self._kv_bs,
+                                       device=d) for d in devices]
+        models = {self.device: self._model}
+        for d in devices:
+            if d not in models:
+                models[d] = GPTLMHeadModel(config, device=d).eval()
+        self._sp_models = [models[d] for d in devices]
+        self._sp_copies = [m for m in models.values() if m is not self._model]
+        self._sp_weights = None
+        self._sp_sync_weights()
+        # host arithmetic for sparkdl_sp_permute_bytes_total: each device
+        # sends its shard of the chunk's K/V to sp - 1 peers
+        itemsize = torch.empty((), dtype=config.dtype).element_size()
+        self._sp_bytes_per_col = (
+            2 * config.num_layers * config.hidden_size * itemsize * (sp - 1))
+
+    def _weights_version(self) -> tuple:
+        """Every parameter and buffer of the engine's module by address
+        and in-place version: an update through them changes it (a
+        tensor made under ``inference_mode`` keeps no version)."""
+        return tuple((t.data_ptr(), -1 if t.is_inference() else t._version)
+                     for t in (*self._model.parameters(),
+                               *self._model.buffers()))
+
+    def _sp_sync_weights(self) -> None:
+        """Copy the engine's weights into the other devices' modules when
+        they changed since the last copy, so no chunk mixes two sets."""
+        version = self._weights_version()
+        if version != self._sp_weights:
+            state = self._model.state_dict()
+            for copy in self._sp_copies:
+                copy.load_state_dict(state)
+            self._sp_weights = version
+
+    def _sp_where(self, blocks) -> "list[tuple[int, torch.Tensor, torch.Tensor]]":
+        """Per shard holding any of ``blocks``: the shard, the positions
+        in ``blocks`` it holds and their local ids, both on its device."""
+        pool = self._sp_pool
+        out = []
+        for sh, dev in enumerate(self._sp_devs):
+            at = [j for j, b in enumerate(blocks) if pool.shard_of(int(b)) == sh]
+            if at:
+                loc = [pool.local_id(int(blocks[j])) for j in at]
+                out.append((sh, torch.as_tensor(at, device=dev),
+                            torch.as_tensor(loc, device=dev)))
+        return out
+
+    def _sp_read(self, blocks, devices) -> "list[tuple[torch.Tensor, torch.Tensor]]":
+        """Staged blocks ``blocks`` as ``[layers, len(blocks), bs, H, D]``
+        K and V on each of ``devices``: each shard read once on its own
+        device, then copied to each."""
+        c = self.config
+        shape = (c.num_layers, len(blocks), self._kv_bs, c.num_heads,
+                 c.hidden_size // c.num_heads)
+        parts = [(at, self._sp_kv[sh]["k"][:, loc], self._sp_kv[sh]["v"][:, loc])
+                 for sh, at, loc in self._sp_where(blocks)]
+        out = []
+        for dev in devices:
+            k = torch.empty(shape, dtype=c.dtype, device=dev)
+            v = torch.empty(shape, dtype=c.dtype, device=dev)
+            for at, ks, vs in parts:
+                at = at.to(dev)
+                k[:, at] = ks.to(dev)
+                v[:, at] = vs.to(dev)
+            out.append((k, v))
+        return out
+
+    def _sp_chunk(self, head, c0: int, ids: np.ndarray, sblk: np.ndarray,
+                  soff: np.ndarray, cols: int, final: bool):
+        """One prefill chunk across the sp devices, eagerly: the chunk's
+        ``wc`` query rows (``ids`` [1, wc]) split into sp contiguous
+        shards, shard s on device s, each running the single-device
+        cached chunk's operations on its rows (through
+        ``GPTBlock.forward_shards``) over ``cols`` key columns
+        (the staged ``head`` blocks at [0, c0), the chunk's own at [c0,
+        c0 + wc), causally masked zeros after). Layer by layer every
+        device's fresh K/V columns are copied to every device; a copy
+        between two devices is ordered by events on both devices' current
+        streams (torch records one on each side), so the host never waits
+        inside the layer loop. The fresh REAL columns then
+        land in their staged blocks (``sblk``/``soff``; pad columns
+        target the sentinel, i.e. a shard's scratch block). Returns, on
+        the final chunk, its float32 logits as one [wc / sp, vocab]
+        tensor per device in row order (no head runs before it)."""
+        from sparkdl_torch.models.gpt import GPTBlock
+
+        self._sp_sync_weights()
+        c = self.config
+        n, wc = self.sp, ids.shape[1]
+        m = wc // n
+        # the key buffers: every device gets the staged head
+        shape = (c.num_layers, 1, cols, c.num_heads,
+                 c.hidden_size // c.num_heads)
+        bufs = [(torch.zeros(shape, dtype=c.dtype, device=dev),
+                 torch.zeros(shape, dtype=c.dtype, device=dev))
+                for dev in self._sp_devs]
+        if len(head):
+            for (kb, vb), (hk, hv) in zip(bufs, self._sp_read(head, self._sp_devs)):
+                kb[:, 0, :c0] = hk.flatten(1, 2)[:, :c0]
+                vb[:, 0, :c0] = hv.flatten(1, 2)[:, :c0]
+        xs, pos, qpos = [], [], []
+        for s, (dev, model) in enumerate(zip(self._sp_devs, self._sp_models)):
+            q_pos = c0 + s * m + torch.arange(m, device=dev)[None]
+            pos.append(torch.clamp(q_pos, max=self._max_pos))
+            qpos.append(q_pos)
+            shard = torch.as_tensor(ids[:, s * m:(s + 1) * m]).to(dev)
+            xs.append(model.embed(shard, pos[-1]))
+        for i in range(c.num_layers):
+            blks = [model.h[i] for model in self._sp_models]
+
+            def attend(hs, i=i, blks=blks):
+                qkv = [blk.attn.qkv(h, p) for blk, h, p in zip(blks, hs, pos)]
+                for kb, vb in bufs:  # the exchange: shard s's columns everywhere
+                    for s, (_, k, v) in enumerate(qkv):
+                        kb[i, :, c0 + s * m:c0 + (s + 1) * m] = k
+                        vb[i, :, c0 + s * m:c0 + (s + 1) * m] = v
+                return [blk.attn.out_proj(blk.attn.attend_rows(
+                            q, kb[i], vb[i], q_pos).flatten(2))
+                        for blk, (q, _, _), (kb, vb), q_pos
+                        in zip(blks, qkv, bufs, qpos)]
+
+            xs = GPTBlock.forward_shards(blks, xs, attend)
+        pool = self._sp_pool
+        bps = pool.blocks_per_shard
+        for sh, ((kb, vb), dev) in enumerate(zip(bufs, self._sp_devs)):
+            mine = (sblk != pool.sentinel) & (sblk // bps == sh)
+            blk = self._dev(np.where(mine, sblk % bps, bps), device=dev)
+            off = self._dev(soff, device=dev)
+            self._sp_kv[sh]["k"][:, blk, off] = kb[:, 0, c0:c0 + wc]
+            self._sp_kv[sh]["v"][:, blk, off] = vb[:, 0, c0:c0 + wc]
+        if not final:
+            return None
+        return [model.lm_head(x)[0] for model, x in zip(self._sp_models, xs)]
+
     # -- the device programs -------------------------------------------------
     def _run(self, name: str, fn, inputs: tuple, key: Any = ()):
         """``fn(*inputs)``: one CUDA-graph replay per (``name``, ``key``,
@@ -523,9 +767,10 @@ class ContinuousGPTEngine:
             return self.graphs(fn, inputs,
                                (name, key, storage_key(self._model)))
 
-    def _dev(self, a, dtype=torch.long) -> torch.Tensor:
-        """A host array as a program input on the engine's device."""
-        return torch.as_tensor(np.asarray(a)).to(self.device, dtype)
+    def _dev(self, a, dtype=torch.long, device=None) -> torch.Tensor:
+        """A host array as a program input on the engine's device (or
+        ``device``)."""
+        return torch.as_tensor(np.asarray(a)).to(device or self.device, dtype)
 
     def _dq_gather(self, name: str, ids: torch.Tensor) -> torch.Tensor:
         """pool[name][:, ids] in storage dtype -> compute dtype (the
@@ -629,23 +874,27 @@ class ContinuousGPTEngine:
         return (F.pad(self._dq_gather("k", gids).reshape(shape), pad),
                 F.pad(self._dq_gather("v", gids).reshape(shape), pad))
 
-    def _chunk_apply(self, ck, cv, idx, ids, cols: int):
+    def _chunk_logits(self, ck, cv, idx, ids, cols: int):
         """One bounded prefill chunk, right-aligned: writes K/V at
         columns [idx, idx + width) of the private cache in place, width
         = ``ids.shape[1]`` (the power-of-2 bucket of the chunk's real
         token count), attending over its live head [0, ``cols``) only —
         every column past it is causally masked garbage. Pad queries at
         the right write garbage PAST every real position, hidden by the
-        causal mask until real writes overwrite them. Returns the argmax
-        token at every chunk position."""
+        causal mask until real writes overwrite them. Returns the logits
+        [1, width, vocab]."""
         wc = ids.shape[1]
         positions = torch.clamp(
             idx[:, None] + torch.arange(wc, device=ids.device)[None, :],
             max=self._max_pos)
         cache = {"k": ck[:, :, :cols], "v": cv[:, :, :cols],
                  "idx": idx.clone()}
-        logits, _ = self._model(ids, cache=cache, positions=positions)
-        return torch.argmax(logits[0], dim=-1)
+        return self._model(ids, cache=cache, positions=positions)[0]
+
+    def _chunk_apply(self, ck, cv, idx, ids, cols: int):
+        """:meth:`_chunk_logits`' argmax token at every chunk position."""
+        return torch.argmax(self._chunk_logits(ck, cv, idx, ids, cols)[0],
+                            dim=-1)
 
     def _installed(self, ck, cv, inst) -> None:
         """Private prefill cache -> the slot's OWNED pool blocks (the
@@ -759,6 +1008,15 @@ class ContinuousGPTEngine:
                     f"{self._pool.n_blocks}: it can never fit — raise "
                     "kv_blocks or shorten the request"
                 )
+            if self.sp > 1:
+                nbp = -(-len(prompt) // self._kv_bs)
+                if nbp > self._sp_pool.n_blocks:
+                    raise ValueError(
+                        f"prompt needs {nbp} staging blocks but the "
+                        f"sp pool holds {self._sp_pool.n_blocks}: it "
+                        "can never prefill — raise sp_kv_blocks or "
+                        "shorten the prompt"
+                    )
         else:
             lp = pick_bucket(len(prompt), self._len_buckets)
             if lp + max_new_tokens > self.max_len:
@@ -806,6 +1064,8 @@ class ContinuousGPTEngine:
         self.graphs.clear()  # their private memory pools go with them
         if self.kv_layout == "paged":
             self._pool.close()
+            if self.sp > 1:
+                self._sp_pool.close()
             if self._kv_tiers is not None:
                 self._kv_tiers.close()
 
@@ -930,10 +1190,14 @@ class ContinuousGPTEngine:
                         deferred = True
                         break
                 if (not deferred and self.kv_layout == "paged"
-                        and self._pool.deferral_streak):
+                        and (self._pool.deferral_streak
+                             or (self.sp > 1
+                                 and self._sp_pool.deferral_streak))):
                     # free slots existed and nothing deferred this tick:
                     # the exhaustion episode is over
                     self._pool.reset_deferral_streak()
+                    if self.sp > 1:
+                        self._sp_pool.reset_deferral_streak()
             else:
                 self.queue.sweep_expired()  # deadlines don't wait for slots
             did_work = False
@@ -947,15 +1211,20 @@ class ContinuousGPTEngine:
 
     def _defer(self, reqs: "list[Request]") -> None:
         """KV pool exhaustion: re-queue in order, count the streak on the
-        pool, and after ``_EXHAUST_DUMP_STREAK`` consecutive deferrals
-        hand the flight recorder a postmortem trigger. Self-recovering:
-        blocks free as slots retire."""
+        pool that deferred (``_admit_paged`` sets ``_defer_pool``: the
+        decode pool or the sp staging pool, so a staging stall reads
+        degraded), and after ``_EXHAUST_DUMP_STREAK`` consecutive
+        deferrals hand the flight recorder a postmortem trigger.
+        Self-recovering: blocks free as slots retire."""
         self.queue.requeue(reqs)
         self._deferrals += 1
         gen: GenRequest = reqs[0].payload
         pool = self._defer_pool
+        staging = pool is not self._pool
         # the recovery bar: worst-case blocks of the request being owed
-        span_tokens = len(gen.prompt) + gen.max_new_tokens
+        # (staging holds prompt blocks only; the decode pool the prompt
+        # and its budget)
+        span_tokens = len(gen.prompt) + (0 if staging else gen.max_new_tokens)
         pool.record_deferral(need=-(-span_tokens // self._kv_bs))
         streak = pool.deferral_streak
         flight_mod.record_event(
@@ -964,7 +1233,7 @@ class ContinuousGPTEngine:
             request_id=reqs[0].request_id,
             deferred=len(reqs),
             streak=streak,
-            pool="decode",
+            pool="sp_staging" if staging else "decode",
             blocks_free=pool.free_count,
             blocks_total=pool.n_blocks,
         )
@@ -972,7 +1241,7 @@ class ContinuousGPTEngine:
             flight_mod.trigger_dump(
                 "kv.pool_exhausted",
                 streak=streak,
-                pool="decode",
+                pool="sp_staging" if staging else "decode",
                 blocks_total=pool.n_blocks,
             )
 
@@ -998,6 +1267,7 @@ class ContinuousGPTEngine:
         except Exception as e:
             fault = e
         del self._prefilling[slot]
+        self._release_sp_staging(st)
         self._prefix.release(st.all_blocks())
         if fault is None:
             tenancy.note_preemption()
@@ -1130,6 +1400,39 @@ class ContinuousGPTEngine:
         n_shared = len(m.full_blocks)
         inst = np.full((self._mb,), self._pool.sentinel, np.int64)
         inst[n_shared:n_shared + len(owned)] = owned
+        sp_blocks = None
+        cow = m.partial_block
+        if self.sp > 1:
+            # sequence-parallel staging: the prompt's K/V accumulate in
+            # blocks striped over the sp devices, allocated up front like
+            # the decode blocks; exhaustion defers
+            try:
+                sp_blocks = self._sp_pool.allocate(-(-plen // self._kv_bs))
+            except Exception as e:
+                # an injected kv.alloc fault on the STAGING allocate is
+                # exhaustion too: defer, and keep no decode block
+                flight_mod.record_event(
+                    "kv.alloc_error", error=type(e).__name__,
+                    request_id=req.request_id)
+                sp_blocks = None
+            if sp_blocks is None:
+                self._prefix.release(matched + owned)
+                self._defer_pool = self._sp_pool
+                return False
+            if m.full_blocks or cow is not None:
+                try:
+                    self._sp_seed_prefix(gids, sp_blocks,
+                                         len(m.full_blocks) + (cow is not None))
+                except Exception:
+                    self._sp_pool.release(self._sp_pool.deref(sp_blocks))
+                    self._prefix.release(matched + owned)
+                    raise
+                if cow is not None:
+                    # the copy into the staged block is enqueued ahead of
+                    # any later write to its source, and the sp chunks
+                    # never read the decode pool: drop the hold
+                    self._prefix.release([cow])
+                    cow = None
         self._prefix.record_lookup(m.hit_tokens, plen - m.hit_tokens)
         if m.hit_tokens:
             flight_mod.record_event(
@@ -1140,10 +1443,26 @@ class ContinuousGPTEngine:
             pos=m.hit_tokens, hit=m.hit_tokens,
             shared=m.full_blocks, owned=owned,
             gather_ids=gids, install_ids=inst,
-            cow_block=m.partial_block,
+            cow_block=cow, sp_blocks=sp_blocks,
         )
         self._pool.reset_deferral_streak()
+        if self.sp > 1:
+            self._sp_pool.reset_deferral_streak()
         return True
+
+    def _sp_seed_prefix(self, gids: np.ndarray, sp_blocks: "list[int]",
+                        n_hit_blocks: int) -> None:
+        """The matched prefix span (full blocks and a copy-on-write
+        partial tail) from the decode pool, dequantized, into the staged
+        blocks backing it: one gather, then each shard's blocks copied to
+        its device."""
+        with torch.no_grad():
+            ids = self._dev(gids[:n_hit_blocks])
+            kd, vd = self._dq_gather("k", ids), self._dq_gather("v", ids)
+            for sh, at, loc in self._sp_where(sp_blocks[:n_hit_blocks]):
+                at = at.to(self.device)
+                self._sp_kv[sh]["k"][:, loc] = kd[:, at].to(loc.device)
+                self._sp_kv[sh]["v"][:, loc] = vd[:, at].to(loc.device)
 
     def _alloc_blocks(self, n: int) -> "list[int] | None":
         got = self._pool.allocate(n)
@@ -1421,6 +1740,9 @@ class ContinuousGPTEngine:
                             r: int) -> None:
         from sparkdl_torch.runtime.batching import pow2_bucket
 
+        if st.sp_blocks is not None:
+            self._sp_chunk_step(slot, st, r)
+            return
         c0 = st.pos
         first = st.ck is None
         final = c0 + r == len(st.prompt)
@@ -1476,6 +1798,104 @@ class ContinuousGPTEngine:
             toks = np.asarray(start_fetch(out, path="prefill").result())
             self._finish_prefill(slot, st, int(toks[r - 1]))
         self._prefill_seconds += time.perf_counter() - t0
+
+    def _sp_chunk_step(self, slot: int, st: _Prefill, r: int) -> None:
+        """One prefill chunk across the sp devices (sp > 1): ``r`` real
+        tokens, queries split over the devices, the fresh K/V columns
+        exchanged and scattered into their staged blocks. The final chunk
+        triggers the prefill->decode handoff. Dispatches record under
+        ``sparkdl_dispatch_seconds{path="sp_prefill"}`` and never feed
+        the ChainPolicy, whose gap is measured on single-device
+        programs."""
+        from sparkdl_torch.runtime.batching import pow2_bucket
+
+        try:
+            # the injectable stand-in for a failed exchange; fires
+            # before the chunk, so the staging pool is never half-written
+            fault_point("sp.permute")
+        except Exception as e:
+            self._sp_abort(slot, st, "sp.permute", e)
+            return
+        c0 = st.pos
+        final = c0 + r == len(st.prompt)
+        bs = self._kv_bs
+        wc = pow2_bucket(r, max(8, self.sp), self._chunk_cap)
+        ids = np.zeros((1, wc), np.int64)
+        ids[0, :r] = st.prompt[c0:c0 + r]
+        # the key width of the single-device chunk at this point: the
+        # bucket of the live head, with the private cache's chunk
+        # headroom (wp = table span + chunk cap)
+        cols = pow2_bucket(c0 + wc, 8, self._wp)
+        # staged targets of the chunk's columns; pad columns (>= r) go
+        # to the sentinel
+        at = c0 + np.arange(wc)
+        real = np.arange(wc) < r
+        sblk = np.full((wc,), self._sp_pool.sentinel, np.int64)
+        sblk[real] = np.asarray(st.sp_blocks, np.int64)[at[real] // bs]
+        t0 = time.perf_counter()
+        with span("serving.sp_prefill_chunk", parent=st.req.trace_ctx,
+                  request_id=st.req.request_id, slot=slot, start=c0,
+                  tokens=r, sp=self.sp, final=final), torch.no_grad():
+            logits = self._sp_chunk(st.sp_blocks[:-(-c0 // bs)], c0, ids,
+                                    sblk, at % bs, cols, final)
+        record_dispatch("sp_prefill", 1, time.perf_counter() - t0)
+        _M_SP_RING_STEPS.inc(self.sp - 1)
+        _M_SP_PERMUTE_BYTES.inc(self._sp_bytes_per_col * wc)
+        st.pos += r
+        st.chunks += 1
+        self._prefill_chunks += 1
+        _M_PREFILL_CHUNKS.inc()
+        if final:
+            # the chunk's last REAL row seeds decode, on the device that
+            # holds it
+            m = wc // self.sp
+            tok = torch.argmax(logits[(r - 1) // m][(r - 1) % m])
+            first = int(np.asarray(start_fetch(tok, path="prefill").result()))
+            if self._sp_handoff(slot, st):
+                self._finish_prefill(slot, st, first)
+        self._prefill_seconds += time.perf_counter() - t0
+
+    def _sp_handoff(self, slot: int, st: _Prefill) -> bool:
+        """Prefill->decode handoff: gather the request's staged K/V once
+        onto the decode pool's device and install it into its owned
+        blocks through the shared quantize-on-write path; after this the
+        per-token loop is the single-device paged path. False when the
+        ``sp.gather`` fault site fired (request re-queued, nothing
+        lost)."""
+        try:
+            fault_point("sp.gather")
+        except Exception as e:
+            self._sp_abort(slot, st, "sp.gather", e)
+            return False
+        n = len(st.sp_blocks)
+        with span("serving.sp_handoff", parent=st.req.trace_ctx,
+                  request_id=st.req.request_id, sp=self.sp), torch.no_grad():
+            kd, vd = self._sp_read(st.sp_blocks, [self.device])[0]
+            self._q_write((self._dev(st.install_ids[:n]),), kd, vd)
+        self._sp_handoffs += 1
+        self._release_sp_staging(st)
+        return True
+
+    def _sp_abort(self, slot: int, st: _Prefill, site: str,
+                  exc: Exception) -> None:
+        """A collective fault mid-prefill: tear the prefill down, release
+        every block it holds (staging AND decode pool), and re-queue the
+        request at the head; the typed error lands in the flight ring."""
+        del self._prefilling[slot]
+        self._release_sp_staging(st)
+        self._prefix.release(st.all_blocks())
+        err = SpCollectiveError(f"{site} failed: {exc!r}")
+        flight_mod.record_event(
+            "sp.collective_failed", site=site,
+            error=type(err).__name__, cause=type(exc).__name__,
+            request_id=st.req.request_id, sp=self.sp,
+            prefilled=st.pos, prompt_tokens=len(st.prompt))
+        self.queue.requeue([st.req])
+
+    def _release_sp_staging(self, st: _Prefill) -> None:
+        if st.sp_blocks:
+            self._sp_pool.release(self._sp_pool.deref(st.sp_blocks))
+            st.sp_blocks = None
 
     def _finish_prefill(self, slot: int, st: _Prefill,
                         first: int) -> None:
@@ -1799,6 +2219,7 @@ class ContinuousGPTEngine:
             if st.req.expired(now):
                 self._prefilling.pop(slot)
                 self._release_slot(slot, st.all_blocks())
+                self._release_sp_staging(st)
                 self._fail_request(
                     st.req,
                     DeadlineExceededError(
@@ -1815,6 +2236,7 @@ class ContinuousGPTEngine:
         for slot in list(self._prefilling):
             st = self._prefilling.pop(slot)
             self._release_slot(slot, st.all_blocks())
+            self._release_sp_staging(st)
             self._fail_request(st.req, exc, tokens=0)
 
     # -- introspection -------------------------------------------------------
@@ -1862,13 +2284,25 @@ class ContinuousGPTEngine:
             "prefill_chunk": self.prefill_chunk,
             "prefill_chunks": self._prefill_chunks,
             "deferrals_total": self._deferrals,
-            # /healthz reads a nonzero streak as degraded
-            "exhausted_streak": self._pool.deferral_streak,
+            # /healthz reads a nonzero streak as degraded: the larger of
+            # the decode and staging pools', so a staging stall shows too
+            "exhausted_streak": max(
+                self._pool.deferral_streak,
+                self._sp_pool.deferral_streak if self.sp > 1 else 0),
             "dtype": self.kv_dtype,
             "bytes_per_token": kv_bytes_per_token(
                 self.config, self.kv_dtype),
             "capacity_ratio_vs_fp32": round(kv_capacity_ratio(
                 self.config, self.kv_dtype), 4),
+            **({"sp": {
+                "axis": self.sp,
+                "devices": [str(d) for d in self._sp_devs],
+                "staging_blocks_total": self._sp_pool.n_blocks,
+                "staging_blocks_used": self._sp_pool.used_count,
+                "staging_streak": self._sp_pool.deferral_streak,
+                "shard_used": self._sp_pool.shard_used_counts(),
+                "handoffs": self._sp_handoffs,
+            }} if self.sp > 1 else {}),
             # host/disk tier occupancy rides the same snapshot into the
             # flight recorder's pool-pressure context and healthz
             **({"tiers": {

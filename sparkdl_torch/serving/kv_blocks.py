@@ -44,6 +44,10 @@ bookkeeping; it records the layout for observability
 arithmetic benches and admission math share: int8 fits 2-4x the live
 tokens of fp32 in the same pool bytes, which is directly more
 concurrent users per chip.
+
+Sequence-parallel staging: :class:`SeqShardedBlockPool` lays its blocks
+over ``sp`` devices in contiguous shards and allocates them striped, so
+one long prompt's K/V spreads over every device while it prefills.
 """
 
 from __future__ import annotations
@@ -69,6 +73,10 @@ _M_SPARE = registry().gauge(
 _M_DTYPE = registry().gauge(
     "sparkdl_kv_pool_dtype",
     "live KV block pools by storage layout", labels=("dtype",))
+_M_SP_IMBALANCE = registry().gauge(
+    "sparkdl_sp_shard_imbalance",
+    "sequence-sharded pool imbalance: (max - min) used blocks across "
+    "sp shards / blocks per shard (0 = perfectly balanced)")
 
 #: Supported pool storage layouts: "fp32" stores at the model's compute
 #: dtype (exact, the default), "bf16"/"int8" compress the resident pool
@@ -389,3 +397,116 @@ class KVBlockPool:
         self._g_spare.set(0)
         self._g_dtype.set(0)
 
+
+
+class SeqShardedBlockPool(KVBlockPool):
+    """A :class:`KVBlockPool` whose physical blocks live in ``sp``
+    contiguous shards, shard ``c`` on the engine's ``c``-th device.
+
+    Shard ``c`` holds blocks ``[c * blocks_per_shard, (c+1) *
+    blocks_per_shard)``: a VIRTUAL block id maps to its device and its
+    index in that device's storage through :meth:`shard_of` and
+    :meth:`local_id`. Each device's storage has one scratch block past
+    its real ones (local id ``blocks_per_shard``), where sentinel reads
+    and writes land.
+
+    Allocation is **striped**: :meth:`allocate` round-robins across
+    per-shard free lists, so one sequence's blocks spread over the
+    devices and no shard runs out while its peers sit idle. The
+    ``sparkdl_sp_shard_imbalance`` gauge publishes ``(max - min)`` used
+    blocks across shards over ``blocks_per_shard``. Refcounts, deferral
+    streaks and the free/release contracts are the base class's: block
+    ids stay virtual everywhere above the device layout, so sharing
+    works across shards. :meth:`~KVBlockPool.shrink` parks spare blocks
+    off the fullest stripes and :meth:`~KVBlockPool.grow` returns each
+    to its own shard.
+    """
+
+    def __init__(self, n_blocks: int, block_size: int, sp: int,
+                 dtype: str = "fp32"):
+        if sp < 1:
+            raise ValueError(f"sp must be >= 1, got {sp}")
+        if n_blocks % sp:
+            raise ValueError(
+                f"n_blocks {n_blocks} not divisible by sp={sp}: the "
+                "pool shards its blocks evenly across the devices")
+        super().__init__(n_blocks, block_size, dtype=dtype)
+        self.sp = sp
+        self.blocks_per_shard = n_blocks // sp
+        # striped per-shard free lists replace the base deque; _is_free
+        # stays the record of free-ness, and the per-shard used counts
+        # are kept incrementally
+        self._free.clear()
+        self._shard_free: "list[collections.deque[int]]" = [
+            collections.deque(range(s * self.blocks_per_shard,
+                                    (s + 1) * self.blocks_per_shard))
+            for s in range(sp)
+        ]
+        self._shard_used = [0] * sp
+        self._next_shard = 0
+        # GaugeShare writes only on change: make the zero sample exist
+        # so a pool that stays balanced still shows the series
+        _M_SP_IMBALANCE.inc(0.0)
+        self._g_imb = GaugeShare(_M_SP_IMBALANCE)
+        self._update_imbalance()
+
+    # -- virtual id -> device placement --------------------------------------
+    def shard_of(self, block_id: int) -> int:
+        """Which shard (device) holds this virtual block."""
+        return block_id // self.blocks_per_shard
+
+    def local_id(self, block_id: int) -> int:
+        """The block's index within its shard's storage."""
+        return block_id % self.blocks_per_shard
+
+    def shard_used_counts(self) -> "list[int]":
+        """Used (off-free-list) blocks per shard, in shard order."""
+        return list(self._shard_used)
+
+    @property
+    def free_count(self) -> int:
+        return sum(len(d) for d in self._shard_free)
+
+    # -- striped allocation ---------------------------------------------------
+    def _pop_block(self) -> int:
+        # round-robin from the stripe cursor; the base allocate has
+        # checked free_count, so some shard has a free block
+        while True:
+            shard = self._next_shard % self.sp
+            self._next_shard += 1
+            if self._shard_free[shard]:
+                self._shard_used[shard] += 1
+                return self._shard_free[shard].popleft()
+
+    def _free_block(self, bid: int) -> None:
+        shard = self.shard_of(bid)
+        self._shard_free[shard].append(bid)
+        self._shard_used[shard] -= 1
+
+    def _take_free_block(self) -> int:
+        # park from the shard with the most free blocks, so spare
+        # capacity drains evenly off the stripes (spare blocks are
+        # neither free nor used: shard_used is untouched)
+        shard = max(range(self.sp),
+                    key=lambda s: len(self._shard_free[s]))
+        return self._shard_free[shard].pop()
+
+    def _return_spare_block(self, bid: int) -> None:
+        self._shard_free[self.shard_of(bid)].append(bid)
+
+    def _update_gauges(self) -> None:
+        super()._update_gauges()
+        self._update_imbalance()
+
+    def _update_imbalance(self) -> None:
+        if getattr(self, "blocks_per_shard", 0):
+            used = self._shard_used
+            self._g_imb.set(
+                0.0 if self._closed
+                else (max(used) - min(used)) / self.blocks_per_shard)
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        super().close()
+        self._g_imb.set(0.0)

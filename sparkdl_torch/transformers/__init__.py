@@ -4,10 +4,12 @@ from sparkdl_torch.transformers.named_image import (
     DeepImageFeaturizer,
     DeepImagePredictor,
 )
+from sparkdl_torch.transformers.text import DeepTextFeaturizer
 from sparkdl_torch.transformers.text_generator import DeepTextGenerator
 from sparkdl_torch.transformers.tf_image import TFImageTransformer
 from sparkdl_torch.transformers.tf_tensor import TFTransformer
 
-__all__ = ["DeepImageFeaturizer", "DeepImagePredictor", "DeepTextGenerator",
+__all__ = ["DeepImageFeaturizer", "DeepImagePredictor", "DeepTextFeaturizer",
+           "DeepTextGenerator",
            "KerasImageFileTransformer", "KerasTransformer", "TFImageTransformer",
            "TFTransformer"]

@@ -2,8 +2,8 @@
 tiny GPT weights and requests, both on the CPU and driven by ``tick()``:
 greedy tokens identical under every layout and decode mode, the same
 prefix-hit and deferral counts; plus what the port adds to the
-reference's programs: the scratch block at the sentinel id, the graph
-path's static inputs, and the part that raises until it is ported.
+reference's programs: the scratch block at the sentinel id and the graph
+path's static inputs (``sp`` > 1 is tests/test_torch_sp_engine.py).
 """
 
 import threading
@@ -284,10 +284,17 @@ def test_deadline_mid_decode_fails_alone(pair):
     assert eng._pool.used_count == eng._prefix.cached_blocks
 
 
-def test_constructor_contract(pair):
+def test_constructor_contract(pair, monkeypatch):
     _, _, tcfg, module = pair
-    with pytest.raises(NotImplementedError, match="A8"):
-        TorchEngine(tcfg, module, sp=2, auto_start=False)
+    # sp: a power of two, the paged layout, no more cards than are visible
+    with pytest.raises(ValueError, match="power of two"):
+        TorchEngine(tcfg, module, sp=6, auto_start=False)
+    with pytest.raises(ValueError, match="requires kv_layout='paged'"):
+        TorchEngine(tcfg, module, sp=2, kv_layout="dense", auto_start=False)
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError, match="exceeds the 1 visible devices"):
+            TorchEngine._sp_devices(torch.device("cuda", 0), 2)
     # the tier knobs are validated as the reference validates them
     for kw, match in ((dict(kv_layout="dense", host_kv_blocks=4),
                        "requires kv_layout='paged'"),

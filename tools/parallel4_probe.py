@@ -35,7 +35,19 @@ holds a parallel layout against one card's run of the same weights
   optimizer state one stage a rank); and ViT-B/16's forward at tp=2 and
   tp=4 within 1e-4 of one card's features;
 - then, in the driving process over every card, chip_smoke's [dp] phase:
-  data-parallel featurization and generation against one card.
+  data-parallel featurization and generation against one card;
+- and chip_smoke's [sp_serve] phase over the cards: the continuous
+  engine's sequence-parallel prefill at sp = 2 (cuda:0-1) and sp = 4
+  (cuda:0-3), each shard on its own card, with its checks (tokens equal
+  to sp=1's and to batch-1 generate, the final chunk's logits within
+  1e-4, every request handed off, no request lost under injected
+  ``sp.permute``/``sp.gather`` faults) plus each card's kernel time for
+  one prompt's prefill and the staging bytes resident on each card, and
+  the cross-card readback: the first token of a prompt whose last real
+  row sits on a later card, read while every card but cuda:0 spins on
+  its stream, and a scalar fetched from the last card with cuda:0
+  current.
+  ``--only-sp`` runs this section alone.
 
 Prints one line a check and exits non-zero when one fails. chip_smoke's
 [parallel] phase runs the same checks where it finds two or more cards.
@@ -764,18 +776,25 @@ if __name__ == "__main__":
     ap.add_argument("--platform", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--np", type=int, default=4)
+    ap.add_argument("--only-sp", action="store_true",
+                    help="only the continuous engine's sp section (cards)")
     args = ap.parse_args()
     t0 = time.time()
     if args.platform == "cuda":
         import chip_smoke as cs
 
         card = cs.phase_card()
-        cs.phase_build()
+        if not args.only_sp:
+            cs.phase_build()
     else:
         card = "cpu (gloo)"
     try:
-        run_checks(card, np=args.np, platform=args.platform, tiny=args.tiny)
+        if not args.only_sp:
+            run_checks(card, np=args.np, platform=args.platform, tiny=args.tiny)
     finally:
-        if args.platform == "cuda":  # [dp] over every card, in this process
-            cs.phase_dp(card, {})
+        if args.platform == "cuda":  # over every card, in this process
+            if not args.only_sp:
+                cs.phase_dp(card, {})
+            cs.phase_sp_serve(card, sps=tuple(n for n in (2, 4) if n <= args.np),
+                              cards=True)
         print("probe seconds", round(time.time() - t0, 1))
