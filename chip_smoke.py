@@ -62,6 +62,15 @@ went through its kernels and agrees with a kernel-free run:
   against ``sp=1`` over two bursts of eight 512..960-token prompts, with
   injected ``sp.permute``/``sp.gather`` faults (no kernel: the chunks are
   the dense masked path);
+- the serving fabric: a ``Router`` over two in-process hosts on the card
+  (continuous engines at GPT-2-small width), held bitwise to one engine,
+  with affinity, injected ``host.submit`` faults, a ``drain_host``
+  mid-burst and a ``HostServer`` answered over localhost HTTP;
+- disaggregated prefill/decode: ``PrefillWorker`` -> ``KVHandoff`` ->
+  ``DecodeWorker`` through a ``PhaseRouter``, held bitwise to the
+  colocated engine for float32 and int8 pools in plain, chained and
+  speculative decode, with injected handoff faults (no kernel in either:
+  the dense masked path);
 - ``observability.profiling.trace`` around one featurizer batch.
 
 The graphed paths are held bitwise to their eager form (the training
@@ -5224,6 +5233,452 @@ def _sp_serve(card: str, sps, cards: bool) -> dict:
             for sp, r in res.items()}
 
 
+FLEET_REQS, FLEET_BURSTS = 64, 5   # [fabric]: bursts of _fleet_prompts, 2 hosts
+DISAGG_REQS, DISAGG_BURSTS = 16, 3  # [disagg]: one request a slot of each tier
+DISAGG_FAULTS = "handoff.export@3;handoff.install@2*2"  # one export, two installs
+# three refused submits, apart: each request fails over once
+FABRIC_FAULTS = "host.submit:OSError@5;host.submit:OSError@20;host.submit:OSError@41"
+FABRIC_HTTP_REQS = 8
+WIRE_RATIO = 3.5  # int8 wire against fp32: 4 / (1 + 4 / 768) at GPT-2 small
+
+
+def _gpt2_small(device: str = "cuda"):
+    """GPT-2 small (GPTConfig's widths, learned positions), float32,
+    random init seed 0, on ``device``: [serve]'s model."""
+    from sparkdl_torch.models.gpt import GPTConfig, GPTLMHeadModel, init_gpt_
+
+    cfg = GPTConfig(positions="learned")
+    model = GPTLMHeadModel(cfg, device=device)
+    model.load_state_dict(init_gpt_(GPTLMHeadModel(cfg, device="cpu"), seed=0).state_dict())
+    return cfg, model.eval()
+
+
+def _fleet_prompts(vocab: int, seed: int, n: int) -> list:
+    """``n`` prompts: every fourth opens with ONE SERVE_PREFIX-token
+    prefix (the same for every seed, so a later burst's sharers hit what
+    an earlier burst cached) and a 1..SERVE_PREFIX-token tail; the others
+    hold 8..SERVE_CHUNK random tokens. The lengths depend on ``n`` alone:
+    every burst of ``n`` runs the programs an earlier one captured."""
+    import numpy as np
+
+    shape = np.random.default_rng(1000 + n)
+    prefix = np.random.default_rng(0).integers(0, vocab, SERVE_PREFIX)
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        if i % 4 == 0:
+            tail = rng.integers(0, vocab, int(shape.integers(1, SERVE_PREFIX + 1)))
+            out.append(np.concatenate([prefix, tail]))
+        else:
+            out.append(rng.integers(0, vocab, int(shape.integers(8, SERVE_CHUNK + 1))))
+    return out
+
+
+class _Tap:
+    """Wraps a fabric host handle's ``submit`` to keep each engine-side
+    Future (its ``ttft_s``) and the payload it was given."""
+
+    def __init__(self, host):
+        self.host, self.futs = host, []
+        inner = host.submit
+
+        def submit(payload, *, timeout_s=None):
+            fut = inner(payload, timeout_s=timeout_s)
+            self.futs.append((payload, fut))
+            return fut
+
+        host.submit = submit
+
+
+@contextlib.contextmanager
+def _loops_stopped(*engines):
+    """The engines' background loops stopped (each ends its tick and
+    exits; nothing is in flight) and started again on the way out, so
+    the caller may touch their pools and tables alone."""
+    for e in engines:
+        e._stop.set()
+        e._thread.join(30)
+        if e._thread.is_alive():
+            raise AssertionError(f"[disagg] {e.host_id}'s loop did not stop")
+        e._thread = None
+        e._stop.clear()
+    try:
+        yield
+    finally:
+        for e in engines:
+            e.start()
+
+
+def _handoff_times(pre, dec, handoffs) -> dict:
+    """Export and install ms of each handoff on idle tiers, their loops
+    stopped (between CUDA events on its tier's card, synchronized before
+    and after): the export of as many of the prefill pool's blocks, the
+    install of the handoff into as many freshly allocated decode-pool
+    blocks. Medians a handoff, and ms a block over all of them, against
+    the wire bytes of a block at the host link's rate."""
+    import torch
+
+    def event_ms(device, fn) -> float:
+        with torch.cuda.device(device):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+        return start.elapsed_time(end)
+
+    exp, ins, blocks = [], [], 0
+    with _loops_stopped(pre, dec):
+        for h in handoffs:
+            exp.append(event_ms(pre.device, lambda: pre._export(list(range(h.n_blocks)))))
+            targets = dec._pool.allocate(h.n_blocks)
+            if targets is None:
+                raise AssertionError("[disagg] no decode-pool blocks to time an install")
+            ins.append(event_ms(dec.device, lambda: dec._install(h, 0, targets)))
+            dec._pool.release(dec._pool.deref(targets))
+            blocks += h.n_blocks
+    wire = sum(h.wire_bytes for h in handoffs)
+    return {"export_ms": statistics.median(exp), "install_ms": statistics.median(ins),
+            "export_block_ms": sum(exp) / blocks, "install_block_ms": sum(ins) / blocks,
+            "block_bytes": wire / blocks,
+            "block_bound_ms": wire / blocks / H100_HOST_BYTES_S * 1e3}
+
+
+def _split_bursts(pre, dec, bursts, faults: "str | None" = None) -> list:
+    """Each burst through a PhaseRouter over one PrefillWorker and one
+    DecodeWorker (both loops running): all submitted at once, then the
+    results. Per burst: the caller tokens, the handoffs in submit order,
+    the prefill tier's TTFT per request (its first token is out at the
+    export) and the wall seconds."""
+    import numpy as np
+
+    from sparkdl_torch.disagg import PhaseRouter
+    from sparkdl_torch.fabric import InProcessHost
+    from sparkdl_torch.reliability.faults import inject
+
+    tp, td = _Tap(InProcessHost(pre)), _Tap(InProcessHost(dec))
+    runs = []
+    with PhaseRouter([tp.host], [td.host], auto_refresh=False,
+                     max_handoff_retries=4) as pr, \
+            (inject(faults) if faults else contextlib.nullcontext()):
+        pre.start()
+        dec.start()
+        for prompts in bursts:
+            first = len(tp.futs)
+            t0 = time.perf_counter()
+            futs = [pr.submit(p, SERVE_NEW) for p in prompts]
+            outs = [np.asarray(f.result(timeout=600)) for f in futs]
+            secs = time.perf_counter() - t0
+            handoffs = [f.result(timeout=0) for _, f in tp.futs[first:first + len(prompts)]]
+            runs.append({"outs": outs, "handoffs": handoffs, "secs": secs,
+                         "ttft": [f.ttft_s for _, f in tp.futs[first:first + len(prompts)]]})
+        runs[-1]["router"] = pr.snapshot()["disagg"]
+    return runs
+
+
+def _decode_only(cfg, model, handoff_bursts, **kw) -> list:
+    """A fresh DecodeWorker fed each burst's handoffs in turn (its loop
+    running): the tokens per burst."""
+    import numpy as np
+
+    from sparkdl_torch.disagg import DecodeWorker
+
+    dec = DecodeWorker(cfg, model, n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                       kv_block_size=SERVE_BLOCK, prefill_chunk=SERVE_CHUNK,
+                       auto_start=True, **kw)
+    outs = []
+    for hs in handoff_bursts:
+        futs = [dec.submit_handoff(h) for h in hs]
+        outs.append([np.asarray(f.result(timeout=600)) for f in futs])
+    snap = dec.snapshot()
+    dec.close()
+    return outs, snap
+
+
+def _same_outs(phase: str, name: str, got: list, want: list) -> None:
+    for b, (gb, wb) in enumerate(zip(got, want)):
+        for i, (x, y) in enumerate(zip(gb, wb)):
+            if len(x) != len(y) or (x != y).any():
+                raise AssertionError(f"[{phase}] {name}: burst {b} request {i} differs "
+                                     f"from the colocated engine's ({x[:8]} vs {y[:8]})")
+
+
+def phase_disagg(card: str) -> dict:
+    """Disaggregated prefill/decode at GPT-2-small width with [serve]'s
+    engine settings: per pool dtype (fp32, int8) DISAGG_BURSTS bursts of
+    DISAGG_REQS requests (every fourth shares one prefix across bursts)
+    through a PhaseRouter over a PrefillWorker and a DecodeWorker, the
+    same handoffs again through chained and speculative DecodeWorkers —
+    every stream bitwise the colocated engine's; the int8 wire's bytes
+    against fp32's; export and install ms per handoff and per block
+    against the host link's bound; TTFT split against colocated on the
+    last (captured) burst; injected handoff.export/handoff.install
+    faults lose nothing; with two or more cards, the tiers on two
+    cards."""
+    import numpy as np
+    import torch
+
+    from sparkdl_torch.disagg import DecodeWorker, PrefillWorker
+
+    t_phase = time.perf_counter()
+    cfg, model = _gpt2_small()
+    bursts = [_fleet_prompts(cfg.vocab_size, s, DISAGG_REQS) for s in range(DISAGG_BURSTS)]
+    tier_kw = dict(n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, kv_block_size=SERVE_BLOCK,
+                   prefill_chunk=SERVE_CHUNK, auto_start=False)
+    pct = lambda xs, q: float(np.percentile(xs, q))  # noqa: E731
+    _zero_counts()
+    out, lines, wire = {}, [], {}
+    for dt in ("fp32", "int8"):
+        t0 = time.perf_counter()
+        col = _serve_engine(cfg, model, kv_dtype=dt)
+        colo = [_burst(col, b) for b in bursts]
+        col.close()
+        want = [r["outs"] for r in colo]
+        pre = PrefillWorker(cfg, model, kv_dtype=dt, **tier_kw)
+        dec = DecodeWorker(cfg, model, kv_dtype=dt, **tier_kw)
+        split = _split_bursts(pre, dec, bursts)
+        _same_outs("disagg", f"kv_dtype={dt} split, plain decode",
+                   [r["outs"] for r in split], want)
+        hits = (pre.snapshot()["kv"]["prefix_hits"], dec.snapshot()["kv"]["prefix_hits"])
+        if not all(hits):
+            raise AssertionError(f"[disagg] kv_dtype={dt}: prefix-hit tokens prefill/decode "
+                                 f"{hits}: the shared prefix hit on neither side")
+        times = _handoff_times(pre, dec, split[-1]["handoffs"])
+        faults = None
+        if dt == "fp32":
+            # injected faults on the captured tiers, the last burst again
+            faulted = _split_bursts(pre, dec, bursts[-1:], faults=DISAGG_FAULTS)
+            _same_outs("disagg", "under injected handoff faults", [faulted[0]["outs"]],
+                       want[-1:])
+            r = faulted[0]["router"]
+            faults = (r["requeues"], pre.snapshot()["disagg"]["export_aborts"],
+                      dec.snapshot()["disagg"]["install_faults"], r["failed"])
+            if faults != (2, 1, 2, 0) or r["completed"] != r["submitted"]:
+                raise AssertionError(f"[disagg] faults {DISAGG_FAULTS}: requeues/export "
+                                     f"aborts/install faults/failed {faults}, router {r}")
+        pre.close()
+        dec.close()
+        handoffs = [r["handoffs"] for r in split]
+        for name, kw in (("chain8", dict(chain_tokens=8)), ("spec4", dict(spec_k=4))):
+            got, snap = _decode_only(cfg, model, handoffs, kv_dtype=dt, **kw)
+            _same_outs("disagg", f"kv_dtype={dt} split, {name} decode", got, want)
+        wire[dt] = sum(h.wire_bytes for hs in handoffs for h in hs)
+        blocks = sum(h.n_blocks for hs in handoffs for h in hs)
+        out[dt] = {**times, "ttft_split": split[-1]["ttft"],
+                   "ttft_colocated": colo[-1]["ttft"]}
+        lines.append(
+            f"[disagg] kv_dtype={dt}: {DISAGG_BURSTS} bursts of {DISAGG_REQS}, tokens of "
+            f"PhaseRouter(PrefillWorker -> KVHandoff -> DecodeWorker) bitwise the colocated "
+            f"engine's in {DISAGG_BURSTS * DISAGG_REQS}/{DISAGG_BURSTS * DISAGG_REQS}, and "
+            f"the same handoffs through chain_tokens=8 and spec_k=4 DecodeWorkers too; "
+            f"prefix-hit tokens prefill tier {hits[0]}, decode tier {hits[1]}; "
+            f"{blocks} blocks exported, {wire[dt] / 1e6:.2f} MB on the wire "
+            f"({times['block_bytes'] / 1e3:.1f} kB a block); the last burst's {DISAGG_REQS} "
+            f"handoffs again on idle tiers (CUDA events): export (gather + D2H into "
+            f"page-locked memory) median {times['export_ms']:.3f} ms a handoff, install "
+            f"(H2D + dequantize + _q_write) {times['install_ms']:.3f} ms; per block export "
+            f"{times['export_block_ms']:.4f} ms, install {times['install_block_ms']:.4f} ms, "
+            f"bound {times['block_bound_ms']:.4f} ms (the block's wire bytes at "
+            f"{H100_HOST_BYTES_S / 1e9:.0f} GB/s); TTFT p50/p99 split "
+            f"{pct(split[-1]['ttft'], 50) * 1e3:.1f}/{pct(split[-1]['ttft'], 99) * 1e3:.1f} "
+            f"ms (first token out at the export) vs colocated "
+            f"{pct(colo[-1]['ttft'], 50) * 1e3:.1f}/{pct(colo[-1]['ttft'], 99) * 1e3:.1f} ms, "
+            f"end to end {split[-1]['secs']:.2f} s vs {colo[-1]['secs']:.2f} s a burst"
+            + (f"; under {DISAGG_FAULTS}: {faults[0]} handoffs requeued at the prefill "
+               f"tier, {faults[1]} export abort(s), {faults[2]} install faults, "
+               f"{faults[3]} failed, tokens bitwise" if faults else "")
+            + f"; {time.perf_counter() - t0:.1f} s")
+    ratio = wire["fp32"] / wire["int8"]
+    if ratio < WIRE_RATIO:
+        raise AssertionError(f"[disagg] int8 wire {wire['int8']} B vs fp32 {wire['fp32']} B: "
+                             f"{ratio:.2f}x, under {WIRE_RATIO}x")
+    launched = _launch_counts()
+    if any(launched.values()):
+        raise AssertionError(f"[disagg] the tiers launched kernels: {launched}")
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        t0 = time.perf_counter()
+        _, model1 = _gpt2_small("cuda:1")
+        pre = PrefillWorker(cfg, model, **tier_kw)
+        dec = DecodeWorker(cfg, model1, **tier_kw)
+        col = _serve_engine(cfg, model)
+        want = [_burst(col, b)["outs"] for b in bursts]
+        col.close()
+        two = _split_bursts(pre, dec, bursts)
+        times = _handoff_times(pre, dec, two[-1]["handoffs"])
+        pre.close()
+        dec.close()
+        _same_outs("disagg", "PrefillWorker on cuda:0, DecodeWorker on cuda:1",
+                   [r["outs"] for r in two], want)
+        lines.append(f"[disagg] {cards} cards: PrefillWorker on cuda:0, DecodeWorker on "
+                     f"cuda:1 (fp32): tokens bitwise the colocated engine's in "
+                     f"{DISAGG_BURSTS * DISAGG_REQS}/{DISAGG_BURSTS * DISAGG_REQS}; idle "
+                     f"tiers, a handoff's export {times['export_ms']:.3f} ms, install "
+                     f"{times['install_ms']:.3f} ms; {time.perf_counter() - t0:.1f} s")
+        del model1
+    else:
+        lines.append("[disagg] 1 card: the two-card placement (PrefillWorker on cuda:0, "
+                     "DecodeWorker on cuda:1) is skipped")
+    del model
+    torch.cuda.empty_cache()
+    print(f"[disagg] GPT-2 small ({cfg.num_layers}x{cfg.hidden_size}, learned positions, "
+          f"float32, random init seed 0), each tier and the colocated engine n_slots "
+          f"{SERVE_SLOTS}, max_len {SERVE_MAX_LEN}, block {SERVE_BLOCK}, prefill_chunk "
+          f"{SERVE_CHUNK}; bursts of {DISAGG_REQS} prompts of 8..{SERVE_CHUNK} tokens "
+          f"({DISAGG_REQS // 4} open with one {SERVE_PREFIX}-token prefix), {SERVE_NEW} greedy tokens each; {card}")
+    for line in lines:
+        print(line)
+    print(f"[disagg] int8 wire {wire['int8'] / 1e6:.2f} MB vs fp32 {wire['fp32'] / 1e6:.2f} MB: "
+          f"{ratio:.2f}x fewer bytes (bar {WIRE_RATIO}x); kernel launches 0 (the tiers "
+          f"run the dense masked path); phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _fleet_burst(router, taps, prompts) -> dict:
+    """All prompts through ``router`` at once: the tokens, wall seconds,
+    TTFT per request and which host took each prompt."""
+    import numpy as np
+
+    first = [len(t.futs) for t in taps]
+    t0 = time.perf_counter()
+    futs = [router.submit({"prompt": p, "max_new_tokens": SERVE_NEW}) for p in prompts]
+    outs = [np.asarray(f.result(timeout=600)) for f in futs]
+    secs = time.perf_counter() - t0
+    where, ttft = {}, []
+    for t, n0 in zip(taps, first):
+        for payload, f in t.futs[n0:]:
+            where[id(payload["prompt"])] = t.host.host_id
+            if f.done() and f.exception() is None:
+                ttft.append(f.ttft_s)
+    hosts = [where.get(id(p)) for p in prompts]
+    return {"outs": outs, "secs": secs, "ttft": ttft, "hosts": hosts}
+
+
+def phase_fabric(card: str) -> dict:
+    """The router tier over two in-process hosts on the card (each a
+    ContinuousGPTEngine at GPT-2-small width with [serve]'s settings):
+    FLEET_BURSTS bursts of FLEET_REQS requests, every stream bitwise one
+    engine's; the shared prefix lands on the host whose digest holds it;
+    requests/s and TTFT p50/p99 over a captured burst; injected
+    host.submit faults fail over; drain_host mid-burst transfers the
+    drained host's unstarted requests and loses none; one HostServer on
+    localhost answers through HttpHostHandle with the same tokens."""
+    import numpy as np
+    import torch
+
+    from sparkdl_torch.fabric import HostServer, HttpHostHandle, InProcessHost, Router
+    from sparkdl_torch.observability.registry import registry
+    from sparkdl_torch.reliability.faults import inject
+
+    t_phase = time.perf_counter()
+    cfg, model = _gpt2_small()
+    bursts = [_fleet_prompts(cfg.vocab_size, 10 + s, FLEET_REQS) for s in range(FLEET_BURSTS)]
+    seed_prompt = _fleet_prompts(cfg.vocab_size, 9, 1)[0]
+    pct = lambda xs, q: float(np.percentile(xs, q))  # noqa: E731
+    def failed() -> float:
+        fam = registry().get("sparkdl_requests_failed_total")
+        return sum(fam.snapshot_values().values()) if fam is not None else 0.0
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    ref = _serve_engine(cfg, model)
+    want = [_burst(ref, b)["outs"] for b in [[seed_prompt], *bursts]]
+    ref.close()
+    ref_s = time.perf_counter() - t0
+    engs = [_serve_engine(cfg, model, host_id=f"fleet-{i}") for i in range(2)]
+    taps = [_Tap(InProcessHost(e)) for e in engs]
+    for e in engs:
+        e.start()
+    router = Router([t.host for t in taps], auto_refresh=False)
+    try:
+        # one sharer alone first: exactly one host holds the prefix
+        seed = router.submit({"prompt": seed_prompt, "max_new_tokens": SERVE_NEW})
+        _same_outs("fabric", "seed request", [[np.asarray(seed.result(timeout=600))]],
+                   [want[0]])
+        holder = [t.host.host_id for t in taps if t.futs][0]
+        runs = []
+        for b, prompts in enumerate(bursts[:3]):
+            router.refresh()
+            runs.append(_fleet_burst(router, taps, prompts))
+            _same_outs("fabric", f"burst {b}", [runs[-1]["outs"]], [want[1 + b]])
+            strays = [h for i, h in enumerate(runs[-1]["hosts"]) if i % 4 == 0 and h != holder]
+            if strays:
+                raise AssertionError(f"[fabric] burst {b}: {len(strays)} shared-prefix "
+                                     f"requests placed off {holder}, the host holding it")
+        placed = {h: runs[-1]["hosts"].count(h) for h in sorted(set(runs[-1]["hosts"]))}
+        hits = {e.host_id: e.snapshot()["kv"]["prefix_hits"] for e in engs}
+        # injected refused submits: the router fails over
+        fo0 = _metric("sparkdl_fabric_failovers_total")
+        fail0 = failed()
+        router.refresh()
+        with inject(FABRIC_FAULTS):
+            faulted = _fleet_burst(router, taps, bursts[3])
+        _same_outs("fabric", f"under {FABRIC_FAULTS}", [faulted["outs"]], [want[4]])
+        failovers = _metric("sparkdl_fabric_failovers_total") - fo0
+        if failovers != len(FABRIC_FAULTS.split(";")) or failed() != fail0:
+            raise AssertionError(f"[fabric] {FABRIC_FAULTS}: {failovers} failovers, "
+                                 f"{failed() - fail0} requests failed")
+        # drain one host mid-burst: its unstarted requests move, none is lost
+        futs = [router.submit({"prompt": p, "max_new_tokens": SERVE_NEW})
+                for p in bursts[4]]
+        drained = [t.host.host_id for t in taps if t.host.host_id != holder][0]
+        moved = router.drain_host(drained)
+        drain_outs = [np.asarray(f.result(timeout=600)) for f in futs]
+        _same_outs("fabric", f"drain_host({drained}) mid-burst", [drain_outs], [want[5]])
+        lost = failed() - fail0
+        if moved < 1 or lost:
+            raise AssertionError(f"[fabric] drain_host: {moved} transferred, {lost} lost")
+    finally:
+        router.close()
+    # one HostServer on localhost, answered through HttpHostHandle
+    survivor = [e for e in engs if e.host_id == holder][0]
+    http_ms, local_ms, http_outs = [], [], []
+    with HostServer(survivor, host="127.0.0.1") as server:
+        handle = HttpHostHandle(server.url)
+        for p in bursts[2][:FABRIC_HTTP_REQS]:
+            t1 = time.perf_counter()
+            http_outs.append(np.asarray(handle.submit(
+                {"prompt": p, "max_new_tokens": SERVE_NEW}).result(timeout=600)))
+            http_ms.append((time.perf_counter() - t1) * 1e3)
+            t1 = time.perf_counter()
+            survivor.submit(p, SERVE_NEW).result(timeout=600)
+            local_ms.append((time.perf_counter() - t1) * 1e3)
+        host_id = handle.host_id
+        handle.close()
+    _same_outs("fabric", "HttpHostHandle", [http_outs], [want[3][:FABRIC_HTTP_REQS]])
+    for e in engs:
+        e.close(drain=False)
+    launched = _launch_counts()
+    if any(launched.values()):
+        raise AssertionError(f"[fabric] the hosts launched kernels: {launched}")
+    warm = runs[-1]
+    del model
+    torch.cuda.empty_cache()
+    print(f"[fabric] Router(policy='affinity') over two InProcessHosts on the one card, "
+          f"each a ContinuousGPTEngine GPT-2 small ({cfg.num_layers}x{cfg.hidden_size}, "
+          f"float32, random init seed 0) with n_slots {SERVE_SLOTS}, max_len "
+          f"{SERVE_MAX_LEN}, block {SERVE_BLOCK}, prefill_chunk {SERVE_CHUNK}; one sharer "
+          f"first, then bursts of {FLEET_REQS} prompts of 8..{SERVE_CHUNK} tokens "
+          f"({FLEET_REQS // 4} open with one {SERVE_PREFIX}-token prefix), {SERVE_NEW} greedy tokens each; {card}")
+    print(f"[fabric] every stream of {1 + FLEET_BURSTS} bursts bitwise one engine's "
+          f"({ref_s:.1f} s for the reference engine); shared-prefix requests on {holder} "
+          f"(its digest held the prefix) in {3 * FLEET_REQS // 4}/{3 * FLEET_REQS // 4}; "
+          f"third burst (programs captured by the first two): placements {placed}, "
+          f"{FLEET_REQS / warm['secs']:.1f} requests/s ({warm['secs']:.2f} s), TTFT p50 "
+          f"{pct(warm['ttft'], 50) * 1e3:.1f} ms p99 {pct(warm['ttft'], 99) * 1e3:.1f} ms; "
+          f"prefix-hit tokens per host {hits}")
+    print(f"[fabric] {FABRIC_FAULTS}: {failovers:.0f} failovers, 0 failed, tokens bitwise; "
+          f"drain_host({drained}) right after a burst of {FLEET_REQS} was submitted: "
+          f"{moved} unstarted requests transferred queue-to-queue, {lost:.0f} lost, tokens "
+          f"bitwise; HostServer on 127.0.0.1 (host_id {host_id}) through HttpHostHandle: "
+          f"{FABRIC_HTTP_REQS} requests bitwise, median {statistics.median(http_ms):.1f} ms "
+          f"each against {statistics.median(local_ms):.1f} ms in process; kernel launches "
+          f"0; phase {time.perf_counter() - t_phase:.1f} s")
+    return {"requests_s": FLEET_REQS / warm["secs"], "moved": moved}
+
+
 def phase_profile(card: str) -> dict:
     """trace() around one featurizer batch, in a fresh process (as an
     operator captures one): the Chrome trace names the stem kernel's
@@ -5311,6 +5766,8 @@ def main() -> int:
     pool = phase_replicas(card, serve)
     tiers = phase_tiers(card)
     sp_serve = phase_sp_serve(card)
+    fabric = phase_fabric(card)
+    disagg = phase_disagg(card)
     phase_profile(card)
     kernels = [stem, attn, dq, dkv, decode, gemm]
     print(f"[summary] {card}: zoo featurizer images/s "

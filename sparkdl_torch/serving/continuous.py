@@ -107,6 +107,7 @@ they are identical and the logits agree within float32 tolerance
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -557,6 +558,7 @@ class ContinuousGPTEngine:
             # any process-wide registration
             fault_point("kv.quantize")
         self._pool = KVBlockPool(kv_blocks, bs, dtype=self.kv_dtype)
+        # sparkdl-lint: disable=lock-discipline -- constructor path: _init_paged runs only from __init__, before the engine loop thread exists, so no concurrent reader
         self._defer_pool = self._pool
         if host_kv_blocks is not None:
             from sparkdl_torch.serving.kv_tiers import TieredKVStore
@@ -574,7 +576,9 @@ class ContinuousGPTEngine:
         self._pool_kv = init_block_pool(config, kv_blocks + 1, bs,
                                         dtype=self.kv_dtype,
                                         device=self.device)
+        # sparkdl-lint: disable=lock-discipline -- constructor path: _init_paged runs only from __init__, before the engine loop thread exists, so no concurrent reader
         self._table = np.full((n_slots, mb), self._pool.sentinel, np.int64)
+        # sparkdl-lint: disable=lock-discipline -- constructor path: _init_paged runs only from __init__, before the engine loop thread exists, so no concurrent reader
         self._pidx = np.zeros((n_slots,), np.int64)
         self._max_pos = (config.max_seq_len - 1
                          if config.positions == "learned" else wp + chunk)
@@ -760,12 +764,18 @@ class ContinuousGPTEngine:
         """``fn(*inputs)``: one CUDA-graph replay per (``name``, ``key``,
         input shapes) on the card (captured at first use, after an eager
         warm-up that is this call), eagerly on the CPU. ``key`` holds the
-        program's static arguments; everything else is an input."""
+        program's static arguments; everything else is an input. The
+        capture and the replay run with the engine's card current,
+        whichever card the calling thread has current: a capture stream
+        on another card would leave the program's allocations outside the
+        graph's pool (a ``cudaMalloc`` mid-capture fails it)."""
         with torch.no_grad():
             if not self._graphed:
                 return fn(*inputs)
-            return self.graphs(fn, inputs,
-                               (name, key, storage_key(self._model)))
+            with (torch.cuda.device(self.device)
+                  if self.device.type == "cuda" else contextlib.nullcontext()):
+                return self.graphs(fn, inputs,
+                                   (name, key, storage_key(self._model)))
 
     def _dev(self, a, dtype=torch.long, device=None) -> torch.Tensor:
         """A host array as a program input on the engine's device (or
@@ -1001,7 +1011,9 @@ class ContinuousGPTEngine:
                     f"{self.max_len}: raise max_len or shorten the "
                     "request"
                 )
-            need = -(-(len(prompt) + max_new_tokens) // self._kv_bs)
+            need = -(-(len(prompt)
+                       + self._admission_budget_tokens(max_new_tokens))
+                     // self._kv_bs)
             if need > self._pool.n_blocks:
                 raise ValueError(
                     f"request needs {need} KV blocks but the pool holds "
@@ -1030,6 +1042,15 @@ class ContinuousGPTEngine:
             GenRequest(prompt, max_new_tokens), timeout_s=timeout_s,
             tenant=tenant, priority=priority,
         )
+
+    def _admission_budget_tokens(self, max_new_tokens: int) -> int:
+        """Decode-side tokens a paged admission must reserve blocks for
+        beyond the prompt. The colocated engine reserves the FULL token
+        budget up front (decode can never hit mid-stream exhaustion);
+        a prefill-tier worker (:mod:`sparkdl_torch.disagg`) overrides
+        this to 0 — it only ever holds prompt K/V, the decode tier owns
+        the generation span."""
+        return max_new_tokens
 
     # -- engine loop ---------------------------------------------------------
     def start(self) -> "ContinuousGPTEngine":
@@ -1224,7 +1245,9 @@ class ContinuousGPTEngine:
         # the recovery bar: worst-case blocks of the request being owed
         # (staging holds prompt blocks only; the decode pool the prompt
         # and its budget)
-        span_tokens = len(gen.prompt) + (0 if staging else gen.max_new_tokens)
+        span_tokens = len(gen.prompt) + (
+            0 if staging
+            else self._admission_budget_tokens(gen.max_new_tokens))
         pool.record_deferral(need=-(-span_tokens // self._kv_bs))
         streak = pool.deferral_streak
         flight_mod.record_event(
@@ -1329,6 +1352,7 @@ class ContinuousGPTEngine:
             tok = self._run("prefill", self._prefill,
                             (self._dev(ids), self._dev(mask),
                              self._dev([slot])))
+            # sparkdl-lint: disable=blocking-in-hot-loop -- the step's tokens decide the next tick; the wait is on the one event behind this dispatch's already-enqueued D2H copy, which the card resolves when it finishes the dispatch (no producer thread that could die)
             first = int(np.asarray(start_fetch(tok, path="prefill")
                                    .result())[0])
         self._prefill_seconds += time.perf_counter() - t0
@@ -1350,7 +1374,9 @@ class ContinuousGPTEngine:
         prompt = np.asarray(gen.prompt, np.int32)
         plen = len(prompt)
         toks = tuple(int(t) for t in prompt)
-        nb_total = -(-(plen + gen.max_new_tokens) // self._kv_bs)
+        nb_total = -(-(plen
+                       + self._admission_budget_tokens(gen.max_new_tokens))
+                     // self._kv_bs)
         # turn resume: page any parked prefix of this prompt back in
         # BEFORE matching, so the match below sees device blocks and the
         # resume costs one H2D copy per block instead of a re-prefill.
@@ -1485,12 +1511,14 @@ class ContinuousGPTEngine:
         return got[0] if got else None
 
     # -- tiered park/resume ---------------------------------------------------
-    def _raw_block(self, bid: int) -> "dict[str, torch.Tensor]":
-        """Block ``bid`` as it lies in the pool: ``k``/``v`` [layers, bs,
-        H, D] in storage dtype (bf16 as its 16-bit patterns: numpy has no
-        bf16) plus the int8 layout's ``k_scale``/``v_scale`` [layers,
-        bs]. Never the scratch block: parking starts from trie nodes,
-        and the sentinel id is never registered."""
+    def _raw_block(self, bid: "int | torch.Tensor"
+                   ) -> "dict[str, torch.Tensor]":
+        """Block ``bid`` (or the blocks of an id tensor, one gather) as it
+        lies in the pool: ``k``/``v`` [layers, (n,) bs, H, D] in storage
+        dtype (bf16 as its 16-bit patterns: numpy has no bf16) plus the
+        int8 layout's ``k_scale``/``v_scale`` [layers, (n,) bs]. Never
+        the scratch block: parking starts from trie nodes, a handoff from
+        a prompt's table row, and the sentinel id is never registered."""
         names = ("k", "v") + (("k_scale", "v_scale")
                               if self.kv_dtype == "int8" else ())
         out = {}
@@ -1561,6 +1589,7 @@ class ContinuousGPTEngine:
                     src = src.pin_memory()
                 dst.copy_(src, non_blocking=True)
         except Exception as e:
+            # sparkdl-lint: disable=lock-discipline -- only reachable from _admit_paged's restore_path callback, which the admission loop enters holding self._lock
             self._park_fallbacks += 1
             kv_tiers_mod._M_FALLBACKS.inc(op="unpark")
             flight_mod.record_event(
@@ -1795,6 +1824,7 @@ class ContinuousGPTEngine:
         _M_PREFILL_CHUNKS.inc()
         if final:
             # the chunk's last REAL column seeds decode
+            # sparkdl-lint: disable=blocking-in-hot-loop -- the step's tokens decide the next tick; the wait is on the one event behind this dispatch's already-enqueued D2H copy, which the card resolves when it finishes the dispatch (no producer thread that could die)
             toks = np.asarray(start_fetch(out, path="prefill").result())
             self._finish_prefill(slot, st, int(toks[r - 1]))
         self._prefill_seconds += time.perf_counter() - t0
@@ -1850,6 +1880,7 @@ class ContinuousGPTEngine:
             # holds it
             m = wc // self.sp
             tok = torch.argmax(logits[(r - 1) // m][(r - 1) % m])
+            # sparkdl-lint: disable=blocking-in-hot-loop -- the step's tokens decide the next tick; the wait is on the one event behind this dispatch's already-enqueued D2H copy, which the card resolves when it finishes the dispatch (no producer thread that could die)
             first = int(np.asarray(start_fetch(tok, path="prefill").result()))
             if self._sp_handoff(slot, st):
                 self._finish_prefill(slot, st, first)
@@ -2043,6 +2074,7 @@ class ContinuousGPTEngine:
                 lambda t, i, x: self._paged_verify(t, i, x, nb=nb),
                 (self._dev(self._table), self._dev(self._pidx),
                  self._dev(toks)), (k, nb))
+            # sparkdl-lint: disable=blocking-in-hot-loop -- the step's tokens decide the next tick; the wait is on the one event behind this dispatch's already-enqueued D2H copy, which the card resolves when it finishes the dispatch (no producer thread that could die)
             out = np.asarray(start_fetch(out, path="decode").result())
         wall = time.perf_counter() - t0
         record_dispatch("decode", k, wall)
@@ -2105,6 +2137,7 @@ class ContinuousGPTEngine:
                     lambda x, s: self._step_chain(x, s, k=k),
                     (self._dev(self._last_tok), self._dev(self._start)), k)
             # the token readback is enqueued right behind the program
+            # sparkdl-lint: disable=blocking-in-hot-loop -- the step's tokens decide the next tick; the wait is on the one event behind this dispatch's already-enqueued D2H copy, which the card resolves when it finishes the dispatch (no producer thread that could die)
             toks = np.asarray(start_fetch(toks, path="decode").result())
         wall = time.perf_counter() - t0
         record_dispatch("decode", k, wall)

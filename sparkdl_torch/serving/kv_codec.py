@@ -1,11 +1,12 @@
 """Raw-storage codec for KV blocks: one array <-> one JSON-able dict.
 
 The port of the raw codec in ``sparkdl_tpu.disagg.handoff`` (``_enc`` /
-``_dec``; the rest of the disaggregation layer is ROADMAP A9). An array
-travels as ``{"dtype", "shape", "data"}`` with its bytes base64-encoded,
-so int8 codes, their float32 scales and bfloat16 blocks round-trip bit
-for bit — the disk tier's spill files and parked-session export bundles
-both use it, and either package decodes what the other wrote.
+``_dec``). An array travels as ``{"dtype", "shape", "data"}`` with its
+bytes base64-encoded, so int8 codes, their float32 scales and bfloat16
+blocks round-trip bit for bit — the disk tier's spill files,
+parked-session export bundles and the disaggregated tiers' KV handoffs
+(``sparkdl_torch.disagg.handoff``) all use it, and either package
+decodes what the other wrote.
 
 numpy has no bfloat16 (the reference decodes it through ``ml_dtypes``,
 which the port does not use). A bfloat16 block is carried as its 16-bit

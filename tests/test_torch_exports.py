@@ -31,14 +31,18 @@ NOT_EXPORTED = {
                                             "ops.flash_attention.flash_attention",
     ("sparkdl_tpu.models", "registry"): "the zoo's module; its entries are "
                                         "get_entry and SUPPORTED_MODELS",
+    # disagg/scaling.py builds on autoscale/, which is not ported yet
+    ("sparkdl_tpu.disagg", "decode_tier_signals"):
+        "lands with autoscale/, ROADMAP A9 part two",
+    ("sparkdl_tpu.disagg", "prefill_tier_signals"):
+        "lands with autoscale/, ROADMAP A9 part two",
+    ("sparkdl_tpu.disagg", "tier_autoscalers"):
+        "lands with autoscale/, ROADMAP A9 part two",
 }
 
-#: Reference packages with no port yet (ROADMAP A9 and A10).
+#: Reference packages with no port yet (ROADMAP A9 part two).
 NOT_PORTED = {
-    "sparkdl_tpu.autoscale": "the fleet, ROADMAP A9",
-    "sparkdl_tpu.disagg": "the fleet, ROADMAP A9",
-    "sparkdl_tpu.fabric": "the fleet, ROADMAP A9",
-    "sparkdl_tpu.lint": "lint for the port, ROADMAP A10",
+    "sparkdl_tpu.autoscale": "the fleet's autoscaler, ROADMAP A9 part two",
 }
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
