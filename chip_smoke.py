@@ -71,6 +71,13 @@ went through its kernels and agrees with a kernel-free run:
   colocated engine for float32 and int8 pools in plain, chained and
   speculative decode, with injected handoff faults (no kernel in either:
   the dense masked path);
+- the fleet's autoscaler: a started ``AutoScaler`` over a ``ReplicaPool``
+  of featurizer runners (one scale-up warmed over every bucket, one
+  drain-safe scale-down, answers bitwise the featurizer's), over a
+  continuous engine's KV pool, over the fabric's hosts and the split
+  tiers' (``tier_autoscalers``), each with a counted fault; then the
+  fleet scraper's stitched trace of a split request, in process and over
+  ``FleetServer``;
 - ``observability.profiling.trace`` around one featurizer batch.
 
 The graphed paths are held bitwise to their eager form (the training
@@ -4024,6 +4031,20 @@ SERVE_QUANT_AGREE = 0.8  # tests/serving/test_kv_quant.py's "near the oracle" ba
 SERVE_TICK_NEW = 200     # the timed decode ticks: 16 rows of 256 + up to 200 tokens
 
 
+def _featurizer_rows() -> tuple:
+    """N_ROWS random SIZE-px image rows (seed 11) and the featurizer's
+    row for each, by id: what the serving phases answer against."""
+    import numpy as np
+
+    from sparkdl_torch import DeepImageFeaturizer, LocalDataFrame
+
+    _, rows = _image_rows(np.random.default_rng(11), SIZE)
+    want = DeepImageFeaturizer(inputCol="image", outputCol="f", modelName="InceptionV3",
+                               weights="random", batchSize=BATCH).transform(
+        LocalDataFrame.from_rows(rows, N_PARTS)).collect()
+    return rows, {r["id"]: r["f"] for r in want}
+
+
 def _serve_prompts(vocab: int, seed: int) -> list:
     """SERVE_REQS prompts of 8..256 tokens from ``seed``; every fourth
     one (SERVE_SHARED of them) opens with one SERVE_PREFIX-token prefix
@@ -4203,7 +4224,6 @@ def phase_serve(card: str) -> dict:
     import numpy as np
     import torch
 
-    from sparkdl_torch import DeepImageFeaturizer, LocalDataFrame
     from sparkdl_torch.models.gpt import GPTConfig, GPTLMHeadModel, generate, init_gpt_
     from sparkdl_torch.models.registry import get_entry
     from sparkdl_torch.ops.stem_fused import inception_stem_fused
@@ -4308,12 +4328,7 @@ def phase_serve(card: str) -> dict:
     torch.cuda.empty_cache()
 
     # ServingEngine over the featurizer's own runner, 8 closed-loop clients
-    rng = np.random.default_rng(11)
-    images, rows = _image_rows(rng, SIZE)
-    want = DeepImageFeaturizer(inputCol="image", outputCol="f", modelName="InceptionV3",
-                               weights="random", batchSize=BATCH).transform(
-        LocalDataFrame.from_rows(rows, N_PARTS)).collect()
-    want = {r["id"]: r["f"] for r in want}
+    rows, want = _featurizer_rows()
     runner = _named_model_runner("InceptionV3", "random", False, "features", BATCH,
                                  "cuda")
     sizes = []
@@ -4372,7 +4387,8 @@ def phase_serve(card: str) -> dict:
     phase_s["serving_engine"] = time.perf_counter() - t0
     print(f"[serve] phase {time.perf_counter() - t_phase:.1f} s: " + ", ".join(
         f"{n} {s:.1f} s" for n, s in phase_s.items()))
-    return {"tokens_s": total / warm["secs"], "requests_s": N_ROWS / secs,
+    return {"tokens_s": total / warm["secs"], "ttft_ms": pct(warm["ttft"], 50) * 1e3,
+            "requests_s": N_ROWS / secs, "p99_ms": lat["p99"] * 1e3,
             "rows": rows, "want": want}
 
 
@@ -4404,15 +4420,18 @@ class _FailingRunner:
         return self.runner.run_batch(arrays)
 
 
-def _closed_loop(eng, rows, ids, threads: int) -> tuple:
+def _closed_loop(eng, rows, ids, threads: int, lat: "dict | None" = None) -> tuple:
     """``ids`` requests from ``threads`` closed-loop client threads:
-    (answers by id, errors, seconds)."""
+    (answers by id, errors, seconds); each request's seconds in ``lat``."""
     got, errs = {}, []
 
     def client(part):
         try:
             for i in part:
+                sent = time.perf_counter()
                 got[i] = eng.submit(rows[i]["image"]).result(timeout=120)
+                if lat is not None:
+                    lat[i] = time.perf_counter() - sent
         except Exception as e:  # reported by the caller: a client must not die silently
             errs.append(e)
 
@@ -4424,7 +4443,7 @@ def _closed_loop(eng, rows, ids, threads: int) -> tuple:
     for th in workers:
         th.join(300)
     if any(th.is_alive() for th in workers):
-        raise AssertionError("[replicas] a client thread did not finish")
+        raise AssertionError("a serving client thread did not finish")
     return got, errs, time.perf_counter() - t0
 
 
@@ -5679,6 +5698,691 @@ def phase_fabric(card: str) -> dict:
     return {"requests_s": FLEET_REQS / warm["secs"], "moved": moved}
 
 
+AUTOSCALE_CLIENT_REQS, AUTOSCALE_BURST = 64, 512  # (a): stages 1 and 3, stage 2
+# (a): the latency objective: the burst's p50 (~1 s on the card) breaks it,
+# the closed-loop stages' (~30 ms) keep it. Where a stage's tail breaks it
+# after a scale-down, the scaler vetoes the move and reverts it: (a) allows that
+AUTOSCALE_SLO_S, AUTOSCALE_SLO_WINDOW_S = 0.25, 2.0
+AUTOSCALE_KV_STEP = 32   # (b): blocks one KV resize moves, 1/16 of [serve]'s pool
+AUTOSCALE_TICK_S = 0.05  # (b)-(c): the scaler threads' cadence
+AUTOSCALE_REQS, AUTOSCALE_TIER_REQS = 64, 16  # (b)-(c): the bursts
+AUTOSCALE_WAIT_S = 60.0  # the longest the phase waits for one scale move
+# one counted fault per actuator family, each the first hit of its site
+AUTOSCALE_FAULTS = {"replicas": "replica.scale_down:OSError@1",
+                    "kv": "kv_pool.resize:OSError@1",
+                    "fabric": "autoscale.decide:RuntimeError@1"}
+
+
+class _TimedRunner:
+    """A replica's runner that counts the dispatches it serves, the
+    pool's warmup batches (one a bucket) first. After the last of them,
+    before the replica routes, ``stats`` takes its CUDA graphs, their
+    capture seconds and the card's reserved GiB; at its first live
+    batch, that batch's end (``time.time()``, the flight recorder's
+    clock)."""
+
+    def __init__(self, runner, stats: dict):
+        self.runner, self.stats, self.calls = runner, stats, 0
+        self.chunk_size = runner.chunk_size
+
+    def run_batch(self, arrays):
+        out = self.runner.run_batch(arrays)
+        self.calls += 1
+        if self.calls == len(self.runner._buckets):
+            self.stats["graphs"], self.stats["capture_s"] = _graph_stats(self.runner)
+            self.stats["reserved_gib"] = _reserved_gib()
+        elif self.calls == len(self.runner._buckets) + 1:
+            self.stats["first_live"] = time.time()
+        return out
+
+
+class _Signals:
+    """The default signal reader (the real spine), reading /healthz
+    first whenever the scaler's last pass was deferred: a fault leaves
+    that state until the next pass, so each deferral is seen as an
+    operator would see it."""
+
+    def __init__(self, inner=None):
+        from sparkdl_torch.autoscale import read_autoscale_signals
+
+        self.inner = inner or read_autoscale_signals
+        self.scaler = None
+        self.deferred_healthz = []
+
+    def __call__(self):
+        from sparkdl_torch.observability.flight import healthz_report
+
+        if self.scaler is not None and self.scaler.state == "deferred":
+            self.deferred_healthz.append(healthz_report()["status"])
+        return self.inner()
+
+
+def _flight_seq() -> int:
+    from sparkdl_torch.observability.flight import flight_recorder
+
+    return flight_recorder().events_total
+
+
+def _events(seq0: int, kind: str) -> list:
+    """The flight recorder's ``kind`` events recorded after ``seq0``."""
+    from sparkdl_torch.observability.flight import flight_recorder
+
+    return [e for e in flight_recorder().events() if e["seq"] > seq0 and e["kind"] == kind]
+
+
+def _decisions(seq0: int, scalers) -> list:
+    """The autoscale.decision events since ``seq0``, each an (actuator,
+    direction, reverted) triple; fails unless they are every decision
+    ``scalers`` counted."""
+    evs = _events(seq0, "autoscale.decision")
+    counted = sum(s.decision_count for s in scalers)
+    if len(evs) != counted:
+        raise AssertionError(f"[autoscale] the flight recorder holds {len(evs)} decisions of "
+                             f"the scalers' {counted}")
+    return [(e["actuator"], e["direction"], e.get("reverted")) for e in evs]
+
+
+def _net(decisions, actuator: str) -> tuple:
+    """(adds, removes, lapsed) among ``actuator``'s decisions: its
+    scale-ups and the vetoes' reverts that added back what a scale-down
+    took, its scale-downs, and the reverts that could not add back."""
+    reverts = [d[2] for d in decisions if d[:2] == (actuator, "revert")]
+    return (sum(d[:2] == (actuator, "up") for d in decisions) + sum(map(bool, reverts)),
+            sum(d[:2] == (actuator, "down") for d in decisions),
+            reverts.count(False))
+
+
+def _burst_until_rejoin(submit, prompts, scaler, rounds: int = 4) -> tuple:
+    """``submit`` each prompt, and the same prompts again while a round
+    ends before ``scaler`` has rejoined its parked host (a short burst
+    can finish first): (futures, the prompt index of each, seconds). The
+    host is back once its router holds ``max_hosts`` again: it leaves
+    ``spare_hosts`` before ``add_host`` returns."""
+    futs, sent, t0 = [], [], time.monotonic()
+    back = lambda: len(scaler.router.hosts()) == scaler.policy.max_hosts  # noqa: E731
+    for _ in range(rounds):
+        futs += [submit(p) for p in prompts]
+        sent += list(range(len(prompts)))
+        _wait_for("requests done or a rejoin", lambda: back() or all(f.done() for f in futs))
+        if not back() and not scaler.spare_hosts:  # a rejoin under way
+            _wait_for("the rejoin", back, 10)
+        if back():
+            return futs, sent, time.monotonic() - t0
+    raise AssertionError(f"[autoscale] {len(sent)} requests rejoined no parked host")
+
+
+def _no_launches(part: str) -> str:
+    """Fail unless no kernel launched since the counts were zeroed."""
+    launched = _launch_counts()
+    if any(launched.values()):
+        raise AssertionError(f"[autoscale] {part} launched kernels: {launched}")
+    return "kernel launches 0 (the dense masked path)"
+
+
+def _wait_for(what: str, pred, timeout_s: float = AUTOSCALE_WAIT_S) -> float:
+    """Poll ``pred`` until it holds; the seconds it took."""
+    t0 = time.monotonic()
+    deadline = t0 + timeout_s
+    while not pred() and time.monotonic() < deadline:
+        time.sleep(0.005)
+    if not pred():
+        raise AssertionError(f"[autoscale] no {what} within {timeout_s:.0f} s")
+    return time.monotonic() - t0
+
+
+def _reserved_gib() -> float:
+    """``torch.cuda.memory_reserved`` once collected garbage and the
+    allocator's unused cache are released."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved(0) / 2**30
+
+
+def _graph_stats(runner) -> tuple:
+    """(CUDA graphs, their capture seconds) a BatchedRunner holds."""
+    graphs = runner._chainer._graphs.graphs()
+    return len(graphs), sum(g.capture_s for g in graphs)
+
+
+def _stage(eng, rows, n: int, clients: "int | None") -> dict:
+    """``n`` single-image requests (request i sends ``rows[i % len]``):
+    from ``clients`` closed-loop client threads, or, with None, all
+    submitted at once. Answers and latencies by request, seconds."""
+    import numpy as np
+
+    got, lat, errs = {}, {}, []
+    if clients is not None:
+        got, errs, secs = _closed_loop(eng, rows, list(range(n)), clients, lat)
+    else:
+        t0 = time.perf_counter()
+        futs = {}
+        for i in range(n):
+            sent = time.perf_counter()
+            futs[i] = eng.submit(rows[i % len(rows)]["image"])
+            futs[i].add_done_callback(
+                lambda f, i=i, sent=sent: lat.__setitem__(i, time.perf_counter() - sent))
+        for i, f in futs.items():
+            try:
+                got[i] = f.result(timeout=300)
+            except Exception as e:  # counted as lost below
+                errs.append(e)
+        secs = time.perf_counter() - t0
+        _wait_for("latency of every request", lambda: len(lat) == len(got), 10)
+    ms = sorted(v * 1e3 for v in lat.values())
+    return {"got": got, "errs": errs, "secs": secs, "n": n,
+            "p50": float(np.percentile(ms, 50)) if ms else math.nan,
+            "p99": float(np.percentile(ms, 99)) if ms else math.nan}
+
+
+def _autoscale_replicas(card: str, served: dict) -> dict:
+    """(a) The replica tier over the main path: a started AutoScaler over
+    ServingEngine(ReplicaPool(n_replicas=1)) of DeepImageFeaturizer
+    (InceptionV3) runners, through 2 closed-loop clients, a burst of
+    single-image requests and 2 clients again; a scale-up (the new
+    replica warmed over every bucket before it routes), then scale-downs
+    back to one replica (the first attempt deferred by a counted fault;
+    a scale-down the SLO's burn vetoes is reverted and tried again)."""
+    import weakref
+
+    import numpy as np
+    import torch
+
+    from sparkdl_torch.autoscale import AutoScaler, AutoscalePolicy
+    from sparkdl_torch.models.registry import get_entry
+    from sparkdl_torch.observability.flight import healthz_report
+    from sparkdl_torch.observability.slo import SLO
+    from sparkdl_torch.ops.stem_fused import inception_stem_fused
+    from sparkdl_torch.reliability.faults import inject
+    from sparkdl_torch.serving import ReplicaPool, ServingEngine
+    from sparkdl_torch.transformers.named_image import (
+        _image_to_rgb_array,
+        _named_model_runner,
+        _resize_host,
+    )
+
+    t0 = time.perf_counter()
+    rows, want = served["rows"], served["want"]
+    size = get_entry("InceptionV3").input_size
+    extract = lambda s: {"img": _resize_host(_image_to_rgb_array(s), size)}  # noqa: E731
+    made = []  # a weak reference to each replica's runner, by replica index
+    stats = []  # by replica index: when its runner was built, and its _TimedRunner stats
+
+    def make_runner(device):
+        stats.append({"built": time.time()})
+        runner = _TimedRunner(_named_model_runner.__wrapped__(
+            "InceptionV3", "random", False, "features", BATCH, str(device)), stats[-1])
+        made.append(weakref.ref(runner))
+        return runner
+
+    def batches() -> float:
+        from sparkdl_torch.observability.registry import registry
+
+        fam = registry().get("sparkdl_replica_batches_total")
+        return sum(fam.snapshot_values().values()) if fam is not None else 0.0
+
+    _zero_counts()
+    batches0 = batches()
+    pool = ReplicaPool(make_runner=make_runner, n_replicas=1,
+                       devices=[torch.device("cuda:0")], max_failures=2,
+                       probation_s=REPLICA_PROBATION_S)
+    img = extract(rows[0]["image"])["img"]
+    buckets = list(made[0]().runner._buckets)
+    warm = [{"img": np.repeat(img[None], b, axis=0)} for b in buckets]
+    for w in warm:  # the first replica's buckets before traffic
+        pool.warmup(w)
+    eng = ServingEngine(pool, max_wait_s=SERVE_WAIT_S, extract=extract,
+                        max_queue_depth=4 * AUTOSCALE_BURST, slo=SLO(
+        "autoscale", latency_threshold_s=AUTOSCALE_SLO_S, window_s=AUTOSCALE_SLO_WINDOW_S))
+    sig = _Signals()
+    scaler = AutoScaler(pool=pool, warmup_arrays=warm, signals=sig,
+                        policy=AutoscalePolicy(min_replicas=1, max_replicas=2))
+    sig.scaler = scaler
+    seq0 = _flight_seq()
+    reserved0 = _reserved_gib()
+    scaler.start()
+    try:
+        stages = [_stage(eng, rows, AUTOSCALE_CLIENT_REQS, 2),
+                  _stage(eng, rows, AUTOSCALE_BURST, None)]
+        with inject(AUTOSCALE_FAULTS["replicas"]):
+            t_down = time.time()
+            stages.append(_stage(eng, rows, AUTOSCALE_CLIENT_REQS, 2))
+            # back to one replica: a scale-up and a scale-down at least (a
+            # vetoed scale-down's revert adds a replica back), its veto
+            # window over and the scaler's state recovered
+            _wait_for("scale-down to one replica", lambda: (
+                scaler.decision_count >= 2 and len(pool.replicas) == 1
+                and scaler.state == "ok"
+                and not scaler.snapshot()["autoscaler"]["pending_vetoes"]))
+        hz = healthz_report()
+        final = (scaler.state, len(pool.replicas), hz["status"])
+    finally:
+        scaler.close()
+        snap = eng.snapshot()
+        eng.close()
+        pool.close()
+    stem_launches = inception_stem_fused.launches
+    n_batches = batches() - batches0
+    reserved_down = _reserved_gib()
+    moved = _decisions(seq0, [scaler])
+    adds, removes, lapsed = _net(moved, "replica")
+    added = [e["replica"] for e in _events(seq0, "pool.scale_up")]
+    victims = [e for e in _events(seq0, "pool.scale_down")]
+    up, down = stats[added[0]] if added else {}, victims[0] if victims else {}
+    victims_freed = all(made[e["replica"]]() is None for e in victims)
+    lost = sum(s["n"] - len(s["got"]) + len(s["errs"]) for s in stages) + snap["failed"]
+    unequal = sum(not np.array_equal(np.asarray(v), np.asarray(want[i % len(want)]))
+                  for s in stages for i, v in s["got"].items())
+    problems = []
+    if not removes or lapsed or (adds, removes) != (len(added), len(victims)) \
+            or 1 + adds - removes != final[1]:
+        problems.append(f"decisions {moved}, {len(added)} replicas added and {len(victims)} "
+                        f"removed: want a scale-up, then scale-downs (each vetoed one "
+                        f"reverted) back to one replica")
+    if final != ("ok", 1, "ok"):
+        problems.append(f"at the end state/replicas/healthz {final}, want ok/1/ok")
+    if lost or unequal:
+        problems.append(f"{lost} requests lost, {unequal} answers not bitwise the "
+                        "featurizer's rows")
+    if stem_launches != n_batches:
+        problems.append(f"stem launches {stem_launches} for {n_batches:.0f} batches")
+    short = {i: stats[i].get("graphs") for i in added if stats[i].get("graphs") != len(buckets)}
+    if short:
+        problems.append(f"added replicas joined with CUDA graphs {short} for {len(buckets)} "
+                        "buckets")
+    if not sig.deferred_healthz or set(sig.deferred_healthz) != {"degraded"}:
+        problems.append(f"{AUTOSCALE_FAULTS['replicas']}: healthz while deferred "
+                        f"{sig.deferred_healthz}")
+    if problems:
+        raise AssertionError("[autoscale] (a) " + "; ".join(problems))
+    first_live = up.get("first_live", math.nan) - up["built"]
+    down_s = down["t"] - t_down
+    names = ("2 clients", f"{AUTOSCALE_BURST} at once", "2 clients")
+    print(f"[autoscale] (a) AutoScaler(pool=, warmup_arrays=every bucket {buckets}, "
+          f"AutoscalePolicy(min_replicas=1, max_replicas=2)).start() (a tick every "
+          f"{scaler.interval_s} s) over ServingEngine(ReplicaPool(n_replicas=1)) of "
+          f"DeepImageFeaturizer(InceptionV3, weights='random') runners on cuda:0, "
+          f"reading sparkdl_queue_depth and an SLOTracker (p95 under "
+          f"{AUTOSCALE_SLO_S * 1e3:.0f} ms, {AUTOSCALE_SLO_WINDOW_S:.0f} s window); {card}: "
+          + "; ".join(f"stage {k + 1} ({name}, {s['n']} requests) {s['n'] / s['secs']:.1f} "
+                      f"requests/s, p50 {s['p50']:.1f} ms p99 {s['p99']:.1f} ms"
+                      for k, (name, s) in enumerate(zip(names, stages))))
+    print(f"[autoscale] (a) decisions {[d[:2] for d in moved]} ("
+          f"{len(_events(seq0, 'autoscale.veto'))} vetoes); scale-up: add_replica "
+          f"{_events(seq0, 'pool.scale_up')[0]['t'] - up['built']:.2f} s ({up['graphs']} "
+          f"graphs captured in {up['capture_s']:.2f} s before it routed), up-decision to its "
+          f"first served batch {first_live:.2f} s; scale-down of replica {down['replica']} "
+          f"after {AUTOSCALE_FAULTS['replicas']} deferred the first attempt (healthz "
+          f"{'/'.join(sig.deferred_healthz)} while deferred, {final[2]} after), "
+          f"{down_s:.1f} s after stage 3 began, victims' runners "
+          f"{'freed' if victims_freed else 'NOT freed'}; memory_reserved "
+          f"{reserved0:.2f} GiB before the scale-up, {up['reserved_gib']:.2f} after it, "
+          f"{reserved_down:.2f} after the scale-down; 0 lost, "
+          f"{sum(len(s['got']) for s in stages)} answers bitwise the featurizer's rows; "
+          f"kernel launches: inception_stem_fused {stem_launches} = {n_batches:.0f} "
+          f"batches (warmups included); {time.perf_counter() - t0:.1f} s")
+    return {"stages": [{"requests_s": s["n"] / s["secs"], "p50_ms": s["p50"],
+                        "p99_ms": s["p99"]} for s in stages],
+            "up_to_first_batch_s": first_live, "capture_s": up["capture_s"],
+            "reserved_gib": (reserved0, up["reserved_gib"], reserved_down)}
+
+
+def _pool_whole(pool) -> "str | None":
+    """Why the block pool's ids do not add up (None when they do):
+    free, spare and allocated-or-cached ids partition the real blocks,
+    and the scratch block at the sentinel id is in none of them."""
+    free, spare = list(pool._free), list(pool._spare)
+    held = {b for b in range(pool.n_blocks) if not pool._is_free[b]}
+    ids = set(free) | set(spare)
+    if len(ids) != len(free) + len(spare) or ids & held:
+        return "an id is listed twice"
+    if ids | held != set(range(pool.n_blocks)):
+        return f"{pool.n_blocks - len(ids | held)} blocks in no list"
+    if pool.sentinel in ids:
+        return f"the sentinel {pool.sentinel} is listed"
+    return None
+
+
+def _autoscale_kv(card: str, cfg, model, prompts, want) -> tuple:
+    """(b) The KV tier: an AutoScaler on one engine's
+    kv_autoscale_binding(); a quiet spell parks the serving share down,
+    a burst defers admissions and the scaler grows it back."""
+    import numpy as np
+
+    from sparkdl_torch.autoscale import AutoScaler, AutoscalePolicy
+    from sparkdl_torch.observability.flight import healthz_report
+    from sparkdl_torch.reliability.faults import inject
+
+    t0 = time.perf_counter()
+    eng = _serve_engine(cfg, model, host_id="autoscale-0")
+    pool, lock = eng.kv_autoscale_binding()
+    eng.start()
+    step = AUTOSCALE_KV_STEP
+    parked_sentinel = []
+
+    def shrunk_to_floor():
+        if pool.sentinel in pool._spare:  # only a shrink parks blocks
+            parked_sentinel.append("the sentinel block parked")
+        return pool.spare_count and pool.free_count < max(1, pool.need_peak) + 2 * step
+
+    sig = _Signals()
+    scaler = AutoScaler(kv_pool=pool, kv_lock=lock, signals=sig, interval_s=AUTOSCALE_TICK_S,
+                        policy=AutoscalePolicy(kv_step_blocks=step, cooldown_ticks=1))
+    sig.scaler = scaler
+    seq0 = _flight_seq()
+    deferred0 = _metric("sparkdl_kv_admission_deferred_total")
+    with inject(AUTOSCALE_FAULTS["kv"]):
+        scaler.start()
+        quiet_s = _wait_for("quiet-spell shrink to the floor", shrunk_to_floor)
+    parked = pool.spare_count
+    t1 = time.perf_counter()
+    futs = [eng.submit(p, SERVE_NEW) for p in prompts]
+    outs = [np.asarray(f.result(timeout=600)) for f in futs]
+    burst_s = time.perf_counter() - t1
+    hz = (scaler.state, healthz_report()["status"])
+    scaler.close()
+    deferred = _metric("sparkdl_kv_admission_deferred_total") - deferred0
+    moved = [d[:2] for d in _decisions(seq0, [scaler])]
+    # the quiet spell's shrinks, then the burst's grows
+    downs = moved[:(moved + [("kv", "up")]).index(("kv", "up"))].count(("kv", "down"))
+    with lock:
+        spare_end = pool.spare_count
+        pool.grow(spare_end)  # the whole pool back in service for (c)
+        broken = _pool_whole(pool)
+    _same_outs("autoscale", "(b) KV tier", [outs], [want])
+    problems = parked_sentinel[:1]
+    if not downs or ("kv", "up") not in moved or not deferred:
+        problems.append(f"decisions {moved} with {deferred:.0f} deferred admissions: want "
+                        "shrinks in the quiet spell, then a grow under deferrals")
+    if broken:
+        problems.append(broken)
+    if set(sig.deferred_healthz) != {"degraded"} or hz != ("ok", "ok"):
+        problems.append(f"{AUTOSCALE_FAULTS['kv']}: healthz {sig.deferred_healthz} while "
+                        f"deferred, state/healthz {hz} after the burst")
+    if problems:
+        raise AssertionError("[autoscale] (b) " + "; ".join(problems))
+    print(f"[autoscale] (b) AutoScaler(kv_pool=, kv_lock=) from kv_autoscale_binding() of a "
+          f"ContinuousGPTEngine GPT-2 small ({SERVE_SLOTS} slots, max_len {SERVE_MAX_LEN}, "
+          f"{pool.n_blocks} blocks of {SERVE_BLOCK}, chunk {SERVE_CHUNK}), "
+          f"kv_step_blocks {step}, a tick every {AUTOSCALE_TICK_S} s; {card}: the quiet spell "
+          f"parked {parked} blocks in {quiet_s:.2f} s ({downs} shrinks, the first deferred by "
+          f"{AUTOSCALE_FAULTS['kv']}: healthz {'/'.join(sig.deferred_healthz)} then, {hz[1]} "
+          f"after the burst); a burst of "
+          f"{len(prompts)} prompts of 8..{SERVE_CHUNK} tokens deferred {deferred:.0f} "
+          f"admissions and the scaler grew the pool back ({moved.count(('kv', 'up'))} grows, "
+          f"{spare_end} blocks still spare when the burst ended) in {burst_s:.2f} s; tokens "
+          f"bitwise an engine that never resized in {len(prompts)}/{len(prompts)}; the "
+          f"sentinel block never parked, the pool's {pool.n_blocks} blocks whole; "
+          f"{_no_launches('(b)')}; {time.perf_counter() - t0:.1f} s")
+    return eng, {"parked": parked, "burst_s": burst_s}
+
+
+def _autoscale_fleet(card: str, cfg, models, eng_b, prompts, want) -> dict:
+    """(c) The fabric tier: an AutoScaler over Router(policy='affinity')
+    of two InProcessHosts parks one in a quiet spell and rejoins it under
+    a burst (its first pass deferred by a counted fault); then
+    tier_autoscalers over a PhaseRouter of one PrefillWorker and two
+    DecodeWorkers park a decode host and rejoin it under a burst. The
+    fresh host of each is first in its tier, so the tie of an idle fleet
+    parks it, and it captures its programs only after it rejoins."""
+    from sparkdl_torch.autoscale import AutoScaler, AutoscalePolicy
+    from sparkdl_torch.disagg import DecodeWorker, PhaseRouter, PrefillWorker, tier_autoscalers
+    from sparkdl_torch.fabric import InProcessHost, Router
+    from sparkdl_torch.observability.flight import healthz_report
+    from sparkdl_torch.reliability.faults import inject
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    model, model_f = models
+    eng_f = _serve_engine(cfg, model_f, host_id="autoscale-1")
+    taps = [_Tap(InProcessHost(e)) for e in (eng_f, eng_b)]
+    eng_f.start()
+    router = Router([t.host for t in taps], policy="affinity", auto_refresh=False)
+    sig = _Signals()
+    scaler = AutoScaler(router=router, signals=sig, interval_s=AUTOSCALE_TICK_S,
+                        policy=AutoscalePolicy(min_hosts=1, max_hosts=2))
+    sig.scaler = scaler
+    seq0 = _flight_seq()
+    deferred0 = _metric("sparkdl_autoscale_deferred_total")
+    head = 3 * len(prompts) // 4
+    try:
+        with inject(AUTOSCALE_FAULTS["fabric"]):
+            scaler.start()
+            park_s = _wait_for("host parked", lambda: scaler.spare_hosts)
+        parked = scaler.spare_hosts[0].host_id
+        submit = lambda p: router.submit({"prompt": p, "max_new_tokens": SERVE_NEW})  # noqa: E731
+        futs, sent, rejoin_s = _burst_until_rejoin(submit, prompts[:head], scaler)
+        hz = (scaler.state, healthz_report()["status"])
+        hosts_end = len(router.hosts())
+        scaler.close()
+        served0 = len(taps[0].futs)
+        futs += [submit(p) for p in prompts[head:]]
+        sent += list(range(head, len(prompts)))
+        outs = [np.asarray(f.result(timeout=600)) for f in futs]
+    finally:
+        scaler.close()
+        router.close()
+    fabric_deferred = _metric("sparkdl_autoscale_deferred_total") - deferred0
+    rejoined_served = len(taps[0].futs) - served0
+    _same_outs("autoscale", "(c) fabric tier", [outs], [[want[i] for i in sent]])
+    problems = []
+    moved = _decisions(seq0, [scaler])
+    adds, removes, lapsed = _net(moved, "host")
+    if not removes or lapsed or adds != removes or hosts_end != 2 \
+            or parked != eng_f.host_id:
+        problems.append(f"decisions {moved}, {hosts_end} hosts at the end, parked {parked}: "
+                        f"want {eng_f.host_id} parked and rejoined")
+    if fabric_deferred != 1 or set(sig.deferred_healthz) != {"degraded"} or hz != ("ok", "ok"):
+        problems.append(f"{AUTOSCALE_FAULTS['fabric']}: {fabric_deferred:.0f} deferred "
+                        f"passes, healthz {sig.deferred_healthz} while deferred, state/"
+                        f"healthz {hz} after")
+    if not rejoined_served:
+        problems.append(f"the rejoined {parked} served nothing")
+    if problems:
+        raise AssertionError("[autoscale] (c) fabric: " + "; ".join(problems))
+    fabric = {"park_s": park_s, "rejoin_s": rejoin_s}
+    line = (f"[autoscale] (c) AutoScaler(router=Router(policy='affinity') over two "
+            f"InProcessHosts, {eng_f.host_id} on {eng_f.device} and {eng_b.host_id} on "
+            f"{eng_b.device}), AutoscalePolicy(min_hosts=1, max_hosts=2); {card}: the first "
+            f"pass deferred by {AUTOSCALE_FAULTS['fabric']} (nothing moved, healthz "
+            f"{'/'.join(sig.deferred_healthz)}, then state {hz[0]}, healthz {hz[1]}); the "
+            f"quiet spell drained {parked} into spare_hosts in {park_s:.2f} s with 0 lost; "
+            f"{len(sent) - len(prompts) + head} prompts rejoined it (reopen + add_host) "
+            f"{rejoin_s:.2f} s after the first was submitted, and it served "
+            f"{rejoined_served} of the last {len(prompts) - head}; tokens bitwise one "
+            f"engine's in {len(sent)}/{len(sent)}")
+    # the disaggregated tiers, each scaled on its own signal
+    tier_kw = dict(n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, kv_block_size=SERVE_BLOCK,
+                   prefill_chunk=SERVE_CHUNK, auto_start=True)
+    pre = PrefillWorker(cfg, model, host_id="autoscale-p0", **tier_kw)
+    decs = [DecodeWorker(cfg, model_f, host_id="autoscale-d1", **tier_kw),
+            DecodeWorker(cfg, model, host_id="autoscale-d0", **tier_kw)]
+    tp = _Tap(InProcessHost(pre))
+    tds = [_Tap(InProcessHost(d)) for d in decs]
+    tier_prompts = prompts[:AUTOSCALE_TIER_REQS]
+    head = 3 * len(tier_prompts) // 4
+    pr = PhaseRouter([tp.host], [t.host for t in tds], auto_refresh=False,
+                     max_handoff_retries=4)
+    pre_s, dec_s = tier_autoscalers(
+        pr, prefill_policy=AutoscalePolicy(),
+        decode_policy=AutoscalePolicy(min_hosts=1, max_hosts=2), interval_s=AUTOSCALE_TICK_S)
+    seq0 = _flight_seq()
+    try:
+        pre_s.start()
+        dec_s.start()
+        tier_park_s = _wait_for("decode host parked", lambda: dec_s.spare_hosts)
+        tier_parked = dec_s.spare_hosts[0].host_id
+        futs, sent, tier_rejoin_s = _burst_until_rejoin(
+            lambda p: pr.submit(p, SERVE_NEW), tier_prompts[:head], dec_s)
+        tier_hosts_end = len(pr.decode.hosts())
+        pre_s.close()
+        dec_s.close()
+        served0 = len(tds[0].futs)
+        futs += [pr.submit(p, SERVE_NEW) for p in tier_prompts[head:]]
+        sent += list(range(head, len(tier_prompts)))
+        outs = [np.asarray(f.result(timeout=600)) for f in futs]
+        tier_served = len(tds[0].futs) - served0
+    except BaseException:
+        pre_s.close()
+        dec_s.close()
+        pr.close()
+        for e in (pre, *decs):
+            e.close(drain=False)
+        raise
+    _same_outs("autoscale", "(c) disaggregated tiers", [outs], [[want[i] for i in sent]])
+    tier_moves = _decisions(seq0, [pre_s, dec_s])
+    adds, removes, lapsed = _net(tier_moves, "host")
+    if pre_s.decision_count or not removes or lapsed or adds != removes or tier_hosts_end != 2 \
+            or tier_parked != decs[0].host_id or not tier_served:
+        raise AssertionError(f"[autoscale] (c) tiers: decisions {tier_moves} "
+                             f"({pre_s.decision_count} of the prefill tier's), "
+                             f"{tier_hosts_end} decode hosts at the end, parked "
+                             f"{tier_parked}, it served {tier_served} after its rejoin")
+    print(line)
+    print(f"[autoscale] (c) tier_autoscalers over PhaseRouter(PrefillWorker {pre.host_id} on "
+          f"{pre.device} -> DecodeWorkers {decs[0].host_id} on {decs[0].device}, "
+          f"{decs[1].host_id} on {decs[1].device}); {card}: the quiet spell parked decode "
+          f"host {tier_parked} in {tier_park_s:.2f} s (the prefill tier, one host at "
+          f"min_hosts, moved nothing); {len(sent) - len(tier_prompts) + head} split "
+          f"requests rejoined it {tier_rejoin_s:.2f} s after the first was submitted, and "
+          f"it decoded {tier_served} of the last {len(tier_prompts) - head}; tokens bitwise "
+          f"the colocated engine's in {len(sent)}/{len(sent)}; "
+          f"{_no_launches('(c)')}; {time.perf_counter() - t0:.1f} s")
+    return {**fabric, "tiers": (pr, pre, decs, tp), "engines": (eng_f,),
+            "tier_park_s": tier_park_s, "tier_rejoin_s": tier_rejoin_s}
+
+
+def _fleet_families(text: str) -> list:
+    return sorted(ln for ln in text.splitlines()
+                  if ln.startswith("# TYPE") or ln.startswith("sparkdl_fleet_host_up"))
+
+
+def _autoscale_scraper(card: str, tiers, prompt, want_tokens) -> dict:
+    """(d) The fleet scraper over (c)'s tiers, tracing on: one split
+    request's fleet_trace is one trace of both tiers' spans, whose
+    stitched phases stand beside its measured TTFT; FleetServer on
+    127.0.0.1 answers /fleet/trace/<id>, /fleet/metrics and
+    /fleet/healthz as the in-process calls do."""
+    import urllib.request
+
+    import numpy as np
+
+    from sparkdl_torch.observability import tracing
+    from sparkdl_torch.observability.fleet import FleetScraper, FleetServer
+
+    t0 = time.perf_counter()
+    pr, pre, decs, tp = tiers
+    tracing.clear_trace()
+    tracing.enable_tracing()
+    try:
+        sent = time.perf_counter()
+        out = np.asarray(pr.submit(prompt, SERVE_NEW).result(timeout=600))
+        e2e = time.perf_counter() - sent
+        ttft = tp.futs[-1][1].ttft_s
+        wire = [e for e in tracing.trace_events() if e["name"] == "handoff.wire"]
+        if len(wire) != 1:
+            raise AssertionError(f"[autoscale] (d) {len(wire)} handoff.wire spans for one "
+                                 "split request")
+        rid = wire[0]["args"]["request_id"]
+        scraper = FleetScraper.from_phase_router(pr)
+        stitched = scraper.fleet_trace(rid)
+        names = [e["name"] for e in stitched["spans"]]
+        phases = stitched["phases"]
+        with FleetServer(scraper, host="127.0.0.1") as srv:
+            def get(path):
+                with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}{path}",
+                                            timeout=30) as r:
+                    return r.read().decode()
+
+            local = {"trace": json.loads(json.dumps(scraper.fleet_trace(rid), default=repr)),
+                     "healthz": json.loads(json.dumps(scraper.fleet_healthz(), default=repr)),
+                     "metrics": _fleet_families(scraper.fleet_metrics())}
+            http = {"trace": json.loads(get(f"/fleet/trace/{rid}")),
+                    "healthz": json.loads(get("/fleet/healthz")),
+                    "metrics": _fleet_families(get("/fleet/metrics"))}
+        offsets = scraper.clock_offsets()
+    finally:
+        tracing.disable_tracing()
+        tracing.clear_trace()
+    _same_outs("autoscale", "(d) traced split request", [[out]], [[want_tokens]])
+    hosts = {scraper.tier_of(h) for h in scraper.hosts()}
+    problems = []
+    if names.count("handoff.wire") != 1 or not {"disagg.handoff_export",
+                                                "disagg.handoff_install"} <= set(names):
+        problems.append(f"the stitched trace holds {sorted(set(names))}")
+    if hosts != {"prefill", "decode"} or phases is None:
+        problems.append(f"tiers {hosts}, phases {phases}")
+    for k in local:
+        if local[k] != http[k]:
+            problems.append(f"/fleet/{k} differs from the in-process call")
+    if problems:
+        raise AssertionError("[autoscale] (d) " + "; ".join(problems))
+    by = {f"{p['phase']} {p['tier']}": p["seconds"] * 1e3 for p in phases}
+    print(f"[autoscale] (d) FleetScraper.from_phase_router over (c)'s tiers "
+          f"({len(scraper.hosts())} hosts), tracing on; {card}: one split request's "
+          f"fleet_trace is one trace of {len(names)} spans over both tiers (one "
+          f"handoff.wire, export and install); stitched phases "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in by.items())
+          + f" (sum {sum(by.values()):.1f} ms) beside its TTFT {ttft * 1e3:.1f} ms (first "
+          f"token out at the export) and end to end {e2e * 1e3:.1f} ms; FleetServer on "
+          f"127.0.0.1 served /fleet/trace/{rid}, /fleet/metrics and /fleet/healthz equal "
+          f"to the in-process calls; clock_offsets() "
+          + ", ".join(f"{h} {o:+.1f} us" for h, o in offsets.items())
+          + f"; {_no_launches('(d)')}; {time.perf_counter() - t0:.1f} s")
+    return {"phases_ms": by, "ttft_ms": ttft * 1e3, "e2e_ms": e2e * 1e3}
+
+
+def phase_autoscale(card: str, served: dict) -> dict:
+    """The fleet's autoscaler on the card: (a) the replica tier over the
+    featurizer's runners (the stem kernel's path), (b) the KV tier of a
+    continuous engine, (c) the fabric's and the disaggregated tiers'
+    hosts, each scale move lossless and every answer bitwise an unscaled
+    run's, each counted fault deferring once; (d) the fleet scraper's
+    stitched trace of a split request, in process and over HTTP."""
+    import torch
+
+    t_phase = time.perf_counter()
+    out = {"replicas": _autoscale_replicas(card, served)}
+    cfg, model = _gpt2_small()
+    cards = torch.cuda.device_count()
+    model_f = _gpt2_small("cuda:1")[1] if cards >= 2 else model
+    prompts = _fleet_prompts(cfg.vocab_size, 30, AUTOSCALE_REQS + 1)
+    _zero_counts()
+    t0 = time.perf_counter()
+    ref = _serve_engine(cfg, model)
+    want = _burst(ref, prompts)["outs"]
+    ref.close()
+    print(f"[autoscale] (b)-(d) GPT-2 small ({cfg.num_layers}x{cfg.hidden_size}, float32, "
+          f"random init seed 0) at [serve]'s settings; {len(prompts)} prompts of "
+          f"8..{SERVE_CHUNK} tokens, {SERVE_NEW} greedy tokens each, through one engine that "
+          f"never scales: the reference, {time.perf_counter() - t0:.1f} s; "
+          + (f"{cards} cards: the fresh fabric host and decode worker on cuda:1, so each "
+             "rejoin captures there" if cards >= 2 else
+             "1 card: the two-card placement (the fresh fabric host and decode worker on "
+             "cuda:1, each rejoin capturing there) is skipped"))
+    eng_b, out["kv"] = _autoscale_kv(card, cfg, model, prompts[:-1], want[:-1])
+    try:
+        out["fleet"] = fleet = _autoscale_fleet(card, cfg, (model, model_f), eng_b,
+                                                prompts[:-1], want[:-1])
+        pr, pre, decs, _ = fleet["tiers"]
+        try:
+            out["scraper"] = _autoscale_scraper(card, fleet["tiers"], prompts[-1], want[-1])
+        finally:
+            pr.close()
+            for e in (pre, *decs, *fleet["engines"]):
+                e.close(drain=False)
+    finally:
+        eng_b.close(drain=False)
+    del model, model_f
+    torch.cuda.empty_cache()
+    print(f"[autoscale] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def phase_profile(card: str) -> dict:
     """trace() around one featurizer batch, in a fresh process (as an
     operator captures one): the Chrome trace names the stem kernel's
@@ -5768,6 +6472,7 @@ def main() -> int:
     sp_serve = phase_sp_serve(card)
     fabric = phase_fabric(card)
     disagg = phase_disagg(card)
+    phase_autoscale(card, serve)
     phase_profile(card)
     kernels = [stem, attn, dq, dkv, decode, gemm]
     print(f"[summary] {card}: zoo featurizer images/s "

@@ -22,14 +22,21 @@ transfer per request:
   tier's queue head.
 * :class:`BatchPrefillFiller` — offline work soaks idle prefill
   capacity, preempted by interactive arrivals.
-
-The JAX package's per-tier autoscaler signals (``disagg/scaling.py``)
-land with the port's ``autoscale/``.
+* :func:`tier_autoscalers` — one
+  :class:`~sparkdl_torch.autoscale.AutoScaler` per tier, each on its
+  own pressure signal (:func:`prefill_tier_signals`: queue depth;
+  :func:`decode_tier_signals`: slot occupancy, with KV exhaustion on the
+  burn channel).
 """
 
 from sparkdl_torch.disagg.filler import BatchPrefillFiller
 from sparkdl_torch.disagg.handoff import HandoffInstallError, KVHandoff
 from sparkdl_torch.disagg.phase_router import PhaseRouter
+from sparkdl_torch.disagg.scaling import (
+    decode_tier_signals,
+    prefill_tier_signals,
+    tier_autoscalers,
+)
 from sparkdl_torch.disagg.workers import DecodeWorker, PrefillWorker
 
 __all__ = [
@@ -39,4 +46,7 @@ __all__ = [
     "KVHandoff",
     "PhaseRouter",
     "PrefillWorker",
+    "decode_tier_signals",
+    "prefill_tier_signals",
+    "tier_autoscalers",
 ]

@@ -727,6 +727,7 @@ class FaultCoverageRule(Rule):
 PIN_MANAGED = {
     "SPARKDL_TORCH_PREFETCH",
     "SPARKDL_TORCH_PREFILL_CHUNK",
+    "SPARKDL_TORCH_REPLICAS",
     "SPARKDL_TORCH_SP",
 }
 

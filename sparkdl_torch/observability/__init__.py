@@ -24,8 +24,11 @@ needs no JAX:
   health probe (:func:`check_health`; each ``TorchRunner`` rank runs
   :func:`~sparkdl_torch.observability.health.preflight`).
 
-The reference's fleet roll-ups (``observability/fleet.py``) come with the
-fleet, ROADMAP A9.
+* :mod:`~sparkdl_torch.observability.fleet` — the fleet plane:
+  :class:`~sparkdl_torch.observability.fleet.FleetScraper` polls every
+  fabric host, stitches one request's spans across hosts onto one
+  skew-corrected timeline, and :class:`~sparkdl_torch.observability.
+  fleet.FleetServer` serves ``/fleet/*`` over HTTP.
 """
 
 from sparkdl_torch.observability.exporters import (

@@ -75,7 +75,7 @@ KNOWN_SITES = (
     "kv.alloc",
     "kv.quantize",
     "kv_pool.resize",
-    "autoscale.decide",  # sparkdl-lint: disable=fault-coverage -- lands with autoscale/, ROADMAP A9 part two
+    "autoscale.decide",
     "replica.scale_down",
     "spec.verify",
     "sp.permute",

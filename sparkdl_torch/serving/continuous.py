@@ -262,6 +262,53 @@ class _Prefill:
                    else []))
 
 
+class _FifoLock:
+    """A lock granted in arrival order. The engine loop releases its
+    lock between ticks and takes it again at once; a plain Lock lets it
+    win that race every time, so another thread waiting for the lock (an
+    autoscaler's KV actuator, a snapshot) would wait for as long as the
+    engine stays busy. Here the loop's next acquire queues behind it."""
+
+    def __init__(self):
+        self._cv = threading.Condition(threading.Lock())
+        self._next = 0  # the next ticket handed out
+        self._serving = 0  # the ticket that holds the lock
+        self._abandoned: "set[int]" = set()
+
+    def acquire(self) -> bool:
+        with self._cv:
+            ticket = self._next
+            self._next += 1
+            try:
+                while ticket != self._serving:
+                    self._cv.wait()
+            except BaseException:
+                # interrupted while queued: the ticket is skipped, or
+                # passed on if its turn came
+                if ticket == self._serving:
+                    self._advance()
+                else:
+                    self._abandoned.add(ticket)
+                raise
+        return True
+
+    def release(self) -> None:
+        with self._cv:
+            self._advance()
+
+    def _advance(self) -> None:
+        self._serving += 1
+        while self._serving in self._abandoned:
+            self._abandoned.discard(self._serving)
+            self._serving += 1
+        self._cv.notify_all()
+
+    __enter__ = acquire
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+
 def _engine_model(config, model, device):
     """The module the engine runs: ``model`` itself (a
     ``GPTLMHeadModel``: the engine runs on its device), or one built on
@@ -482,7 +529,9 @@ class ContinuousGPTEngine:
         self._park_fallbacks = 0
         self._max_tick_prefill_tokens = 0
         self._prefill_rr = 0
-        self._lock = threading.Lock()
+        #: FIFO: a thread that waits for the engine lock gets it at the
+        #: end of the loop's current tick (see :class:`_FifoLock`)
+        self._lock = _FifoLock()
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
 

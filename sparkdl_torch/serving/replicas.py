@@ -63,7 +63,7 @@ import queue as queue_mod
 import threading
 import time
 from concurrent.futures import TimeoutError as FuturesTimeoutError
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -817,12 +817,15 @@ class ReplicaPool:
 
     # -- elasticity (the autoscaler's replica actuator) -----------------------
     def add_replica(self, *,
-                    warmup_arrays: "dict[str, np.ndarray] | None" = None
-                    ) -> int:
+                    warmup_arrays: "dict[str, np.ndarray] | "
+                                   "Sequence[dict[str, np.ndarray]] | None"
+                    = None) -> int:
         """Grow the pool by one replica at runtime. The executor is
-        built (and, with ``warmup_arrays``, compiled) BEFORE the replica
-        joins routing, so live traffic never waits on a cold replica's
-        first compile. Devices round-robin off the construction ring
+        built (and, with ``warmup_arrays``, warmed: a dict, or a
+        sequence of dicts run in turn, one per bucket so that each
+        bucket's CUDA graph is captured) BEFORE the replica joins
+        routing, so live traffic never waits on a cold replica's first
+        capture. Devices round-robin off the construction ring
         (simulated replicas: several on one card). Returns the
         new replica's index — indices are never reused, so flight events
         and per-replica metric labels stay unambiguous across scale
@@ -835,19 +838,23 @@ class ReplicaPool:
         device = self._devices[index % len(self._devices)]
         replica = _Replica(index, device, self._make_runner(device), self)
         if warmup_arrays is not None:
-            work = _Work(warmup_arrays)
-            work.reroutable = False  # a failed warmup must SURFACE
-            work.owner = replica
+            works = [_Work(a) for a in (
+                [warmup_arrays] if isinstance(warmup_arrays, dict)
+                else warmup_arrays)]
             with self._lock:
-                replica.outstanding += 1
                 self._warming.append(replica)
-                replica.queue.put(work)
+                for work in works:
+                    work.reroutable = False  # a failed warmup must SURFACE
+                    work.owner = replica
+                    replica.outstanding += 1
+                    replica.queue.put(work)
             try:
                 # unbounded wait is safe: the watchdog scans _warming,
                 # so with dispatch_timeout_s armed a wedged warmup is
                 # deadline-failed (reroutable=False -> the error
                 # surfaces here) exactly like a live replica's warmup
-                _PoolFuture(work).result()
+                for work in works:
+                    _PoolFuture(work).result()
             except BaseException:
                 replica.queue.put(None)  # never joined routing: stop it
                 raise

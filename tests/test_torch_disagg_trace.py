@@ -1,9 +1,9 @@
 """Cross-host identity for disaggregated requests: fleet-unique
 host-qualified trace ids survive adoption without collision, span
 contexts and incident ids ride the handoff wire, and both tiers'
-postmortem bundles join on one incident. (Stitching a split request's
-spans into one fleet trace needs the fleet scraper,
-``observability/fleet.py``, which the port has not landed yet.)"""
+postmortem bundles join on one incident, and a split request resolves
+to ONE stitched fleet trace whose phase breakdown telescopes to its
+end-to-end latency."""
 
 import json
 import time
@@ -15,6 +15,7 @@ from sparkdl_torch.disagg import DecodeWorker, PhaseRouter, PrefillWorker
 from sparkdl_torch.disagg.handoff import KVHandoff
 from sparkdl_torch.fabric.host import InProcessHost
 from sparkdl_torch.observability import flight, tracing
+from sparkdl_torch.observability.fleet import FleetScraper
 from sparkdl_torch.reliability import faults
 from sparkdl_torch.reliability.faults import inject
 
@@ -265,3 +266,51 @@ def test_prefill_kill_chaos_bundles_share_one_incident(
         pr.close()
         for e in pres + [dec]:
             e.close()
+
+
+# -- one stitched trace for one split request ---------------------------------
+
+def test_split_request_resolves_to_one_stitched_trace(bundle, traced):
+    """The acceptance path: prefill tier -> handoff -> decode tier,
+    stitched by a FleetScraper registered off the PhaseRouter — BOTH
+    tiers' spans, exactly one ``handoff.wire``, and a five-phase
+    breakdown that telescopes to the measured end-to-end latency."""
+    cfg, variables = bundle
+    pre = PrefillWorker(cfg, variables, host_id="p0", **_kw())
+    dec = DecodeWorker(cfg, variables, host_id="d0", **_kw())
+    pr = PhaseRouter([InProcessHost(pre, host_id="p0")],
+                     [InProcessHost(dec, host_id="d0")],
+                     auto_refresh=False)
+    try:
+        t0 = time.monotonic()
+        fut = pr.submit(list(range(1, 11)), 4)
+        _tick_until([pre, dec], [fut])
+        assert len(np.asarray(fut.result(timeout=0))) == 4
+        e2e = time.monotonic() - t0
+
+        wire = [e for e in tracing.trace_events()
+                if e["name"] == "handoff.wire"]
+        assert len(wire) == 1
+        rid = wire[0]["args"]["request_id"]
+        assert tracing.host_of_id(rid) == tracing.host_hash()
+
+        scraper = FleetScraper.from_phase_router(pr)
+        assert scraper.tier_of("p0") == "prefill"
+        assert scraper.tier_of("d0") == "decode"
+        out = scraper.fleet_trace(rid)
+        names = [e["name"] for e in out["spans"]]
+        assert names.count("handoff.wire") == 1
+        assert "disagg.handoff_export" in names   # prefill tier worked
+        assert "disagg.handoff_install" in names  # decode tier worked
+        assert "serving.queue_wait" in names
+        # stitched order: export ends before the wire span closes
+        assert names.index("disagg.handoff_export") \
+            < names.index("handoff.wire")
+        # phases telescope to the measured end-to-end latency
+        total = sum(p["seconds"] for p in out["phases"])
+        assert total > 0
+        assert abs(total - e2e) < 0.25 * e2e + 0.1, (total, e2e)
+    finally:
+        pr.close()
+        pre.close()
+        dec.close()

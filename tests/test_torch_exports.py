@@ -31,18 +31,6 @@ NOT_EXPORTED = {
                                             "ops.flash_attention.flash_attention",
     ("sparkdl_tpu.models", "registry"): "the zoo's module; its entries are "
                                         "get_entry and SUPPORTED_MODELS",
-    # disagg/scaling.py builds on autoscale/, which is not ported yet
-    ("sparkdl_tpu.disagg", "decode_tier_signals"):
-        "lands with autoscale/, ROADMAP A9 part two",
-    ("sparkdl_tpu.disagg", "prefill_tier_signals"):
-        "lands with autoscale/, ROADMAP A9 part two",
-    ("sparkdl_tpu.disagg", "tier_autoscalers"):
-        "lands with autoscale/, ROADMAP A9 part two",
-}
-
-#: Reference packages with no port yet (ROADMAP A9 part two).
-NOT_PORTED = {
-    "sparkdl_tpu.autoscale": "the fleet's autoscaler, ROADMAP A9 part two",
 }
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -60,11 +48,6 @@ def _reference_packages():
 
 @pytest.mark.parametrize("package", _reference_packages())
 def test_reference_exports_are_exported(package):
-    if package in NOT_PORTED:
-        assert not os.path.exists(os.path.join(
-            _ROOT, package.replace("sparkdl_tpu", "sparkdl_torch").replace(
-                ".", os.sep)))
-        return
     ref = importlib.import_module(package)
     port = importlib.import_module(
         package.replace("sparkdl_tpu", "sparkdl_torch", 1))
@@ -89,7 +72,8 @@ import sparkdl_torch
 for pkg in ("models", "ops", "runtime", "observability", "dataframe",
             "image", "native", "serving", "transformers", "train",
             "runner", "partition", "parallel", "graph", "estimators",
-            "udf", "checkpoint", "param", "ingest", "reliability"):
+            "udf", "checkpoint", "param", "ingest", "reliability",
+            "autoscale", "fabric", "disagg"):
     __import__("sparkdl_torch." + pkg)
 names = [n for n in sparkdl_torch.__all__ if n != "__version__"]
 for n in names:

@@ -1,9 +1,11 @@
 """The port's serving fault sites that no other port test arms:
-``kv_pool.resize``, ``kv.quantize``, ``spec.verify`` and
-``tenant.preempt``. Each holds the reference's chaos contract, side by
+``kv_pool.resize``, ``kv.quantize``, ``spec.verify``,
+``tenant.preempt`` and ``autoscale.decide``. Each holds the reference's chaos contract, side by
 side with the JAX package under the same plan where an engine runs:
 nothing lost, tokens equal, the failure counted and recorded.
 """
+
+import threading
 
 import numpy as np
 import pytest
@@ -119,3 +121,30 @@ def test_preempt_fault_still_requeues_the_victim(pair):
     evs = [e for e in flight_recorder().events()
            if e["kind"] == "tenant.preempt_failed" and e["seq"] > base]
     assert len(evs) == 1 and evs[0]["error"] == "RuntimeError"
+
+
+def test_autoscale_decide_is_a_fault_site_as_in_the_reference():
+    """The same counted plan defers the same decision pass in both
+    packages: nothing moves on it, the next pass lands the move."""
+    from sparkdl_torch.autoscale import AutoScaler, AutoscalePolicy
+    from sparkdl_tpu.autoscale import AutoScaler as JaxScaler
+    from sparkdl_tpu.autoscale import AutoscalePolicy as JaxPolicy
+
+    runs = []
+    for scaler_cls, policy_cls, pool_cls, arm in (
+            (JaxScaler, JaxPolicy, JaxPool, jax_inject),
+            (AutoScaler, AutoscalePolicy, KVBlockPool, inject)):
+        pool = pool_cls(32, 4)
+        sc = scaler_cls(kv_pool=pool, kv_lock=threading.Lock(),
+                        signals=lambda: (0.0, 0.0),
+                        policy=policy_cls(hysteresis=1, cooldown_ticks=0,
+                                          kv_step_blocks=4))
+        try:
+            with arm("autoscale.decide:RuntimeError@2"):
+                ticks = [(sc.tick(), sc.state, pool.spare_count)
+                         for _ in range(3)]
+        finally:
+            sc.close()
+        runs.append(ticks)
+    assert runs[1] == runs[0]
+    assert runs[1] == [(1, "ok", 4), (0, "deferred", 4), (1, "ok", 8)]

@@ -112,9 +112,9 @@ def test_every_suppression_at_head_is_justified(gate):
     assert gate.suppressed, "expected the documented suppressions"
     for f in gate.suppressed:
         assert f.justification, f.render()
-    # the one catalogued site whose code has not landed yet
-    sites = [f for f in gate.suppressed if f.rule == "fault-coverage"]
-    assert [("autoscale.decide" in f.message) for f in sites] == [True]
+    # every catalogued fault site is raised and exercised: none is
+    # suppressed any more (autoscale.decide landed with autoscale/)
+    assert [f for f in gate.suppressed if f.rule == "fault-coverage"] == []
 
 
 def test_gate_wall_time_stays_cheap(gate):
@@ -400,6 +400,13 @@ class TestEnvPin:
 
     def test_ok_resolver_allowlist_and_other_prefixes(self):
         assert run_rule(EnvPinRule(), load("env_ok.py")) == []
+
+    def test_replica_pin_is_read_only_through_resolve_pin(self):
+        found = run_rule(EnvPinRule(), load("env_replicas_bad.py"))
+        assert [f.line for f in found] == [7]
+        assert "SPARKDL_TORCH_REPLICAS" in found[0].message
+        assert "pin-managed" in found[0].message
+        assert run_rule(EnvPinRule(), load("env_replicas_ok.py")) == []
 
 
 class TestSleepPoll:
