@@ -30,8 +30,6 @@ from sparkdl_torch.reliability.faults import inject
 from sparkdl_torch.serving import ReplicaPool, ServingEngine
 from sparkdl_torch.serving.kv_blocks import KVBlockPool
 
-torch.set_num_threads(2)
-
 DIM = 6
 _W = np.random.default_rng(17).standard_normal((DIM, DIM)).astype(np.float32)
 _TW = torch.as_tensor(_W)

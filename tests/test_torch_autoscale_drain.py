@@ -23,8 +23,6 @@ from sparkdl_torch.reliability.faults import inject
 from sparkdl_torch.serving import ContinuousGPTEngine, ReplicaPool, ServingEngine
 from sparkdl_torch.transformers._inference import BatchedRunner
 
-torch.set_num_threads(2)
-
 DIM = 6
 _W = np.random.default_rng(3).standard_normal((DIM, DIM)).astype(np.float32)
 _TW = torch.as_tensor(_W)

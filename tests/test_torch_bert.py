@@ -21,7 +21,6 @@ from sparkdl_tpu.models import bert as jbert
 from sparkdl_torch.models import bert as tbert
 from sparkdl_torch.models.convert import bert_flax_to_torch, bert_torch_to_flax
 
-torch.set_num_threads(2)
 VOCAB = 64
 
 

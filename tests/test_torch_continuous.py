@@ -17,8 +17,6 @@ from sparkdl_torch.runtime.dispatch import GraphCache
 from sparkdl_torch.serving import ContinuousGPTEngine as TorchEngine
 from sparkdl_tpu.serving import ContinuousGPTEngine as JaxEngine
 
-torch.set_num_threads(2)
-
 MAX_LEN = 48
 SHARED = [5, 3, 9, 2, 7, 11, 4, 8]
 CASES = [

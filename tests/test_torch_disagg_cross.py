@@ -10,13 +10,10 @@ import json
 
 import numpy as np
 import pytest
-import torch
 from torch_parity import gpt_pair
 
 from sparkdl_torch.disagg import DecodeWorker, KVHandoff, PrefillWorker
 from sparkdl_torch.serving import ContinuousGPTEngine
-
-torch.set_num_threads(2)
 
 MAX_LEN = 40
 DTYPES = ("fp32", "int8", "bf16")

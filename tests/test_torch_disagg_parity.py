@@ -15,14 +15,11 @@ import time
 
 import numpy as np
 import pytest
-import torch
 from torch_parity import gpt_pair
 
 from sparkdl_torch.disagg import DecodeWorker, KVHandoff, PrefillWorker
 from sparkdl_torch.serving import ContinuousGPTEngine
 from sparkdl_torch.serving.kv_codec import BF16Bits
-
-torch.set_num_threads(2)
 
 MAX_LEN = 40
 MODES = {"plain": {}, "chained": {"chain_tokens": 4}, "spec": {"spec_k": 3}}

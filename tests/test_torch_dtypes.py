@@ -33,7 +33,6 @@ from torch_parity import (
 
 from sparkdl_torch.runtime import FLOAT32, DtypePolicy, default_policy
 
-torch.set_num_threads(2)
 BF16_TOL = 2.0 ** -5
 SIZE = 75
 

@@ -9,7 +9,6 @@ import threading
 
 import numpy as np
 import pytest
-import torch
 from torch_parity import gpt_pair
 
 from sparkdl_torch.observability.flight import flight_recorder
@@ -19,8 +18,6 @@ from sparkdl_torch.serving.kv_blocks import KVBlockPool
 from sparkdl_tpu.reliability.faults import inject as jax_inject
 from sparkdl_tpu.serving import ContinuousGPTEngine as JaxEngine
 from sparkdl_tpu.serving.kv_blocks import KVBlockPool as JaxPool
-
-torch.set_num_threads(2)
 
 CASES = [([5, 3, 9, 2, 7, 11, 4, 8, 1, 6], 6), ([5, 3, 9, 2, 7, 11], 5),
          ([6, 8, 6], 4)]

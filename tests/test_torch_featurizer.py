@@ -16,7 +16,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 from torch_parity import (
     assert_close,
     inception_variables,
@@ -28,7 +27,6 @@ from torch_parity import (
 from sparkdl_torch import DeepImageFeaturizer, DeepImagePredictor, LocalDataFrame
 from sparkdl_torch.transformers import named_image as torch_ni
 
-torch.set_num_threads(2)
 BATCH = 4
 _REAL_LOADER = torch_ni._load_named_model
 

@@ -25,7 +25,6 @@ from sparkdl_torch.models.convert import bert_flax_to_torch
 from sparkdl_torch.train import finetune_classifier
 from sparkdl_torch.train.finetune import batches_from_arrays
 
-torch.set_num_threads(2)
 VOCAB = 64
 
 

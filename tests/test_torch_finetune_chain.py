@@ -30,7 +30,6 @@ from sparkdl_tpu.train.finetune import batches_from_arrays as jax_batches
 from sparkdl_tpu.train.finetune import finetune_classifier as jax_finetune
 from test_torch_finetune import VOCAB, _port_model, _toy_task
 
-torch.set_num_threads(2)
 DIM, CLASSES = 8, 4
 
 

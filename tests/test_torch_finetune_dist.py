@@ -25,7 +25,6 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
-import torch
 
 import torch_dist_jobs as jobs
 from sparkdl_torch import TorchRunner
@@ -39,7 +38,6 @@ from sparkdl_tpu.partition import DataParallelPartitioner as JDP
 from sparkdl_tpu.partition import make_mesh as jax_make_mesh
 from sparkdl_tpu.train.finetune import finetune_classifier as jax_finetune
 
-torch.set_num_threads(2)
 RUNNER = dict(local_platform="cpu", timeout_s=240, driver_log_verbosity="none")
 
 

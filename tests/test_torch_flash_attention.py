@@ -24,7 +24,6 @@ import torch
 from sparkdl_tpu.ops.flash_attention import flash_attention as jax_flash_attention
 from sparkdl_torch.ops import flash_attention as torch_fa
 
-torch.set_num_threads(2)
 F32_TOL, BF16_TOL = 1e-5, 2.0 ** -6
 
 

@@ -23,8 +23,6 @@ import torch
 from sparkdl_tpu.ops.flash_attention import flash_attention as jax_flash_attention
 from sparkdl_torch.ops import flash_attention as torch_fa
 
-torch.set_num_threads(2)
-
 
 def _qkvw(b, lq, lk, h, d, seed):
     r = np.random.default_rng(seed)

@@ -29,8 +29,6 @@ from chip_smoke import BWD_TOL
 from sparkdl_torch.ops import flash_attention as torch_fa
 from sparkdl_tpu.ops.flash_attention import flash_attention as jax_flash_attention
 
-torch.set_num_threads(2)
-
 
 def tf32(x):
     """float32 -> the TF32 value cvt.rna.tf32.f32 gives, low 13 bits zero."""

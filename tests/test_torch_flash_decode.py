@@ -21,7 +21,6 @@ from sparkdl_tpu.ops.flash_decode import flash_decode as jax_flash_decode
 from sparkdl_tpu.ops.flash_decode import reference_decode as jax_reference
 from sparkdl_torch.ops import flash_decode as torch_fd
 
-torch.set_num_threads(2)
 F32_TOL, BF16_TOL = 1e-5, 2.0 ** -6
 
 

@@ -42,7 +42,6 @@ from sparkdl_torch.ops import flash_attention as torch_fa
 from sparkdl_tpu.ops.flash_attention import flash_attention as jax_flash_attention
 from test_torch_flash_bwd_tf32x3 import mm_1xtf32, mm_3xtf32
 
-torch.set_num_threads(2)
 NEG = torch_fa.NEG_INF
 
 

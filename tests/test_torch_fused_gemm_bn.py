@@ -18,7 +18,6 @@ import torch
 from sparkdl_tpu.ops import fused_gemm_bn as jfg
 from sparkdl_torch.ops import fused_gemm_bn as tfg
 
-torch.set_num_threads(2)
 rng = np.random.default_rng(3)
 
 

@@ -37,7 +37,6 @@ from sparkdl_torch.ops import fused_gemm_bn as tfg
 from sparkdl_tpu.ops import fused_gemm_bn as jfg
 from test_torch_flash_bwd_tf32x3 import mm_1xtf32, tf32
 
-torch.set_num_threads(2)
 KERNEL_RUN = 4  # fused_gemm_bn.cu's RUN for float32
 
 

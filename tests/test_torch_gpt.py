@@ -21,7 +21,6 @@ from sparkdl_torch.models import gpt as tgpt
 from sparkdl_torch.models.convert import gpt_flax_to_torch, gpt_torch_to_flax
 from torch_parity import gpt_pair, gpt_variables, left_pad
 
-torch.set_num_threads(2)
 TOL = 1e-5
 PROMPTS = [[5, 3, 9, 2, 7, 11, 4], [1, 4], [6, 8, 6, 8, 6]]
 MAX_NEW = 6

@@ -16,8 +16,6 @@ from torch_parity import gpt_pair
 from sparkdl_torch.models import gpt as tgpt
 from sparkdl_tpu.models import gpt as jgpt
 
-torch.set_num_threads(2)
-
 LOGIT_TOL = 1e-5  # float32, 2 layers: the summation orders differ
 
 

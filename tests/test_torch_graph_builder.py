@@ -28,8 +28,6 @@ from sparkdl_tpu.graph.builder import GraphFunction as JaxGraphFunction  # noqa:
 from sparkdl_tpu.graph.builder import placeholder_specs as jax_placeholder_specs  # noqa: E402
 from sparkdl_tpu.graph.pieces import image_batch_to_float as jax_image_batch_to_float  # noqa: E402
 
-torch.set_num_threads(2)
-
 
 def _linear_gfn(scale: float) -> GraphFunction:
     with IsolatedSession() as issn:

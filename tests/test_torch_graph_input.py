@@ -12,7 +12,6 @@ import pytest
 tf = pytest.importorskip("tensorflow")
 
 import jax  # noqa: E402
-import torch  # noqa: E402
 from torch_graph_parity import as_numpy, assert_port_close  # noqa: E402
 
 from sparkdl_torch.graph import tfgraph as tg  # noqa: E402
@@ -20,7 +19,6 @@ from sparkdl_torch.graph.builder import IsolatedSession  # noqa: E402
 from sparkdl_torch.graph.input import TFInputGraph  # noqa: E402
 from sparkdl_tpu.graph.input import TFInputGraph as JaxTFInputGraph  # noqa: E402
 
-torch.set_num_threads(2)
 DIM = 4
 OUT = 3
 

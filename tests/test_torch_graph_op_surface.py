@@ -11,7 +11,6 @@ import pytest
 
 tf = pytest.importorskip("tensorflow")
 
-import torch  # noqa: E402
 from torch_graph_parity import as_numpy  # noqa: E402
 
 from sparkdl_torch.graph.builder import IsolatedSession  # noqa: E402
@@ -23,8 +22,6 @@ from sparkdl_torch.graph.op_surface import (  # noqa: E402
 from sparkdl_torch.graph.reader import read_graph_def  # noqa: E402
 from sparkdl_torch.graph.tf2torch import GraphTranslationError  # noqa: E402
 from sparkdl_tpu.graph.op_surface import scan_graph_def as jax_scan  # noqa: E402
-
-torch.set_num_threads(2)
 
 
 def _graph_fn(build):

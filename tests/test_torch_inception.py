@@ -34,7 +34,6 @@ from sparkdl_torch.models.inception_fused import (
 from sparkdl_torch.ops.fold import fold_tf_preprocess as torch_fold_tf
 from sparkdl_torch.ops.preprocess import preprocess_tf
 
-torch.set_num_threads(2)
 SIZE = 75
 
 

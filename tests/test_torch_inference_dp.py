@@ -20,8 +20,6 @@ import torch
 from sparkdl_torch.partition import LocalDevicePartitioner
 from sparkdl_torch.transformers._inference import BatchedRunner
 
-torch.set_num_threads(2)
-
 
 def _rows(n, d=6, seed=0):
     rng = np.random.default_rng(seed)

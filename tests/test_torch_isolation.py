@@ -17,7 +17,6 @@ _FEATURIZE_ONE = """
 import sys
 import numpy as np
 import torch
-torch.set_num_threads(2)
 from sparkdl_torch import DeepImageFeaturizer, LocalDataFrame
 from sparkdl_torch.image import imageArrayToStructBGR
 img = np.random.default_rng(0).integers(0, 256, (32, 32, 3), dtype=np.uint8)

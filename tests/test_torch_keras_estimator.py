@@ -28,7 +28,6 @@ from sparkdl_torch.estimators.keras_image_file_estimator import (  # noqa: E402
 )
 from sparkdl_torch.transformers.keras_image import KerasImageFileTransformer  # noqa: E402
 
-torch.set_num_threads(2)
 SIZE = 6
 N_CLASSES = 3
 

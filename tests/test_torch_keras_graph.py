@@ -24,7 +24,6 @@ from keras import layers as L  # noqa: E402
 from sparkdl_torch.models.keras_graph import LAYER_SURFACE, KerasGraphModule  # noqa: E402
 from sparkdl_torch.models.keras_loader import KerasGraph, read_keras_model  # noqa: E402
 
-torch.set_num_threads(2)
 TOL = 1e-5
 REPO = Path(__file__).resolve().parent.parent
 

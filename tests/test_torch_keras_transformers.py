@@ -11,7 +11,6 @@ tests/udf/test_keras_image_model.py (rtol 1e-4, atol 1e-5).
 
 import numpy as np
 import pytest
-import torch
 from PIL import Image
 
 keras = pytest.importorskip("keras")
@@ -24,7 +23,6 @@ from sparkdl_torch import (  # noqa: E402
 )
 from sparkdl_torch.udf import applyUDF, getUDF, listUDFs  # noqa: E402
 
-torch.set_num_threads(2)
 SIZE = 8
 
 

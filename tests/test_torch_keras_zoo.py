@@ -36,7 +36,6 @@ from sparkdl_torch.models.keras_loader import (  # noqa: E402
 )
 from sparkdl_torch.models.registry import build_torch_model, get_entry  # noqa: E402
 
-torch.set_num_threads(2)
 ZOO_TOL = 2e-4
 
 

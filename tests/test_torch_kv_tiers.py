@@ -22,7 +22,6 @@ import os
 
 import numpy as np
 import pytest
-import torch
 from torch_parity import gpt_pair
 
 from sparkdl_torch.observability.flight import healthz_report
@@ -34,8 +33,6 @@ from sparkdl_torch.serving.kv_blocks import KVBlockPool
 from sparkdl_torch.serving.prefix_cache import PrefixCache
 from sparkdl_tpu.serving import ContinuousGPTEngine as JaxEngine
 from sparkdl_tpu.serving import kv_tiers as jkv
-
-torch.set_num_threads(2)
 
 MAX_LEN = 32
 DTYPES = ("fp32", "bf16", "int8")

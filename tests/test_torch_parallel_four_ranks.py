@@ -16,13 +16,11 @@ the one-process run, 1e-5 relative per step with plain SGD.
 
 import numpy as np
 import pytest
-import torch
 
 import torch_parallel_jobs as jobs
 import torch_parallel_refs as refs
 from sparkdl_torch import TorchRunner
 
-torch.set_num_threads(1)
 RUNNER = dict(local_platform="cpu", timeout_s=300, driver_log_verbosity="none")
 WORLD = 4
 

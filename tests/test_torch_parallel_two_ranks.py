@@ -29,13 +29,11 @@ Tolerances (float32 on both sides):
 
 import numpy as np
 import pytest
-import torch
 
 import torch_parallel_jobs as jobs
 import torch_parallel_refs as refs
 from sparkdl_torch import TorchRunner
 
-torch.set_num_threads(2)
 RUNNER = dict(local_platform="cpu", timeout_s=300, driver_log_verbosity="none")
 WORLD = 2
 

@@ -30,8 +30,6 @@ from sparkdl_torch.serving.replicas import (
 )
 from sparkdl_torch.transformers._inference import BatchedRunner
 
-torch.set_num_threads(2)
-
 DIM = 6
 _W = np.random.default_rng(3).standard_normal((DIM, DIM)).astype(np.float32)
 _TW = torch.as_tensor(_W)

@@ -31,7 +31,6 @@ from sparkdl_torch.train.vision import (
 )
 from torch_parity import zoo_variables
 
-torch.set_num_threads(2)
 CLASSES, SIZE, BATCH = 7, 64, 4
 
 

@@ -32,8 +32,6 @@ from sparkdl_torch.serving import (
 from sparkdl_torch.serving import tenancy
 from sparkdl_torch.transformers._inference import BatchedRunner
 
-torch.set_num_threads(2)
-
 
 def _runner(batch_size=16, **kw):
     return BatchedRunner(lambda b: b["x"] * 2.0 + 1.0,

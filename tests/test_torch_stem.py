@@ -21,7 +21,6 @@ from sparkdl_torch.models.convert import flax_to_torch
 from sparkdl_torch.ops import _dispatch
 from sparkdl_torch.ops import stem_fused as torch_stem
 
-torch.set_num_threads(2)
 TOL = 1e-5
 
 

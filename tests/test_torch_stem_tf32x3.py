@@ -39,7 +39,6 @@ from test_torch_flash_bwd_tf32x3 import mm_1xtf32, tf32
 from test_torch_gemm_bn_tf32x3 import mm_3xtf32, trunc
 from test_torch_stem import _pixels, _random_folded, _torch_folded
 
-torch.set_num_threads(2)
 TAP_RUN = 4  # stem_fused.cu: a tap's 4 k-steps sum from zero
 
 

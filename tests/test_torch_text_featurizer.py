@@ -20,7 +20,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 from torch_parity import assert_close
 
 from sparkdl_tpu.models import bert as jbert
@@ -29,7 +28,6 @@ from sparkdl_torch.models import bert as tbert
 from sparkdl_torch.models.convert import bert_flax_to_torch
 from sparkdl_torch.transformers import text as ttext
 
-torch.set_num_threads(2)
 TOL = 1e-5
 VOCAB, MAX_LEN = 64, 16
 #: token counts per row: an empty row, rows longer than MAX_LEN (truncated)

@@ -22,8 +22,6 @@ from sparkdl_torch.models.convert import gpt_flax_to_torch
 from sparkdl_torch.transformers.text_generator import DeepTextGenerator
 from torch_parity import gpt_variables
 
-torch.set_num_threads(2)
-
 ROWS = [
     {"prompt": [5, 3, 9, 2, 7], "tag": 0},
     {"prompt": [1, 4], "tag": 1},

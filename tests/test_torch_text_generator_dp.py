@@ -13,12 +13,10 @@ bridged to the port).
 
 import numpy as np
 import pytest
-import torch
 
 from sparkdl_torch.transformers import text_generator as tg
 from torch_parity import gpt_pair
 
-torch.set_num_threads(2)
 rng = np.random.default_rng(17)
 DEVICES = 4
 GREEDY = dict(temperature=0.0, top_k=None, top_p=None)

@@ -14,7 +14,6 @@ import pytest
 tf = pytest.importorskip("tensorflow")
 
 import jax  # noqa: E402
-import torch  # noqa: E402
 from torch_graph_parity import as_numpy, assert_port_close  # noqa: E402
 
 from sparkdl_torch.graph.builder import GraphFunction  # noqa: E402
@@ -25,7 +24,6 @@ from sparkdl_torch.graph.tf2torch import translate_graph, untranslatable_ops  # 
 from sparkdl_tpu.graph.builder import GraphFunction as JaxGraphFunction  # noqa: E402
 from sparkdl_tpu.graph.input import TFInputGraph as JaxTFInputGraph  # noqa: E402
 
-torch.set_num_threads(2)
 rng = np.random.default_rng(7)
 
 _EXPORT_SCRIPT = """

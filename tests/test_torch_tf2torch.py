@@ -32,7 +32,6 @@ from sparkdl_torch.graph.tf2torch import (  # noqa: E402
 from sparkdl_tpu.graph.tf2jax import translate_graph_def as jax_translate  # noqa: E402
 from sparkdl_tpu.graph.tf2jax import untranslatable_ops as jax_untranslatable  # noqa: E402
 
-torch.set_num_threads(2)
 v1 = tf.compat.v1
 
 

@@ -23,7 +23,6 @@ from sparkdl_tpu import TFTransformer as JaxTFTransformer  # noqa: E402
 from sparkdl_tpu.dataframe.local import LocalDataFrame as JaxLocalDataFrame  # noqa: E402
 from sparkdl_tpu.graph.input import TFInputGraph as JaxTFInputGraph  # noqa: E402
 
-torch.set_num_threads(2)
 H = W = 8
 
 

@@ -22,7 +22,6 @@ from torch_parity import (
     zoo_variables,
 )
 
-torch.set_num_threads(2)
 MODEL_TOL = 1e-5
 OP_TOL = 1e-6
 

@@ -23,7 +23,6 @@ from sparkdl_tpu.models import vit as jvit
 from sparkdl_torch.models import vit as tvit
 from sparkdl_torch.models.convert import vit_flax_to_torch, vit_torch_to_flax
 
-torch.set_num_threads(2)
 TOL = 1e-5
 CLASSES = 5
 

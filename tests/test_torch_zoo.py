@@ -30,7 +30,6 @@ from sparkdl_torch import DeepImageFeaturizer, LocalDataFrame
 from sparkdl_torch.models import common, convert
 from sparkdl_torch.transformers import named_image as torch_ni
 
-torch.set_num_threads(2)
 MODEL_TOL = 1e-5
 OP_TOL = 1e-6
 #: ViT-B/16's cases are in test_torch_vit.py and VGG's in test_torch_vgg.py
