@@ -33,7 +33,9 @@ went through its kernels and agrees with a kernel-free run:
   (the flash forward and decode), each held to the one-card run (and,
   with two or more cards, the same over the cards);
 - the fused ResNet50 train step at 224 px, batch 64 (the fused 1x1-conv
-  GEMM + BN-stats kernel), one CUDA graph a step;
+  GEMM + BN-stats kernel and the BatchNorm kernels of ``ops/bn_train.py``,
+  each of those held to its plain version at every BatchNorm launch of
+  the step first), one CUDA graph a step;
 - ``DeepImageFeaturizer``/``DeepImagePredictor`` over ResNet50, Xception,
   VGG16, VGG19 and ViT-B/16 (cuDNN/cuBLAS: no kernel of the port), each
   held against the same module on the CPU;
@@ -122,6 +124,9 @@ LOGIT_TOL = 1e-4       # 12 layers of f32 on both sides, attention sums reordere
 BWD_TOL = 1e-4          # f32 backward kernels vs plain: sums over L reordered
 BWD_BF16_TOL = 2.0 ** -5
 GEMM_TOL, STATS_TOL, GEMM_BF16_TOL = 1e-5, 1e-4, 3e-2
+BN_TOL, BN_BWD_TOL = 1e-5, 1e-4  # bn_train's kernels vs plain, x max|ref|
+BN_BF16_STEP = 2.0 ** -8  # a bf16 gradient: one rounding of the f32 value
+BN_EPS = 1.001e-5  # ResNet50's
 BERT_STEPS, BERT_TRAIN_BATCH, BERT_TRAIN_LEN = 20, 32, 128
 RESNET_BATCH, RESNET_SIZE, RESNET_STEPS = 64, 224, 10
 
@@ -130,10 +135,12 @@ def _zero_counts():
     """Set every kernel wrapper's launch count to 0."""
     from sparkdl_torch.ops.flash_attention import flash_attention, flash_attention_bwd
     from sparkdl_torch.ops.flash_decode import flash_decode
+    from sparkdl_torch.ops.bn_train import batch_moments, bn_train_apply, bn_train_backward
     from sparkdl_torch.ops.fused_gemm_bn import gemm_bn_stats
     from sparkdl_torch.ops.stem_fused import inception_stem_fused
 
-    for fn in (inception_stem_fused, flash_attention, flash_decode, gemm_bn_stats):
+    for fn in (inception_stem_fused, flash_attention, flash_decode, gemm_bn_stats,
+               batch_moments, bn_train_apply, bn_train_backward):
         fn.launches = 0
     flash_attention_bwd.launches_dq = flash_attention_bwd.launches_dkv = 0
 
@@ -1626,6 +1633,180 @@ def phase_fused_gemm_bn(card: str) -> dict:
             "cuda_core_bound_ms": core_ms, "matmul_ms": mm_ms}
 
 
+def _bn_bytes(kind: str, launch: tuple, size: int, passes: bool = False) -> float:
+    """Bytes a launch needs: each [M, C] input read once, each output
+    written once. With ``passes``, the bytes of bn_train's design instead:
+    its backward reads dz, each y and r in both passes."""
+    m, c = launch[:2]
+    if kind == "moments":
+        return m * c * size
+    j, res = launch[2], launch[3]
+    if kind == "apply":
+        return m * c * size * (j + res + 1)
+    reads = 1 + j + res
+    return m * c * size * ((1 + passes) * reads + j + res)
+
+
+def _bn_rand(g, m: int, c: int, dtype, scale: float = 1.0, shift: float = 0.0):
+    import torch
+
+    return (torch.randn(m, c, generator=g, device="cuda") * scale + shift).to(dtype)
+
+
+def _bn_terms(g, m: int, c: int, j: int, dtype) -> list:
+    """``j`` random BatchNorms over [m, c] as bn_train's backward takes
+    them: (y, scale, shift, mean, var), the moments y's own."""
+    import torch
+
+    from sparkdl_torch.ops import bn_train as B
+
+    terms = []
+    for _ in range(j):
+        y = _bn_rand(g, m, c, dtype, 1.5, 0.4)
+        mean, var = B.batch_moments_reference(y)
+        gamma = torch.rand(c, generator=g, device="cuda") + 0.5
+        beta = torch.randn(c, generator=g, device="cuda") * 0.2
+        terms.append((y, *B.affine(gamma, beta, mean, var, BN_EPS), mean, var))
+    return terms
+
+
+def bn_step_ms(launches: dict, plain: bool = False) -> tuple:
+    """float32 device ms a step of ``launches`` (``bn_train_launches``) by
+    kind, each distinct launch timed once (CUDA-graph replay) and counted as
+    often as the step makes it; beside them the byte bound, the ms of the
+    design's own traffic at the peak bandwidth and, with ``plain``, the
+    plain versions' ms."""
+    import torch
+
+    from sparkdl_torch.ops import bn_train as B
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    f32 = torch.float32
+    totals, bounds, design, plain_ms = {}, {}, {}, {}
+    for kind, items in launches.items():
+        for shape in sorted(set(items)):
+            count = items.count(shape)
+            m, c = shape[:2]
+            r = _bn_rand(g, m, c, f32) if kind != "moments" and shape[3] else None
+            if kind == "moments":
+                y = _bn_rand(g, m, c, f32, 2.0, 0.5)
+                run, ref = (lambda: B.batch_moments(y)), (lambda: B.batch_moments_reference(y))
+            elif kind == "apply":
+                t3 = [t[:3] for t in _bn_terms(g, m, c, shape[2], f32)]
+                run = (lambda: B.bn_train_apply(t3, r, True))
+                ref = (lambda: B.bn_train_apply_reference(t3, r))
+            else:
+                terms, dz = _bn_terms(g, m, c, shape[2], f32), _bn_rand(g, m, c, f32)
+                kw = dict(relu=True, fma_mask=shape[4], scale_grads=shape[4])
+                run = (lambda: B.bn_train_backward(dz, terms, BN_EPS, r, **kw))
+                ref = (lambda: B.bn_train_backward_reference(dz, terms, BN_EPS, r, **kw))
+            totals[kind] = totals.get(kind, 0.0) + count * _device_ms(run, calls=10)
+            if plain:
+                plain_ms[kind] = (plain_ms.get(kind, 0.0)
+                                  + count * _device_ms(ref, calls=5, reps=3))
+            bounds[kind] = (bounds.get(kind, 0.0)
+                            + count * _bn_bytes(kind, shape, 4) / H100_BYTES_S * 1e3)
+            design[kind] = (design.get(kind, 0.0) + count
+                            * _bn_bytes(kind, shape, 4, passes=True) / H100_BYTES_S * 1e3)
+            del run, ref
+            torch.cuda.empty_cache()
+    return totals, bounds, design, plain_ms
+
+
+def phase_bn_train(card: str) -> dict:
+    """bn_train's kernels against their plain versions at every BatchNorm
+    launch of the fused ResNet50 step (B=64, 224 px: 28 moments, 36
+    applies, 49 backwards), float32 and bfloat16: moments and apply
+    within BN_TOL x max|ref| (apply is the plain chain's bits), backward
+    within BN_BWD_TOL (a bfloat16 dy within one rounding of the f32
+    value besides), each repeated call the same bits; then each launch's
+    float32 device ms (CUDA-graph replay) summed over a step, beside its
+    byte bound and the plain versions' ms."""
+    import torch
+
+    from sparkdl_torch.models.resnet_fused import bn_train_launches
+    from sparkdl_torch.ops import bn_train as B
+
+    launches = bn_train_launches(RESNET_BATCH, RESNET_SIZE)
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def check(what, got, want, tol, step=0.0):
+        err = (got.float() - want.float()).abs()
+        allowed = tol * want.float().abs().max() + step * want.float().abs()
+        if not bool((err <= allowed).all()):
+            worst = float((err - allowed).max())
+            raise AssertionError(f"bn_train {what}: off by {worst:.3e} over tol {tol} x "
+                                 f"max|ref| + {step} x |ref|")
+        return float(err.max() / want.float().abs().max().clamp_min(1e-30))
+
+    worst: dict = {}
+    for dtype, label in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for m, c in sorted(set(launches["moments"])):
+            y = _bn_rand(g, m, c, dtype, 2.0, 0.5)
+            got = B.batch_moments(y)
+            again = B.batch_moments(y)
+            want = B.batch_moments_reference(y)
+            for k in range(2):
+                e = check(f"moments {m}x{c} {label}", got[k], want[k], BN_TOL)
+                worst[label, "moments"] = max(worst.get((label, "moments"), 0.0), e)
+                if not torch.equal(got[k], again[k]):
+                    raise AssertionError(f"bn_train moments {m}x{c} {label}: not repeatable")
+        for m, c, j, res in sorted(set(launches["apply"])):
+            terms = _bn_terms(g, m, c, j, dtype)
+            r = _bn_rand(g, m, c, dtype) if res else None
+            got = B.bn_train_apply([t[:3] for t in terms], r, True)
+            want = B.bn_train_apply_reference([t[:3] for t in terms], r)
+            e = check(f"apply {m}x{c} J={j} res={res} {label}", got, want, BN_TOL)
+            worst[label, "apply"] = max(worst.get((label, "apply"), 0.0), e)
+        for m, c, j, res, seam in sorted(set(launches["backward"])):
+            terms = _bn_terms(g, m, c, j, dtype)
+            r = _bn_rand(g, m, c, dtype) if res else None
+            dz = _bn_rand(g, m, c, dtype)
+            kw = dict(relu=True, fma_mask=seam, scale_grads=seam)
+            got = B.bn_train_backward(dz, terms, BN_EPS, r, **kw)
+            again = B.bn_train_backward(dz, terms, BN_EPS, r, **kw)
+            f32 = [(t[0].float(), *t[1:]) for t in terms]
+            want = B.bn_train_backward_reference(dz.float(), f32, BN_EPS,
+                                                 None if r is None else r.float(), **kw)
+            name = f"backward {m}x{c} J={j} res={res} seam={seam} {label}"
+            step = BN_BF16_STEP if dtype == torch.bfloat16 else 0.0
+            errs = [check(name + " dy", a, b, BN_BWD_TOL, step) for a, b in zip(got[0], want[0])]
+            errs += [check(name + " grads", a, b, BN_BWD_TOL)
+                     for pa, pb in zip(got[1], want[1]) for a, b in zip(pa, pb)]
+            if r is not None:
+                errs.append(check(name + " dr", got[2], want[2], 0.0))
+            worst[label, "backward"] = max(worst.get((label, "backward"), 0.0), *errs)
+            same = all(torch.equal(a, b) for a, b in zip(got[0], again[0]))
+            if not same or (r is not None and not torch.equal(got[2], again[2])):
+                raise AssertionError(f"bn_train {name}: not repeatable")
+        torch.cuda.empty_cache()
+
+    totals, bounds, design, plain = bn_step_ms(launches, plain=True)
+    ms, bound_ms, plain_ms = sum(totals.values()), sum(bounds.values()), sum(plain.values())
+    design_ms = sum(design.values())
+    counts = {k: len(v) for k, v in launches.items()}
+    print(f"[bn_train] every BatchNorm launch of the fused ResNet50 step (B={RESNET_BATCH}, "
+          f"{RESNET_SIZE} px): moments {counts['moments']}, apply {counts['apply']}, backward "
+          f"{counts['backward']}; worst error x max|ref| "
+          + ", ".join(f"{d} {k} {e:.1e}" for (d, k), e in sorted(worst.items()))
+          + f" (tol {BN_TOL} moments and apply, {BN_BWD_TOL} backward, a bf16 dy one "
+          f"rounding of the f32 value besides); each repeat the same bits")
+    print(f"[bn_train] {card}; f32 device ms a step (CUDA-graph replay): "
+          + ", ".join(f"{k} {totals[k]:.3f} (bound {bounds[k]:.3f}, plain {plain[k]:.3f})"
+                      for k in launches)
+          + f"; all {ms:.3f} ms against a byte bound of {bound_ms:.3f} ({bound_ms / ms:.1%} "
+          f"of the roofline; each input read once, each output written once), the "
+          f"two-pass design's own traffic {design_ms:.3f} ({design_ms / ms:.1%}; the "
+          f"backward reads dz, y and r twice), plain versions {plain_ms:.3f}; library_ms "
+          "null: no single "
+          "PyTorch call computes a BatchNorm with the residual, the shortcut's BatchNorm "
+          "and ReLU, nor the seam's backward")
+    return {"name": "bn_train", "route": "cuda", "source": "sparkdl_torch/csrc/bn_train.cu",
+            "replaces": None, "launches": counts, "max_abs_err": worst["f32", "backward"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None, "by_kind": totals}
+
+
 def phase_train_bert(card: str, dq_entry: dict, dkv_entry: dict, fwd: dict) -> float:
     """finetune_classifier over BERT-base at full width through the flash
     kernels, against the same weights and batches with attn_impl="full"."""
@@ -2625,6 +2806,8 @@ def phase_train_resnet(card: str, gemm_entry: dict) -> float:
 
     from sparkdl_torch.models.common import init_zoo_
     from sparkdl_torch.models.resnet import ResNet50
+    from sparkdl_torch.models.resnet_fused import bn_train_launches
+    from sparkdl_torch.ops.bn_train import batch_moments, bn_train_apply, bn_train_backward
     from sparkdl_torch.ops.fused_gemm_bn import gemm_bn_stats
     from sparkdl_torch.train.vision import (
         _make_step,
@@ -2706,6 +2889,12 @@ def phase_train_resnet(card: str, gemm_entry: dict) -> float:
     if launches != 25 * RESNET_STEPS:
         raise AssertionError(f"gemm_bn_stats launched {launches} times in "
                              f"{RESNET_STEPS} steps, want 25 a step")
+    bn_want = {k: len(v) for k, v in bn_train_launches(RESNET_BATCH, RESNET_SIZE).items()}
+    bn_got = {"moments": batch_moments.launches, "apply": bn_train_apply.launches,
+              "backward": bn_train_backward.launches}
+    if any(bn_got[k] != bn_want[k] * RESNET_STEPS for k in bn_want):
+        raise AssertionError(f"bn_train launched {bn_got} in {RESNET_STEPS} steps, want "
+                             f"{bn_want} a step")
     losses = [float(t) for t in losses]
     if not np.isfinite(losses).all():
         raise AssertionError(f"ResNet50 losses not finite: {losses}")
@@ -2734,6 +2923,7 @@ def phase_train_resnet(card: str, gemm_entry: dict) -> float:
             torch.cuda.empty_cache()
 
     groups = {"fused 1x1 kernel": ("gemm_bn_kernel", "stats_reduce_kernel"),
+              "BatchNorm kernels": ("bn_train_",),
               "cuDNN convs": ("cudnn", "conv", "implicit", "wgrad", "dgrad", "xmma",
                               "sm90", "sm80")}
     eager_times = _kernel_times(lambda: eager_step(x, y), reps=1)
@@ -2748,8 +2938,8 @@ def phase_train_resnet(card: str, gemm_entry: dict) -> float:
           f"ms host-driven ({sum(eager_times.values()):.2f} ms of kernels), plain step "
           f"{timing['plain'] * 1e3:.2f} ms (graphed), "
           f"{RESNET_BATCH / timing['plain']:.1f} images/s; gemm_bn_stats "
-          f"launches {launches} = 25 x {RESNET_STEPS} ({_launch_names(graph.launches)} "
-          f"a replay); graphed vs eager over {RESNET_STEPS} steps under deterministic "
+          f"launches {launches} = 25 x {RESNET_STEPS}, bn_train {bn_got} = {bn_want} x "
+          f"{RESNET_STEPS} ({_launch_names(graph.launches)} a replay); graphed vs eager over {RESNET_STEPS} steps under deterministic "
           f"algorithms: losses, parameters and BN statistics bitwise; vs the plain step: "
           f"first loss rel {loss_rel:.1e} (tol 1e-3), BN stats after step 1 within atol "
           f"1e-4 + rtol 1e-3 (worst excess {stat_err:.1e}), 3 losses "
@@ -6452,6 +6642,7 @@ def main() -> int:
     decode = phase_flash_decode(card)
     dq, dkv, bert_fwd = phase_flash_attention_bwd(card)
     gemm = phase_fused_gemm_bn(card)
+    bn = phase_bn_train(card)
     images_s = phase_main_path(stem, card)
     tokens_s = phase_generate(card, attn, decode)
     examples_s, bert_step_ms = phase_train_bert(card, dq, dkv, bert_fwd)
@@ -6474,7 +6665,7 @@ def main() -> int:
     disagg = phase_disagg(card)
     phase_autoscale(card, serve)
     phase_profile(card)
-    kernels = [stem, attn, dq, dkv, decode, gemm]
+    kernels = [stem, attn, dq, dkv, decode, gemm, bn]
     print(f"[summary] {card}: zoo featurizer images/s "
           + ", ".join(f"{n} {r:.1f}" for n, r in zoo_rates.items())
           + "; zoo at bfloat16 a batch of 64 "

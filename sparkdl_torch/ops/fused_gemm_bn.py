@@ -16,7 +16,11 @@ and a fixed-order reduce of its per-tile stats); on CPU tensors it runs
 is PyTorch ops on both devices (as the JAX package's ``_bwd_rule`` is
 plain jnp): the stats' cotangents fold into ``dY' = dy + dΣ + 2y·dΣ²``,
 and scale and shift get gradients, so a chain of layers backpropagates
-through the previous BatchNorm's batch moments.
+through the previous BatchNorm's batch moments. Where the previous
+BatchNorm's moments are x's own batch moments, given as such
+(``x_moments``), the backward's tail instead runs ``ops/bn_train.py``'s
+backward pair (its kernels on CUDA): dx in closed form with the moments'
+terms included.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from sparkdl_torch.ops._dispatch import (
     on_cuda,
     stream_handle,
 )
+from sparkdl_torch.ops.bn_train import affine, bn_train_backward
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -109,13 +114,15 @@ def _forward(x, w, scale, shift, bias, relu_in):
 
 class _GemmBnStats(torch.autograd.Function):
     """Forward: the kernel (or the plain version on the CPU). Backward:
-    the JAX package's ``_bwd_rule`` in PyTorch ops."""
+    the JAX package's ``_bwd_rule`` in PyTorch ops; with ``x_moments``,
+    its tail through the BatchNorm backward pair."""
 
     @staticmethod
-    def forward(ctx, x, w, scale, shift, bias, relu_in):
+    def forward(ctx, x, w, scale, shift, bias, relu_in, x_moments):
         y, ysum, ysq = _forward(x, w, scale, shift, bias, relu_in)
         ctx.save_for_backward(x, w, scale, shift, bias, y)
-        ctx.relu_in = relu_in
+        ctx.relu_in, ctx.x_moments = relu_in, x_moments
+        ctx.set_materialize_grads(False)  # a stat nobody reads folds in nothing
         return y, ysum, ysq
 
     @staticmethod
@@ -123,8 +130,14 @@ class _GemmBnStats(torch.autograd.Function):
         x, w, scale, shift, bias, y = ctx.saved_tensors
         lp = x.dtype
         # the stats' cotangents fold into one adjusted dY'
-        dyp = (dy.float() + dsum.float()[None, :]
-               + 2.0 * y.float() * dsq.float()[None, :]).to(lp)
+        dyp = torch.zeros_like(y) if dy is None else dy
+        if dsum is not None or dsq is not None:
+            dyp = dyp.float()
+            if dsum is not None:
+                dyp = dyp + dsum.float()[None, :]
+            if dsq is not None:
+                dyp = dyp + 2.0 * y.float() * dsq.float()[None, :]
+            dyp = dyp.to(lp)
         pre = None
         if scale is not None:
             pre = (x.float() * scale[None, :] + shift[None, :]).to(lp)
@@ -134,6 +147,12 @@ class _GemmBnStats(torch.autograd.Function):
         dw = (a.float().t() @ dyp.float()).to(w.dtype)
         dbias = dyp.float().sum(0) if bias is not None else None
         da = (dyp.float() @ w.float().t()).to(lp)
+        if ctx.x_moments is not None:
+            mean, var, eps = ctx.x_moments
+            (dx,), ((dscale, dshift),), _ = bn_train_backward(
+                da, [(x, scale, shift, mean, var)], eps, relu=ctx.relu_in,
+                fma_mask=True, scale_grads=True)
+            return dx, dw, dscale, dshift, dbias, None, None
         gate = pre if pre is not None else x
         dpre = torch.where(gate > 0, da, 0.0).to(lp) if ctx.relu_in else da
         dscale = dshift = None
@@ -143,10 +162,11 @@ class _GemmBnStats(torch.autograd.Function):
             dx = (dpre * scale[None, :].to(lp)).to(x.dtype)
         else:
             dx = dpre.to(x.dtype)
-        return dx, dw, dscale, dshift, dbias, None
+        return dx, dw, dscale, dshift, dbias, None, None
 
 
-def gemm_bn_stats(x, w, scale=None, shift=None, bias=None, *, relu_in=False):
+def gemm_bn_stats(x, w, scale=None, shift=None, bias=None, *, relu_in=False,
+                  x_moments=None):
     """``y = act(scale·x + shift) @ w + bias`` and its per-channel
     ``(Σy, Σy²)``: x ``[M, K]`` and w ``[K, N]`` (float32 or bfloat16; w by
     strides), scale and shift float32 ``[K]`` (both or neither), bias
@@ -154,15 +174,23 @@ def gemm_bn_stats(x, w, scale=None, shift=None, bias=None, *, relu_in=False):
     ``[M, N]`` in x's type, Σy, Σy² in float32), differentiable in x, w,
     scale, shift and bias.
 
+    ``x_moments``: ``(mean, var, eps)`` where scale and shift are the
+    BatchNorm affine over x's own biased batch moments (float32 ``[K]``,
+    not differentiable): the backward then gives x the whole BatchNorm's
+    derivative, the moments' terms included, and scale and shift their
+    gradients with the moments held.
+
     On CUDA tensors the forward launches the kernel on the current stream
     (x contiguous); ``gemm_bn_stats.launches`` counts the launches. On CPU
     tensors it runs :func:`gemm_bn_stats_reference`.
     """
     _check(x, w, scale, shift, bias)
+    if x_moments is not None and scale is None:
+        raise ValueError("x_moments are the moments of scale and shift's BatchNorm")
     inputs = (x, w, scale, shift, bias)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in inputs):
-        return _GemmBnStats.apply(*inputs, bool(relu_in))
+        return _GemmBnStats.apply(*inputs, bool(relu_in), x_moments)
     return _forward(*inputs, bool(relu_in))
 
 
@@ -171,8 +199,8 @@ count_launches(gemm_bn_stats, "launches")
 
 def _prev_bn_affine(prev_bn):
     mean, var, gamma, beta, eps = prev_bn
-    scale = (gamma * torch.rsqrt(var + eps)).float()
-    return scale, (beta - mean * scale).float()
+    scale, shift = affine(gamma, beta, mean, var, eps)
+    return scale.float(), shift.float()
 
 
 def _kernel_2d(w):
@@ -184,13 +212,17 @@ def _kernel_2d(w):
 
 
 def conv1x1_bn_stats(x, w, bias=None, *, prev_bn=None, relu_in=False,
-                     stride=1):
+                     stride=1, x_moments=False):
     """Fused NHWC 1x1 conv with BN-training epilogues.
 
     ``x``: ``[B, H, W, Cin]`` (the RAW pre-normalize activation when
     ``prev_bn`` is given). ``w``: ``[1, 1, Cin, Cout]`` or ``[Cin, Cout]``.
     ``prev_bn`` = (mean, var, gamma, beta, eps) of the BN that normalizes
     x; its normalize (and ReLU when ``relu_in``) runs inside the kernel.
+    With ``x_moments``, that mean and var are x's own biased batch
+    moments (as ``bn_train.batch_moments`` gives them), passed on as
+    ``gemm_bn_stats``'s ``x_moments``: they are taken as constants, and
+    the backward adds their terms to x's gradient in closed form.
     Returns ``(y, batch_mean, batch_var)``: y ``[B, H', W', Cout]`` and
     the biased batch moments this layer's BN needs, from the float32
     accumulator. A stride-2 input is copied to contiguous rows first.
@@ -199,11 +231,15 @@ def conv1x1_bn_stats(x, w, bias=None, *, prev_bn=None, relu_in=False,
     if stride != 1:
         x = x[:, ::stride, ::stride, :]
     b, h, wd, cin = x.shape
-    scale = shift = None
+    scale = shift = moments = None
     if prev_bn is not None:
+        if x_moments:
+            mean, var, gamma, beta, eps = prev_bn
+            prev_bn = (mean.detach(), var.detach(), gamma, beta, eps)
+            moments = (prev_bn[0], prev_bn[1], eps)
         scale, shift = _prev_bn_affine(prev_bn)
     y, ysum, ysq = gemm_bn_stats(x.reshape(b * h * wd, cin), w, scale, shift,
-                                 bias, relu_in=relu_in)
+                                 bias, relu_in=relu_in, x_moments=moments)
     m = b * h * wd
     mean_y = ysum / m
     var_y = torch.clamp(ysq / m - mean_y * mean_y, min=0.0)

@@ -23,11 +23,12 @@ from sparkdl_tpu.models.resnet import ResNet50 as JResNet50
 from sparkdl_torch.models import convert
 from sparkdl_torch.models.resnet import ResNet50
 from sparkdl_torch.models.resnet_fused import resnet50_fused_forward
-from sparkdl_torch.ops import fused_gemm_bn
+from sparkdl_torch.ops import bn_train, fused_gemm_bn
 from sparkdl_torch.train.vision import (
     _nll_from_probs,
     make_resnet50_fused_train_step,
     make_vision_train_step,
+    resnet50_fused_loss_fn,
 )
 from torch_parity import zoo_variables
 
@@ -192,3 +193,102 @@ def test_fused_forward_matches_the_jax_fused_forward(setup):
     _check_outputs(feat, probs, jfeat, jprobs)
     _check_stats({n: {k: t.numpy() for k, t in s.items()} for n, s in new.items()},
                  jax.device_get(jstats))
+
+
+def test_fused_step_routes_every_batchnorm_through_bn_train(setup, monkeypatch):
+    """Forward and backward of the fused step call ops/bn_train.py once per
+    launch of ``bn_train_launches`` (the list the card's launch counts and
+    timings stand on), shape for shape: 28 moments, 36 applies (40
+    BatchNorms), 49 backward pairs (those 40 and the 13 seams)."""
+    from sparkdl_torch.models import resnet_fused
+
+    calls = {"moments": [], "apply": [], "backward": []}
+
+    def counting(kind, fn, shape):
+        def wrapped(*a, **k):
+            calls[kind].append(shape(*a, **k))
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(resnet_fused, "batch_moments", counting(
+        "moments", bn_train.batch_moments, lambda y: tuple(y.shape)))
+    monkeypatch.setattr(resnet_fused, "bn_train", counting(
+        "apply", bn_train.bn_train,
+        lambda terms, eps, residual=None, relu=True: (
+            *terms[0][0].shape, len(terms), residual is not None)))
+    backward = counting(
+        "backward", bn_train.bn_train_backward,
+        lambda dz, terms, eps, residual=None, relu=True, fma_mask=False,
+        scale_grads=False: (*dz.shape, len(terms), residual is not None, fma_mask))
+    for owner in (bn_train, fused_gemm_bn):
+        monkeypatch.setattr(owner, "bn_train_backward", backward)
+    _, variables, x, _ = setup
+    (_, probs), _ = resnet50_fused_forward(
+        _module(variables), torch.from_numpy(x), train=True, num_classes=CLASSES,
+        dtype=torch.float32)
+    probs.sum().backward()
+    want = resnet_fused.bn_train_launches(BATCH, SIZE)
+    for kind in calls:
+        assert sorted(calls[kind]) == sorted(want[kind]), kind
+    assert {k: len(v) for k, v in calls.items()} == {"moments": 28, "apply": 36,
+                                                     "backward": 49}
+
+
+def _eager_bn(terms, eps, *, residual=None, relu=True):
+    """The fused step's BatchNorm as it was before ops/bn_train.py: the
+    affine over the moments as autograd sees them, then multiply, add,
+    residual and ReLU, each through autograd."""
+    u = None
+    for y, gamma, beta, mean, var in terms:
+        scale, shift = bn_train.affine(gamma, beta, mean, var, eps)
+        a = y.float() * scale + shift
+        u = a if u is None else u + a
+    if residual is not None:
+        u = u + residual.float()
+    return (torch.relu(u) if relu else u).to(terms[0][0].dtype)
+
+
+def test_fused_step_gradients_match_the_eager_batchnorm_chain(setup, monkeypatch):
+    """One backward of the fused step's loss against the same step with
+    every BatchNorm on the eager chain (moments through autograd, the
+    seams' moments folded into the fused GEMM's dΣ, dΣ²), float32 from
+    the same start. The forwards are the same bits, so each parameter's
+    gradient (the stem, the seams, the shortcuts, the residual closes,
+    the convs on each side of a seam, the head) differs only by the
+    closed form's order of summation: within 1e-4 of that leaf's largest
+    value. The 53 conv biases have a zero derivative under training
+    BatchNorm; on both sides they are rounding noise, held under 1e-5 of
+    their conv weight's largest gradient.
+
+    The plain module's step is no reference at 1e-4 here: its convs round
+    otherwise, and at B=4 (stage 4 normalizes over 16 rows) a flipped
+    ReLU mask moves a leaf's gradient by percents; on the chip the
+    benchmark's ``grad_gap`` holds the fused step to it."""
+    from sparkdl_torch.models import resnet_fused
+
+    _, variables, x, _ = setup
+    y = torch.from_numpy(np.random.default_rng(6).integers(0, CLASSES, BATCH))
+    grads = {}
+    for name in ("eager", "fused"):
+        if name == "eager":
+            real = fused_gemm_bn.conv1x1_bn_stats
+            monkeypatch.setattr(resnet_fused, "bn_train", _eager_bn)
+            monkeypatch.setattr(resnet_fused, "batch_moments",
+                                bn_train.batch_moments_reference)
+            monkeypatch.setattr(resnet_fused, "conv1x1_bn_stats",
+                                lambda *a, x_moments=False, **k: real(*a, **k))
+        module = _module(variables)
+        loss, _ = resnet50_fused_loss_fn(module, num_classes=CLASSES,
+                                         dtype=torch.float32)(torch.from_numpy(x), y)
+        loss.backward()
+        grads[name] = {n: p.grad for n, p in module.named_parameters()}
+        monkeypatch.undo()
+    assert set(grads["fused"]) == set(grads["eager"])
+    for n, want in grads["eager"].items():
+        got = grads["fused"][n]
+        if n.startswith("conv") and n.endswith(".bias"):
+            scale = float(grads["eager"][n[:-4] + "weight"].abs().max())
+            assert max(float(got.abs().max()), float(want.abs().max())) <= 1e-5 * scale, n
+        else:
+            err = float((got - want).abs().max())
+            assert err <= 1e-4 * float(want.abs().max()), (n, err)
